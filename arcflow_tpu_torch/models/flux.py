@@ -1,0 +1,259 @@
+"""FLUX MM-DiT trunk and the ArcFlux student with its mixture heads.
+
+Counterpart of ``arcflow_tpu/models/flux.py``: 19 dual-stream joint blocks
+and 38 single-stream blocks (held in ``nn.ModuleList``s, not scanned
+stacks), 3-axis RoPE, AdaLN-zero modulation, guidance embeds (FLUX.1-dev
+has them, as every FLUX config of the JAX package), patchify p=2, and the
+three ArcFlow heads, which run in fp32. Latents are channel
+last (B, H, W, C) and packed in (p, p, c) feature order, as in the JAX
+package. ControlNet residuals, fill inputs, MoE and pipeline parallelism
+wait for their slices.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import (AdaLayerNormContinuous, AdaLayerNormZero,
+                     AdaLayerNormZeroSingle, FeedForward, JointAttention,
+                     LoRADense, SingleStreamAttention, layer_norm_no_affine,
+                     rope_frequencies, timestep_sinusoidal)
+
+
+class MLPEmbedder(nn.Module):
+    def __init__(self, in_dim: int, dim: int, lora_rank: int = 0,
+                 device=None, dtype=None):
+        super().__init__()
+        kw = dict(lora_rank=lora_rank, device=device, dtype=dtype)
+        self.linear1 = LoRADense(in_dim, dim, **kw)
+        self.linear2 = LoRADense(dim, dim, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear2(F.silu(self.linear1(x)))
+
+
+class TimeTextEmbed(nn.Module):
+    """Timestep and guidance sinusoidal embeds + pooled-text MLP."""
+
+    def __init__(self, dim: int, pooled_dim: int, lora_rank: int = 0,
+                 device=None, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        kw = dict(device=device, dtype=dtype)
+        self.timestep_embedder = MLPEmbedder(256, dim, lora_rank=lora_rank,
+                                             **kw)
+        self.guidance_embedder = MLPEmbedder(256, dim, **kw)
+        self.text_embedder = MLPEmbedder(pooled_dim, dim, **kw)
+
+    def forward(self, t: torch.Tensor, pooled: torch.Tensor,
+                guidance: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or pooled.dtype
+        temb = self.timestep_embedder(timestep_sinusoidal(t, 256).to(dt))
+        temb = temb + self.guidance_embedder(
+            timestep_sinusoidal(guidance, 256).to(dt))
+        return temb + self.text_embedder(pooled.to(dt))
+
+
+class FluxJointBlock(nn.Module):
+    """Dual-stream block: AdaLN-zero per stream, joint attention, gated MLP."""
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int,
+                 lora_rank: int = 0, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.img_norm1 = AdaLayerNormZero(dim, **kw)
+        self.txt_norm1 = AdaLayerNormZero(dim, **kw)
+        self.attn = JointAttention(dim, num_heads, head_dim, **kw)
+        self.ff_img = FeedForward(dim, lora_rank=lora_rank, **kw)
+        self.ff_txt = FeedForward(dim, lora_rank=lora_rank, **kw)
+
+    def forward(self, img, txt, rope, temb):
+        h_img, gate_i, shift_mlp_i, scale_mlp_i, gate_mlp_i = \
+            self.img_norm1(img, temb)
+        h_txt, gate_t, shift_mlp_t, scale_mlp_t, gate_mlp_t = \
+            self.txt_norm1(txt, temb)
+        attn_img, attn_txt = self.attn(h_img, h_txt, rope)
+        img = img + gate_i * attn_img
+        txt = txt + gate_t * attn_txt
+        h_img = layer_norm_no_affine(img) * (1 + scale_mlp_i) + shift_mlp_i
+        h_txt = layer_norm_no_affine(txt) * (1 + scale_mlp_t) + shift_mlp_t
+        img = img + gate_mlp_i * self.ff_img(h_img)
+        txt = txt + gate_mlp_t * self.ff_txt(h_txt)
+        return img, txt
+
+
+class FluxSingleBlock(nn.Module):
+    """Single-stream block: parallel attention + MLP, fused output proj."""
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int,
+                 lora_rank: int = 0, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        mlp_dim = 4 * dim
+        self.norm = AdaLayerNormZeroSingle(dim, **kw)
+        self.attn = SingleStreamAttention(dim, num_heads, head_dim, **kw)
+        self.proj_mlp = LoRADense(dim, mlp_dim, lora_rank=lora_rank, **kw)
+        self.proj_out = LoRADense(num_heads * head_dim + mlp_dim, dim,
+                                  lora_rank=lora_rank, **kw)
+
+    def forward(self, x, rope, temb):
+        h, gate = self.norm(x, temb)
+        attn_out = self.attn(h, rope)
+        mlp_h = F.gelu(self.proj_mlp(h), approximate='tanh')
+        return x + gate * self.proj_out(torch.cat([attn_out, mlp_h], dim=-1))
+
+
+def make_img_ids(h_tokens: int, w_tokens: int, device=None) -> torch.Tensor:
+    """(h*w, 3) latent position ids: [0, row, col]."""
+    row = torch.arange(h_tokens, device=device)[:, None].expand(
+        h_tokens, w_tokens)
+    col = torch.arange(w_tokens, device=device)[None].expand(
+        h_tokens, w_tokens)
+    return torch.stack([torch.zeros_like(row), row, col], dim=-1).reshape(-1, 3)
+
+
+def patchify(latents: torch.Tensor, p: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/p * W/p, p*p*C), channel-last."""
+    b, h, w, c = latents.shape
+    x = latents.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (h // p) * (w // p), p * p * c)
+
+
+def unpatchify(tokens: torch.Tensor, h: int, w: int, p: int) -> torch.Tensor:
+    """(B, N, p*p*C) -> (B, H, W, C)."""
+    b, n, pc = tokens.shape
+    c = pc // (p * p)
+    x = tokens.reshape(b, h // p, w // p, p, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h, w, c)
+
+
+class FluxBackbone(nn.Module):
+    """Shared trunk: embedders + joint blocks + single blocks."""
+
+    patch_size = 2
+
+    def __init__(self, in_channels: int = 64, num_layers: int = 19,
+                 num_single_layers: int = 38, attention_head_dim: int = 128,
+                 num_attention_heads: int = 24, joint_attention_dim: int = 4096,
+                 pooled_projection_dim: int = 768,
+                 axes_dims_rope: Sequence[int] = (16, 56, 56),
+                 lora_rank: int = 0, device=None, dtype=None):
+        super().__init__()
+        self.in_channels = in_channels
+        self.axes_dims_rope = tuple(axes_dims_rope)
+        inner = num_attention_heads * attention_head_dim
+        self.inner_dim = inner
+        kw = dict(device=device, dtype=dtype)
+        self.x_embedder = LoRADense(in_channels, inner, **kw)
+        self.context_embedder = LoRADense(joint_attention_dim, inner, **kw)
+        self.time_text_embed = TimeTextEmbed(
+            inner, pooled_projection_dim, lora_rank=lora_rank, **kw)
+        self.joint_blocks = nn.ModuleList([
+            FluxJointBlock(inner, num_attention_heads, attention_head_dim,
+                           lora_rank=lora_rank, **kw)
+            for _ in range(num_layers)])
+        self.single_blocks = nn.ModuleList([
+            FluxSingleBlock(inner, num_attention_heads, attention_head_dim,
+                            lora_rank=lora_rank, **kw)
+            for _ in range(num_single_layers)])
+
+    def trunk(self, packed: torch.Tensor, t: torch.Tensor,
+              encoder_hidden_states: torch.Tensor,
+              pooled_projections: torch.Tensor, img_ids: torch.Tensor,
+              txt_ids: torch.Tensor, guidance: torch.Tensor):
+        """packed (B, N_img, in_channels) -> (hidden (B, N_img, D), temb)."""
+        img = self.x_embedder(packed)
+        txt = self.context_embedder(encoder_hidden_states)
+        temb = self.time_text_embed(t.float() * 1000.0, pooled_projections,
+                                    guidance.float() * 1000.0)
+        rope = rope_frequencies(torch.cat([txt_ids, img_ids], dim=0),
+                                self.axes_dims_rope)
+        for block in self.joint_blocks:
+            img, txt = block(img, txt, rope, temb)
+        hidden = torch.cat([txt, img], dim=1)
+        for block in self.single_blocks:
+            hidden = block(hidden, rope, temb)
+        return hidden[:, txt.shape[1]:], temb
+
+    def _prepare_tokens(self, hidden_states, encoder_hidden_states):
+        """patchify + position ids."""
+        b, h, w, c = hidden_states.shape
+        p = self.patch_size
+        dev = hidden_states.device
+        img_ids = make_img_ids(h // p, w // p, device=dev)
+        txt_ids = torch.zeros((encoder_hidden_states.shape[1], 3),
+                              dtype=img_ids.dtype, device=dev)
+        return patchify(hidden_states, p), img_ids, txt_ids
+
+
+class ArcFluxTransformer2DModel(FluxBackbone):
+    """FLUX trunk + the three ArcFlow mixture heads.
+
+    Output dict (channel-last pixel-latent space):
+      means      (B, K, H, W, C)
+      logweights (B, K, H, W, 1)   log-softmax over K, per patch cell
+      loggammas  (B, K-1, H, W, 1)
+    """
+
+    def __init__(self, num_gaussians: int = 16, device=None, dtype=None,
+                 **kwargs):
+        super().__init__(device=device, dtype=dtype, **kwargs)
+        self.num_gaussians = k = num_gaussians
+        p = self.patch_size
+        c = self.in_channels // (p * p)
+        inner = self.inner_dim
+        self.norm_out = AdaLayerNormContinuous(inner, device=device,
+                                               dtype=dtype)
+        # heads in fp32, zero kernels; biases: 0.1*randn per (component,
+        # pixel channel) shared over the p*p cells for the means, zero for
+        # the logweights, log-spaced rates in [0.2, 4] for the loggammas
+        f32 = dict(device=device, dtype=torch.float32)
+        self.proj_out_means = LoRADense(inner, k * p * p * c, **f32)
+        self.proj_out_logweights = LoRADense(inner, k * p * p, **f32)
+        self.proj_out_loggamma = LoRADense(inner, (k - 1) * p * p, **f32)
+        with torch.no_grad():
+            for head in (self.proj_out_means, self.proj_out_logweights,
+                         self.proj_out_loggamma):
+                head.weight.zero_()
+            noise = 0.1 * torch.randn(k, 1, c, **f32)
+            self.proj_out_means.bias.copy_(noise.expand(k, p * p, c).reshape(-1))
+            self.proj_out_logweights.bias.zero_()
+            target = torch.logspace(math.log10(0.2), math.log10(4.0), k - 1,
+                                    **f32)
+            self.proj_out_loggamma.bias.copy_(
+                torch.log(target)[:, None].expand(k - 1, p * p).reshape(-1))
+
+    def forward(self, hidden_states: torch.Tensor, t: torch.Tensor,
+                encoder_hidden_states: torch.Tensor,
+                pooled_projections: torch.Tensor,
+                guidance: torch.Tensor) -> dict:
+        b, h, w, c = hidden_states.shape
+        p = self.patch_size
+        k = self.num_gaussians
+        packed, img_ids, txt_ids = self._prepare_tokens(
+            hidden_states, encoder_hidden_states)
+        hidden, temb = self.trunk(packed, t, encoder_hidden_states,
+                                  pooled_projections, img_ids, txt_ids,
+                                  guidance)
+        hidden = self.norm_out(hidden, temb).float()
+        n = hidden.shape[1]
+
+        means = self.proj_out_means(hidden).reshape(b, n, k, p * p, c)
+        logweights = torch.log_softmax(
+            self.proj_out_logweights(hidden).reshape(b, n, k, p * p, 1), dim=2)
+        loggammas = self.proj_out_loggamma(hidden).reshape(
+            b, n, k - 1, p * p, 1)
+
+        def to_pixel(x, kk, ch):
+            # (B, N, K, p*p, ch) -> (B, K, H, W, ch)
+            x = x.permute(0, 2, 1, 3, 4).reshape(b * kk, n, p * p * ch)
+            return unpatchify(x, h, w, p).reshape(b, kk, h, w, ch)
+
+        return dict(means=to_pixel(means, k, c),
+                    logweights=to_pixel(logweights, k, 1),
+                    loggammas=to_pixel(loggammas, k - 1, 1))

@@ -1,0 +1,279 @@
+"""Shared DiT building blocks as ``nn.Module``s.
+
+Counterpart of ``arcflow_tpu/models/layers.py``. Module and parameter names
+follow the JAX param tree (``img_q``, ``img_q_norm``, ``modulation``, ...),
+so ``pipelines/convert.py:jax_params_to_torch`` maps weights mechanically.
+
+Dtypes: ``dtype`` is a module's parameter and compute dtype for its
+matmuls. Norm scales and LoRA leaves are kept in fp32, as in the JAX
+package; RMSNorm, LayerNorm and RoPE compute in fp32 and cast back.
+
+Only the float paths are here: the int8/int4 LoRADense paths, MoE and the
+mesh/ring attention routing wait for their slices.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import attention as attn_ops
+
+
+def timestep_sinusoidal(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal timestep features [cos, sin], diffusers-compatible
+    ordering, max period 10000."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=t.device) / half)
+    args = t.float()[:, None] * freqs[None]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+class LoRADense(nn.Linear):
+    """Linear with an optional low-rank adapter: y = x W^T + b + (x A) B
+    (LoRA alpha = rank, the only scale the JAX package's configs use).
+
+    ``lora_a`` (in, r) and ``lora_b`` (r, out) keep the JAX layout and stay
+    fp32; they are cast to the compute dtype per call. Eval only: the
+    adapter dropout of training is not ported.
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 lora_rank: int = 0, device=None, dtype=None):
+        super().__init__(in_features, out_features, device=device,
+                         dtype=dtype)
+        self.lora_rank = lora_rank
+        if lora_rank > 0:
+            self.lora_a = nn.Parameter(torch.empty(
+                in_features, lora_rank, device=device, dtype=torch.float32))
+            nn.init.normal_(self.lora_a, std=1.0 / lora_rank)
+            self.lora_b = nn.Parameter(torch.zeros(
+                lora_rank, out_features, device=device, dtype=torch.float32))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.weight.dtype)
+        y = F.linear(x, self.weight, self.bias)
+        if self.lora_rank > 0:
+            y = y + (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype)
+        return y
+
+
+def _zero_dense(in_features: int, out_features: int, device=None, dtype=None
+                ) -> LoRADense:
+    """Dense with zero kernel and bias (the AdaLN-zero modulation init)."""
+    layer = LoRADense(in_features, out_features, device=device, dtype=dtype)
+    nn.init.zeros_(layer.weight)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
+class RMSNorm(nn.Module):
+    """RMS norm over the last dim (per head on q/k in FLUX attention),
+    eps 1e-6; returns ``dtype`` (the input's when None)."""
+
+    def __init__(self, dim: int, device=None, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim, device=device,
+                                              dtype=torch.float32))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        var = x32.square().mean(dim=-1, keepdim=True)
+        out = x32 * torch.rsqrt(var + 1e-6) * self.weight.float()
+        return out.to(self.dtype or x.dtype)
+
+
+def layer_norm_no_affine(x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm over the last dim without affine, eps 1e-6, in fp32."""
+    return F.layer_norm(x.float(), (x.shape[-1],), eps=1e-6).to(x.dtype)
+
+
+class AdaLayerNormZero(nn.Module):
+    """LN (no affine) + 6-way modulation from temb (shift/scale/gate x2)."""
+
+    def __init__(self, dim: int, device=None, dtype=None):
+        super().__init__()
+        self.modulation = _zero_dense(dim, 6 * dim, device, dtype)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor):
+        mod = self.modulation(F.silu(temb))[:, None]
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
+            mod.chunk(6, dim=-1)
+        h = layer_norm_no_affine(x) * (1 + scale_msa) + shift_msa
+        return h, gate_msa, shift_mlp, scale_mlp, gate_mlp
+
+
+class AdaLayerNormZeroSingle(nn.Module):
+    """LN (no affine) + 3-way modulation (shift/scale/gate)."""
+
+    def __init__(self, dim: int, device=None, dtype=None):
+        super().__init__()
+        self.modulation = _zero_dense(dim, 3 * dim, device, dtype)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor):
+        shift, scale, gate = self.modulation(F.silu(temb))[:, None].chunk(
+            3, dim=-1)
+        return layer_norm_no_affine(x) * (1 + scale) + shift, gate
+
+
+class AdaLayerNormContinuous(nn.Module):
+    """Final LN with modulation from temb; note the (scale, shift) chunk
+    order, reversed against AdaLayerNormZero."""
+
+    def __init__(self, dim: int, device=None, dtype=None):
+        super().__init__()
+        self.modulation = _zero_dense(dim, 2 * dim, device, dtype)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        scale, shift = self.modulation(F.silu(temb))[:, None].chunk(2, dim=-1)
+        return layer_norm_no_affine(x) * (1 + scale) + shift
+
+
+class FeedForward(nn.Module):
+    """gelu(tanh) MLP, dim -> 4*dim -> dim (dense; MoE is not ported)."""
+
+    def __init__(self, dim: int, lora_rank: int = 0, device=None, dtype=None):
+        super().__init__()
+        kw = dict(lora_rank=lora_rank, device=device, dtype=dtype)
+        self.in_proj = LoRADense(dim, 4 * dim, **kw)
+        self.out_proj = LoRADense(4 * dim, dim, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out_proj(F.gelu(self.in_proj(x), approximate='tanh'))
+
+
+# ---- rotary embeddings ------------------------------------------------------
+
+def rope_frequencies(ids: torch.Tensor, axes_dim: Sequence[int]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-axis rotary cos/sin (S, sum(axes_dim)) for (S, n_axes) position
+    ids, theta 10000, each frequency repeated twice (pair-interleaved)."""
+    coss, sins = [], []
+    for i, d in enumerate(axes_dim):
+        half = d // 2
+        freqs = 1.0 / (10000.0 ** (torch.arange(half, dtype=torch.float32,
+                                                device=ids.device) * 2 / d))
+        angles = ids[:, i:i + 1].float() * freqs[None]               # (S, half)
+        coss.append(torch.repeat_interleave(torch.cos(angles), 2, dim=-1))
+        sins.append(torch.repeat_interleave(torch.sin(angles), 2, dim=-1))
+    return torch.cat(coss, dim=-1), torch.cat(sins, dim=-1)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """Pairwise rotation in the interleaved layout, x (..., S, D), in fp32:
+    ``x_rot[2i] = -x[2i+1], x_rot[2i+1] = x[2i]``. (The JAX package's
+    lane-roll form gives the same bits and exists for TPU tiling.)"""
+    x32 = x.float()
+    pairs = x32.reshape(*x32.shape[:-1], -1, 2)
+    x_rot = torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).reshape(
+        x32.shape)
+    return (x32 * cos + x_rot * sin).to(x.dtype)
+
+
+# ---- attention ----------------------------------------------------------------
+
+def key_padding_mask(mask: Optional[torch.Tensor], s_kv: int
+                     ) -> Optional[torch.Tensor]:
+    """(B, S_kv) bool key validity when ``mask`` is a key-only padding mask
+    (B, 1, 1, S_kv) broadcast over queries and heads, else None."""
+    if mask is None:
+        return None
+    if (mask.dim() == 4 and mask.shape[1] == 1 and mask.shape[2] == 1
+            and mask.shape[-1] == s_kv):
+        return mask[:, 0, 0, :].bool()
+    return None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scaled dot-product attention on (B, S, H, D) tensors.
+
+    The backend follows the tensors' device: a CUDA tensor runs the Hopper
+    kernel (``ops/attention.py:flash_attention_fwd``), a CPU tensor its
+    plain version. ``mask`` may be None or a key-padding mask
+    (B, 1, 1, S_kv); other masks raise.
+    """
+    kv_valid = key_padding_mask(mask, k.shape[1])
+    if mask is not None and kv_valid is None:
+        raise ValueError('attention takes only key-padding masks '
+                         f'(B, 1, 1, S_kv), got {tuple(mask.shape)}')
+    return attn_ops.flash_attention_fwd(q, k, v, kv_valid)
+
+
+class JointAttention(nn.Module):
+    """FLUX dual-stream joint attention: separate qkv per stream, per-head
+    q/k RMSNorm per stream before the [txt, img] concat, RoPE after it."""
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int,
+                 lora_rank: int = 0, device=None, dtype=None):
+        super().__init__()
+        self.num_heads, self.head_dim = num_heads, head_dim
+        inner = num_heads * head_dim
+        kw = dict(lora_rank=lora_rank, device=device, dtype=dtype)
+        for s in ('img', 'txt'):
+            for p in ('q', 'k', 'v'):
+                self.add_module(f'{s}_{p}', LoRADense(dim, inner, **kw))
+            for p in ('q', 'k'):
+                self.add_module(f'{s}_{p}_norm',
+                                RMSNorm(head_dim, device=device, dtype=dtype))
+            self.add_module(f'{s}_out', LoRADense(inner, dim, **kw))
+
+    def forward(self, img: torch.Tensor, txt: torch.Tensor,
+                rope: Tuple[torch.Tensor, torch.Tensor],
+                mask: Optional[torch.Tensor] = None):
+        b, s_img, _ = img.shape
+        s_txt = txt.shape[1]
+
+        def heads(x, name):
+            return getattr(self, name)(x).reshape(
+                b, x.shape[1], self.num_heads, self.head_dim)
+
+        q_i = self.img_q_norm(heads(img, 'img_q'))
+        k_i = self.img_k_norm(heads(img, 'img_k'))
+        v_i = heads(img, 'img_v')
+        q_t = self.txt_q_norm(heads(txt, 'txt_q'))
+        k_t = self.txt_k_norm(heads(txt, 'txt_k'))
+        v_t = heads(txt, 'txt_v')
+
+        # joint sequence: [txt, img]
+        cos, sin = (r[None, :, None, :] for r in rope)
+        q = apply_rope(torch.cat([q_t, q_i], dim=1), cos, sin)
+        k = apply_rope(torch.cat([k_t, k_i], dim=1), cos, sin)
+        v = torch.cat([v_t, v_i], dim=1)
+        out = attention(q, k, v, mask=mask).reshape(b, s_txt + s_img, -1)
+        return self.img_out(out[:, s_txt:]), self.txt_out(out[:, :s_txt])
+
+
+class SingleStreamAttention(nn.Module):
+    """Attention half of the FLUX single block (no output projection: the
+    block fuses attn + mlp through one proj_out)."""
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int,
+                 lora_rank: int = 0, device=None, dtype=None):
+        super().__init__()
+        self.num_heads, self.head_dim = num_heads, head_dim
+        inner = num_heads * head_dim
+        kw = dict(lora_rank=lora_rank, device=device, dtype=dtype)
+        self.q = LoRADense(dim, inner, **kw)
+        self.k = LoRADense(dim, inner, **kw)
+        self.v = LoRADense(dim, inner, **kw)
+        self.q_norm = RMSNorm(head_dim, device=device, dtype=dtype)
+        self.k_norm = RMSNorm(head_dim, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor,
+                rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        b, s, _ = x.shape
+        shape = (b, s, self.num_heads, self.head_dim)
+        cos, sin = (r[None, :, None, :] for r in rope)
+        q = apply_rope(self.q_norm(self.q(x).reshape(shape)), cos, sin)
+        k = apply_rope(self.k_norm(self.k(x).reshape(shape)), cos, sin)
+        v = self.v(x).reshape(shape)
+        return attention(q, k, v).reshape(b, s, -1)

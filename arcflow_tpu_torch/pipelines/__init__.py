@@ -1,0 +1,4 @@
+from .arcflux_pipeline import ArcFluxPipeline, retrieve_raw_timesteps
+from .convert import jax_params_to_torch
+
+__all__ = ['ArcFluxPipeline', 'jax_params_to_torch', 'retrieve_raw_timesteps']

@@ -1,0 +1,112 @@
+"""End-user 2-NFE FLUX text-to-image pipeline from prompt embeds.
+
+Counterpart of ``arcflow_tpu/pipelines/arcflux_pipeline.py``
+(``retrieve_raw_timesteps`` and ``ArcFluxPipeline``): nfe-step ArcFlow
+sampling (one DiT call + closed-form momentum integration per step,
+temperature on every step but the last) -> VAE decode. The attention
+backend follows the device the modules and inputs live on; there is no
+serving flag. Prompt encoding, ``from_pretrained``, adapter loading,
+quantization and sharding wait for their slices.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..diffusion import ArcFlowImitationDataFree, ContinuousTimeStepSampler
+
+
+def retrieve_raw_timesteps(num_inference_steps: int,
+                           total_substeps: int = 128,
+                           timestep_ratio: float = 1.0):
+    """(nfe, substeps, ratio) -> raw sigma grid + per-segment substep
+    counts."""
+    eps = 1e-4
+    nfe = num_inference_steps
+    ratio = max(timestep_ratio, eps)
+    base = 1.0 / (nfe - 1 + ratio)
+    raw = [1.0]
+    substeps = []
+    for i in range(nfe):
+        seg = base * (ratio if i == nfe - 1 else 1.0)
+        raw.append(max(raw[-1] - seg, 0.0))
+        substeps.append(max(round(seg * total_substeps), 1))
+    return np.asarray(raw, np.float32), substeps
+
+
+class ArcFluxPipeline:
+    """FLUX-family ArcFlow pipeline around a transformer and a VAE module."""
+
+    def __init__(self, transformer: nn.Module, vae: Optional[nn.Module] = None,
+                 shift: float = 3.2, use_dynamic_shifting: bool = False,
+                 nfe: int = 2, timestep_ratio: float = 1.0,
+                 temperature: float = 1.0, guidance_scale: float = 3.5):
+        self.transformer = transformer
+        self.vae = vae
+        self.guidance_scale = guidance_scale
+        self.diffusion = ArcFlowImitationDataFree(
+            denoising=transformer, num_timesteps=1,
+            timestep_sampler=ContinuousTimeStepSampler(
+                shift=shift, use_dynamic_shifting=use_dynamic_shifting),
+            test_cfg=dict(nfe=nfe, timestep_ratio=timestep_ratio,
+                          temperature=temperature))
+
+    def prepare_latents(self, batch_size: int, height: int, width: int,
+                        generator: Optional[torch.Generator] = None,
+                        device=None) -> torch.Tensor:
+        """Gaussian latents (B, H/8, W/8, C) in fp32 from ``generator``."""
+        p = self.transformer.patch_size
+        channels = self.transformer.in_channels // (p * p)
+        return torch.randn((batch_size, height // 8, width // 8, channels),
+                           generator=generator, dtype=torch.float32,
+                           device=device)
+
+    @torch.inference_mode()
+    def __call__(self, prompt_embeds: Dict[str, torch.Tensor],
+                 height: int = 1024, width: int = 1024,
+                 num_inference_steps: Optional[int] = None,
+                 timestep_ratio: Optional[float] = None,
+                 temperature: Optional[float] = None,
+                 guidance_scale: Optional[float] = None,
+                 latents: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 output_type: str = 'np'):
+        """Sample from ``prompt_embeds`` ({encoder_hidden_states,
+        pooled_projections}, on the model's device); the guidance embed
+        input is ``guidance_scale`` unless the embeds carry ``guidance``.
+
+        ``output_type``: 'np' -> {'images': (B, H, W, 3) numpy in [0, 1]},
+        'pt' -> the same as a tensor on the device, 'latent' ->
+        {'latents': (B, H/8, W/8, C)}.
+        """
+        embeds = dict(prompt_embeds)
+        ref = next(iter(embeds.values()))
+        bs = ref.shape[0]
+        if latents is None:
+            latents = self.prepare_latents(bs, height, width, generator,
+                                           device=ref.device)
+        gs = guidance_scale if guidance_scale is not None \
+            else self.guidance_scale
+        if 'guidance' not in embeds:
+            embeds['guidance'] = torch.full((bs,), gs, dtype=torch.float32,
+                                            device=ref.device)
+
+        override = {}
+        if num_inference_steps is not None:
+            override['nfe'] = num_inference_steps
+        if timestep_ratio is not None:
+            override['timestep_ratio'] = timestep_ratio
+        if temperature is not None:
+            override['temperature'] = temperature
+        latents = self.diffusion.forward_test(
+            latents, test_cfg_override=override, **embeds)
+        if self.vae is None or output_type == 'latent':
+            return dict(latents=latents)
+        images = (self.vae.decode(latents) / 2 + 0.5).clamp(0.0, 1.0)
+        if output_type == 'pt':
+            return dict(images=images)
+        return dict(images=images.cpu().numpy())

@@ -1,0 +1,66 @@
+"""Carry the JAX package's parameter trees over to the port's modules.
+
+The port names its modules after the JAX param tree, so the map is
+mechanical (compare ``arcflow_tpu/pipelines/convert.py:flax_to_torch_flux``,
+which does the same unstacking for diffusers naming):
+
+* ``joint_blocks`` / ``single_blocks`` are ``nn.scan`` stacks in JAX: their
+  axis 0 becomes the ``nn.ModuleList`` index;
+* a 2-D ``kernel`` (in, out) becomes ``weight`` (out, in); a conv
+  ``kernel`` (kh, kw, in, out) becomes ``weight`` (out, in, kh, kw);
+* an RMSNorm or GroupNorm ``scale`` becomes ``weight``;
+* ``bias`` and the LoRA leaves ``lora_a`` (in, r) / ``lora_b`` (r, out)
+  are kept as they are.
+
+A loader for diffusers checkpoint keys comes with ``from_pretrained``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+STACKED = ('joint_blocks', 'single_blocks')
+
+
+def _flatten(tree: Mapping, prefix: str = '') -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f'{prefix}{k}'
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key + '.'))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def _leaf(name: str, v: np.ndarray):
+    if name == 'kernel':
+        if v.ndim == 2:
+            return 'weight', v.T
+        if v.ndim == 4:
+            return 'weight', v.transpose(3, 2, 0, 1)
+        raise ValueError(f'unexpected kernel rank {v.ndim}')
+    if name == 'scale':
+        return 'weight', v
+    return name, v
+
+
+def jax_params_to_torch(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX param tree (nested dicts of numpy arrays, e.g. from
+    ``jax.device_get``) -> ``state_dict`` for the port's module of the same
+    structure (``ArcFluxTransformer2DModel``, ``PretrainedVAE``)."""
+    out = {}
+    for key, v in _flatten(tree).items():
+        *path, name = key.split('.')
+        if path and path[0] in STACKED:
+            for i in range(v.shape[0]):
+                t_name, t_v = _leaf(name, v[i])
+                out['.'.join([path[0], str(i), *path[1:], t_name])] = t_v
+        else:
+            t_name, t_v = _leaf(name, v)
+            out['.'.join([*path, t_name])] = t_v
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in out.items()}
