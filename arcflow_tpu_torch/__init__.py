@@ -2,6 +2,8 @@
 
 The JAX package ``arcflow_tpu`` is the reference; this package mirrors its
 layout (``diffusion/``, ``models/``, ``ops/``, ``pipelines/``) and names,
-imports ``torch`` and never ``jax``. Its one hand-written kernel so far is
-the attention forward in ``csrc/attention_fwd.cu`` (``ops/attention.py``).
+imports ``torch`` and never ``jax``. Its hand-written kernels so far are
+the attention forward in ``csrc/attention_fwd.cu`` (``ops/attention.py``)
+and the w4a8 grouped matmul in ``csrc/w4a8_matmul.cu``
+(``ops/quant_matmul.py``).
 """

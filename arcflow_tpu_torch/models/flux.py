@@ -60,7 +60,8 @@ class TimeTextEmbed(nn.Module):
 
 
 class FluxJointBlock(nn.Module):
-    """Dual-stream block: AdaLN-zero per stream, joint attention, gated MLP."""
+    """Dual-stream block: AdaLN-zero per stream, joint attention (with an
+    optional key-padding mask (B, 1, 1, S_kv)), gated MLP."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
                  lora_rank: int = 0, device=None, dtype=None):
@@ -72,12 +73,12 @@ class FluxJointBlock(nn.Module):
         self.ff_img = FeedForward(dim, lora_rank=lora_rank, **kw)
         self.ff_txt = FeedForward(dim, lora_rank=lora_rank, **kw)
 
-    def forward(self, img, txt, rope, temb):
+    def forward(self, img, txt, rope, temb, mask=None):
         h_img, gate_i, shift_mlp_i, scale_mlp_i, gate_mlp_i = \
             self.img_norm1(img, temb)
         h_txt, gate_t, shift_mlp_t, scale_mlp_t, gate_mlp_t = \
             self.txt_norm1(txt, temb)
-        attn_img, attn_txt = self.attn(h_img, h_txt, rope)
+        attn_img, attn_txt = self.attn(h_img, h_txt, rope, mask=mask)
         img = img + gate_i * attn_img
         txt = txt + gate_t * attn_txt
         h_img = layer_norm_no_affine(img) * (1 + scale_mlp_i) + shift_mlp_i
@@ -191,8 +192,9 @@ class FluxBackbone(nn.Module):
         return patchify(hidden_states, p), img_ids, txt_ids
 
 
-class ArcFluxTransformer2DModel(FluxBackbone):
-    """FLUX trunk + the three ArcFlow mixture heads.
+class ArcFlowHeads:
+    """``norm_out`` and the three ArcFlow mixture heads, shared by the
+    ArcFlux and ArcQwen students (a mixin of their ``nn.Module``).
 
     Output dict (channel-last pixel-latent space):
       means      (B, K, H, W, C)
@@ -200,9 +202,7 @@ class ArcFluxTransformer2DModel(FluxBackbone):
       loggammas  (B, K-1, H, W, 1)
     """
 
-    def __init__(self, num_gaussians: int = 16, device=None, dtype=None,
-                 **kwargs):
-        super().__init__(device=device, dtype=dtype, **kwargs)
+    def _init_heads(self, num_gaussians: int, device=None, dtype=None):
         self.num_gaussians = k = num_gaussians
         p = self.patch_size
         c = self.in_channels // (p * p)
@@ -228,18 +228,12 @@ class ArcFluxTransformer2DModel(FluxBackbone):
             self.proj_out_loggamma.bias.copy_(
                 torch.log(target)[:, None].expand(k - 1, p * p).reshape(-1))
 
-    def forward(self, hidden_states: torch.Tensor, t: torch.Tensor,
-                encoder_hidden_states: torch.Tensor,
-                pooled_projections: torch.Tensor,
-                guidance: torch.Tensor) -> dict:
-        b, h, w, c = hidden_states.shape
+    def _heads(self, hidden: torch.Tensor, temb: torch.Tensor, b: int,
+               h: int, w: int) -> dict:
+        """Trunk tokens (B, N, D) -> the mixture dict, heads in fp32."""
         p = self.patch_size
         k = self.num_gaussians
-        packed, img_ids, txt_ids = self._prepare_tokens(
-            hidden_states, encoder_hidden_states)
-        hidden, temb = self.trunk(packed, t, encoder_hidden_states,
-                                  pooled_projections, img_ids, txt_ids,
-                                  guidance)
+        c = self.in_channels // (p * p)
         hidden = self.norm_out(hidden, temb).float()
         n = hidden.shape[1]
 
@@ -257,3 +251,27 @@ class ArcFluxTransformer2DModel(FluxBackbone):
         return dict(means=to_pixel(means, k, c),
                     logweights=to_pixel(logweights, k, 1),
                     loggammas=to_pixel(loggammas, k - 1, 1))
+
+
+class ArcFluxTransformer2DModel(ArcFlowHeads, FluxBackbone):
+    """FLUX trunk + the three ArcFlow mixture heads (see ``ArcFlowHeads``
+    for the output dict). It always has guidance embeds."""
+
+    guidance_embeds = True
+
+    def __init__(self, num_gaussians: int = 16, device=None, dtype=None,
+                 **kwargs):
+        super().__init__(device=device, dtype=dtype, **kwargs)
+        self._init_heads(num_gaussians, device=device, dtype=dtype)
+
+    def forward(self, hidden_states: torch.Tensor, t: torch.Tensor,
+                encoder_hidden_states: torch.Tensor,
+                pooled_projections: torch.Tensor,
+                guidance: torch.Tensor) -> dict:
+        b, h, w, _ = hidden_states.shape
+        packed, img_ids, txt_ids = self._prepare_tokens(
+            hidden_states, encoder_hidden_states)
+        hidden, temb = self.trunk(packed, t, encoder_hidden_states,
+                                  pooled_projections, img_ids, txt_ids,
+                                  guidance)
+        return self._heads(hidden, temb, b, h, w)

@@ -8,8 +8,9 @@ Dtypes: ``dtype`` is a module's parameter and compute dtype for its
 matmuls. Norm scales and LoRA leaves are kept in fp32, as in the JAX
 package; RMSNorm, LayerNorm and RoPE compute in fp32 and cast back.
 
-Only the float paths are here: the int8/int4 LoRADense paths, MoE and the
-mesh/ring attention routing wait for their slices.
+``LoRADense`` has the float path and the int4 path (weight-only or w4a8,
+after ``utils/quantize.py:quantize_weights_int4``); the int8 paths, MoE and
+the mesh/ring attention routing wait for their slices.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention as attn_ops
+from ..ops import quant_matmul as qmm_ops
+from ..utils.quantize import unpack_nibbles
 
 
 def timestep_sinusoidal(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -35,6 +38,38 @@ def timestep_sinusoidal(t: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
+def _int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                 dtype: torch.dtype, act_quant: bool) -> torch.Tensor:
+    """x @ dequant(packed int4) for the group-local half-split layout
+    (``utils/quantize.py:pack_int4``), ``packed`` (in/2, out) int8 and
+    ``scale`` (G, 1, out) fp32. Two modes, as in the JAX package:
+
+    * weight-only (``act_quant`` False): two dots in ``dtype`` over the
+      nibble halves, ``x_lo . deq(lo) + x_hi . deq(hi)``;
+    * w4a8: per-token symmetric int8 activations (absmax / 127, round half
+      to even), the grouped matmul (``ops/quant_matmul.py:w4a8_matmul``:
+      the Hopper kernel on a CUDA tensor, whatever the token count), then
+      ``(y * x_scale)`` cast to ``dtype``.
+    """
+    g = scale.shape[-3]
+    ph = packed.shape[-2] // g                 # packed rows per group
+    out = packed.shape[-1]
+    lead = x.shape[:-1]
+    if act_quant:
+        x32 = x.float()
+        xs = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+        xq = torch.round(x32 / xs).clamp_(-127, 127).to(torch.int8)
+        y = qmm_ops.w4a8_matmul(xq.reshape(-1, x.shape[-1]).contiguous(),
+                                packed, scale[:, 0, :])
+        return (y.reshape(*lead, out) * xs).to(dtype)
+    lo, hi = unpack_nibbles(packed)
+    sc = scale.to(dtype).expand(g, ph, out).reshape(g * ph, out)
+    xr = x.to(dtype).reshape(*lead, g, 2, ph)
+    x_lo = xr[..., 0, :].reshape(*lead, g * ph)
+    x_hi = xr[..., 1, :].reshape(*lead, g * ph)
+    return x_lo @ (lo.to(dtype) * sc) + x_hi @ (hi.to(dtype) * sc)
+
+
 class LoRADense(nn.Linear):
     """Linear with an optional low-rank adapter: y = x W^T + b + (x A) B
     (LoRA alpha = rank, the only scale the JAX package's configs use).
@@ -42,12 +77,19 @@ class LoRADense(nn.Linear):
     ``lora_a`` (in, r) and ``lora_b`` (r, out) keep the JAX layout and stay
     fp32; they are cast to the compute dtype per call. Eval only: the
     adapter dropout of training is not ported.
+
+    After ``quantize_weights_int4`` the layer has no ``weight``; its kernel
+    lives in the ``kernel_packed4``/``kernel_scale4`` buffers (JAX names
+    and layout), and ``act_quant`` selects w4a8 over weight-only int4. The
+    bias and the LoRA branch are added after the int4 product.
     """
 
     def __init__(self, in_features: int, out_features: int,
                  lora_rank: int = 0, device=None, dtype=None):
         super().__init__(in_features, out_features, device=device,
                          dtype=dtype)
+        self.dtype = self.weight.dtype           # compute dtype
+        self.act_quant = False
         self.lora_rank = lora_rank
         if lora_rank > 0:
             self.lora_a = nn.Parameter(torch.empty(
@@ -56,9 +98,20 @@ class LoRADense(nn.Linear):
             self.lora_b = nn.Parameter(torch.zeros(
                 lora_rank, out_features, device=device, dtype=torch.float32))
 
+    @property
+    def is_int4(self) -> bool:
+        return 'kernel_packed4' in self._buffers
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype)
-        y = F.linear(x, self.weight, self.bias)
+        if self.is_int4:
+            y = _int4_matmul(x, self.kernel_packed4, self.kernel_scale4,
+                             self.dtype, self.act_quant)
+            if self.bias is not None:
+                y = y + self.bias.to(self.dtype)
+            x = x.to(self.dtype)
+        else:
+            x = x.to(self.weight.dtype)
+            y = F.linear(x, self.weight, self.bias)
         if self.lora_rank > 0:
             y = y + (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype)
         return y

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 The sources under ``arcflow_tpu_torch/csrc/*.cu`` expose plain C entry
-points. They are compiled by ``nvcc`` for Hopper (``sm_90a``) into one
-shared library under ``build/arcflow_tpu_torch/`` at the repository root,
-named by a hash of the sources and flags, so a changed source builds anew
-and an unchanged one is loaded as it is. Importing this module needs no
+points. Each is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all
+started together, and the objects are linked into one shared library under
+``build/arcflow_tpu_torch/`` at the repository root, named by a hash of the
+sources and flags, so a changed source builds anew and an unchanged one is
+loaded as it is. Importing this module needs no
 ``nvcc``; only a CUDA launch builds.
 """
 
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'arcflow_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -54,23 +55,39 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for them already exists.
 
-    Writes nvcc's output (``-Xptxas -v``: registers, shared memory and
-    spills per kernel) beside the library as ``<name>.log``; raises with
-    nvcc's stderr when the build fails.
+    One ``nvcc -c`` per source runs in parallel, then one link. Writes
+    nvcc's output (``-Xptxas -v``: registers, shared memory and spills per
+    kernel) beside the library as ``<name>.log``; raises with nvcc's stderr
+    when a step fails.
     """
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(s) for s in sorted(CSRC_DIR.glob('*.cu'))]
+    nvcc = find_nvcc()
+    tag = f'{lib.stem}.{os.getpid()}'
+    objs, procs = [], []
+    for src in sorted(CSRC_DIR.glob('*.cu')):
+        obj = BUILD_DIR / f'{tag}.{src.stem}.o'
+        cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *sources]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix('.log').write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'nvcc failed ({res.returncode}): {" ".join(cmd)}'
-                           f'\n{res.stderr}')
+    steps = [(cmd, *proc.communicate(), proc.returncode)
+             for cmd, proc in procs]
+    if all(rc == 0 for *_, rc in steps):
+        cmd = [nvcc, '-shared', '-o', str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        steps.append((cmd, res.stdout, res.stderr, res.returncode))
+    lib.with_suffix('.log').write_text(''.join(
+        out + err for _, out, err, _ in steps))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    for cmd, _, err, rc in steps:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f'nvcc failed ({rc}): {" ".join(cmd)}\n{err}')
     os.replace(tmp, lib)   # atomic: a concurrent loader never sees half a file
     return lib
 
@@ -84,6 +101,8 @@ def load_library() -> ctypes.CDLL:
     lib.arcflow_attention_fwd.argtypes = [_P] * 6 + [_I32] * 3 + [_I64] * 13 \
         + [_P]
     lib.arcflow_attention_fwd.restype = _I32
+    lib.arcflow_w4a8_matmul.argtypes = [_P] * 4 + [_I32] * 4 + [_P]
+    lib.arcflow_w4a8_matmul.restype = _I32
     lib.arcflow_cuda_error_string.argtypes = [_I32]
     lib.arcflow_cuda_error_string.restype = ctypes.c_char_p
     return lib

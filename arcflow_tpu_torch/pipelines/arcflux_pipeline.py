@@ -1,12 +1,15 @@
-"""End-user 2-NFE FLUX text-to-image pipeline from prompt embeds.
+"""End-user 2-NFE text-to-image pipelines (FLUX, Qwen-Image) from prompt
+embeds.
 
 Counterpart of ``arcflow_tpu/pipelines/arcflux_pipeline.py``
-(``retrieve_raw_timesteps`` and ``ArcFluxPipeline``): nfe-step ArcFlow
-sampling (one DiT call + closed-form momentum integration per step,
-temperature on every step but the last) -> VAE decode. The attention
-backend follows the device the modules and inputs live on; there is no
-serving flag. Prompt encoding, ``from_pretrained``, adapter loading,
-quantization and sharding wait for their slices.
+(``retrieve_raw_timesteps``, ``ArcFluxPipeline`` with ``quantize_int4``,
+``ArcQwenImagePipeline``): nfe-step ArcFlow sampling (one DiT call +
+closed-form momentum integration per step, temperature on every step but
+the last) -> VAE decode. The kernels follow the device the modules and
+inputs live on, and the w4a8 mode is state of the transformer's layers;
+there is no process-wide serving or quantization flag. Prompt encoding,
+``from_pretrained``, adapter loading, int8 and sharding wait for their
+slices.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ def retrieve_raw_timesteps(num_inference_steps: int,
 class ArcFluxPipeline:
     """FLUX-family ArcFlow pipeline around a transformer and a VAE module."""
 
+    family = 'flux'
+
     def __init__(self, transformer: nn.Module, vae: Optional[nn.Module] = None,
                  shift: float = 3.2, use_dynamic_shifting: bool = False,
                  nfe: int = 2, timestep_ratio: float = 1.0,
@@ -65,6 +70,20 @@ class ArcFluxPipeline:
                            generator=generator, dtype=torch.float32,
                            device=device)
 
+    def quantize_int4(self, act_quant: bool = False,
+                      min_size: int = 2 ** 16, group_size: int = 128
+                      ) -> int:
+        """int4-quantize the transformer's big kernels in place, with
+        group-wise scales (``utils/quantize.py:quantize_weights_int4``);
+        ``act_quant=True`` (w4a8) also quantizes activations per token and
+        runs the grouped-matmul kernel. The ArcFlow adapter surface (heads,
+        LoRA, ``norm_out``) stays as it is. Call after the weights are
+        loaded. Returns the number of quantized layers."""
+        from ..utils.quantize import quantize_weights_int4
+        return len(quantize_weights_int4(self.transformer, min_size=min_size,
+                                         group_size=group_size,
+                                         act_quant=act_quant))
+
     @torch.inference_mode()
     def __call__(self, prompt_embeds: Dict[str, torch.Tensor],
                  height: int = 1024, width: int = 1024,
@@ -75,9 +94,11 @@ class ArcFluxPipeline:
                  latents: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
                  output_type: str = 'np'):
-        """Sample from ``prompt_embeds`` ({encoder_hidden_states,
-        pooled_projections}, on the model's device); the guidance embed
-        input is ``guidance_scale`` unless the embeds carry ``guidance``.
+        """Sample from ``prompt_embeds`` (the transformer's conditioning,
+        on its device: {encoder_hidden_states, pooled_projections} for
+        FLUX, {encoder_hidden_states, encoder_hidden_states_mask} for
+        Qwen). A transformer with guidance embeds gets ``guidance_scale``
+        unless the embeds carry ``guidance``; one without gets none.
 
         ``output_type``: 'np' -> {'images': (B, H, W, 3) numpy in [0, 1]},
         'pt' -> the same as a tensor on the device, 'latent' ->
@@ -91,7 +112,8 @@ class ArcFluxPipeline:
                                            device=ref.device)
         gs = guidance_scale if guidance_scale is not None \
             else self.guidance_scale
-        if 'guidance' not in embeds:
+        if getattr(self.transformer, 'guidance_embeds', False) and \
+                'guidance' not in embeds:
             embeds['guidance'] = torch.full((bs,), gs, dtype=torch.float32,
                                             device=ref.device)
 
@@ -110,3 +132,11 @@ class ArcFluxPipeline:
         if output_type == 'pt':
             return dict(images=images)
         return dict(images=images.cpu().numpy())
+
+
+class ArcQwenImagePipeline(ArcFluxPipeline):
+    """Qwen-Image-family ArcFlow pipeline: the same sampling; Qwen has no
+    guidance embeds, and its prompt embeds carry the text mask
+    ``encoder_hidden_states_mask`` through to the transformer."""
+
+    family = 'qwen'

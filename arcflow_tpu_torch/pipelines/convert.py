@@ -4,25 +4,28 @@ The port names its modules after the JAX param tree, so the map is
 mechanical (compare ``arcflow_tpu/pipelines/convert.py:flax_to_torch_flux``,
 which does the same unstacking for diffusers naming):
 
-* ``joint_blocks`` / ``single_blocks`` are ``nn.scan`` stacks in JAX: their
-  axis 0 becomes the ``nn.ModuleList`` index;
+* ``joint_blocks`` / ``single_blocks`` / ``transformer_blocks`` are
+  ``nn.scan`` stacks in JAX: their axis 0 becomes the ``nn.ModuleList``
+  index;
 * a 2-D ``kernel`` (in, out) becomes ``weight`` (out, in); a conv
   ``kernel`` (kh, kw, in, out) becomes ``weight`` (out, in, kh, kw);
 * an RMSNorm or GroupNorm ``scale`` becomes ``weight``;
-* ``bias`` and the LoRA leaves ``lora_a`` (in, r) / ``lora_b`` (r, out)
-  are kept as they are.
+* ``bias``, the LoRA leaves ``lora_a`` (in, r) / ``lora_b`` (r, out), the
+  Wan RMSNorm ``gamma`` and the int4 leaves of the JAX ``quant``
+  collection, ``kernel_packed4`` (in/2, out) and ``kernel_scale4``
+  (in/g, 1, out), are kept as they are.
 
 A loader for diffusers checkpoint keys comes with ``from_pretrained``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-STACKED = ('joint_blocks', 'single_blocks')
+STACKED = ('joint_blocks', 'single_blocks', 'transformer_blocks')
 
 
 def _flatten(tree: Mapping, prefix: str = '') -> Dict[str, np.ndarray]:
@@ -48,12 +51,16 @@ def _leaf(name: str, v: np.ndarray):
     return name, v
 
 
-def jax_params_to_torch(tree: Mapping) -> Dict[str, torch.Tensor]:
+def jax_params_to_torch(tree: Mapping, quant: Optional[Mapping] = None
+                        ) -> Dict[str, torch.Tensor]:
     """JAX param tree (nested dicts of numpy arrays, e.g. from
-    ``jax.device_get``) -> ``state_dict`` for the port's module of the same
-    structure (``ArcFluxTransformer2DModel``, ``PretrainedVAE``)."""
+    ``jax.device_get``), and the ``quant`` collection of an int4-quantized
+    model if there is one, -> ``state_dict`` for the port's module of the
+    same structure (``ArcFluxTransformer2DModel``,
+    ``ArcQwenImageTransformer2DModel`` (after ``quantize_weights_int4`` when
+    ``quant`` is given), ``PretrainedVAE``, ``PretrainedVAEQwenImage``)."""
     out = {}
-    for key, v in _flatten(tree).items():
+    for key, v in {**_flatten(tree), **_flatten(quant or {})}.items():
         *path, name = key.split('.')
         if path and path[0] in STACKED:
             for i in range(v.shape[0]):
@@ -62,5 +69,5 @@ def jax_params_to_torch(tree: Mapping) -> Dict[str, torch.Tensor]:
         else:
             t_name, t_v = _leaf(name, v)
             out['.'.join([*path, t_name])] = t_v
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
+    return {k: torch.from_numpy(np.array(v, order='C'))
             for k, v in out.items()}
