@@ -4,8 +4,8 @@ Counterpart of ``arcflow_tpu/diffusion/integrator.py`` (``_safe_expm1_over_x``
 and ``momentum_integration``). Each component ``u_k(sigma) = m_k *
 exp(rate_k * (sigma_src - sigma))`` integrates in closed form over a sigma
 interval. The math runs in fp32 with autocast off: 2-NFE quality depends on
-it being exact. ``policy_average_u`` belongs to training and waits for that
-slice.
+it being exact. ``policy_average_u`` is the student's mean velocity over a
+span, which the distillation loss regresses.
 
 Conventions: ``sigma_*`` are (B,) noise levels; x moves from high sigma to
 low, so ``dt_step = sigma_start - sigma_end >= 0`` and the displacement is
@@ -68,3 +68,24 @@ def momentum_integration(policy: ArcFlowPolicy, x_t_start: torch.Tensor,
             x_t_mid = (x32 - 0.5 * displacement).to(x_t_start.dtype)
             return x_t_end, x_t_mid
         return x_t_end
+
+
+def policy_average_u(policy: ArcFlowPolicy, x_t_start: torch.Tensor,
+                     sigma_t_start, sigma_t_end, raw_t_start, raw_t_end,
+                     total_substeps: int, eps: float = 1e-4) -> torch.Tensor:
+    """The policy's mean velocity over [sigma_t_start, sigma_t_end]: the
+    closed-form displacement over the span's sigma length; spans shorter
+    than 2 of ``total_substeps`` (in raw time) take the local velocity at
+    the start instead, per sample (JAX ``integrator.py:91-116``)."""
+    dev = x_t_start.device
+    b, ndim = x_t_start.shape[0], x_t_start.dim()
+    sigma_t_start, sigma_t_end, raw_t_start, raw_t_end = (
+        torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(b)
+        for v in (sigma_t_start, sigma_t_end, raw_t_start, raw_t_end))
+    is_small = torch.round((raw_t_start - raw_t_end) * total_substeps) < 2
+    x_t_end = momentum_integration(policy, x_t_start, sigma_t_start,
+                                   sigma_t_end, eps)
+    denom = torch.clamp(sigma_t_start - sigma_t_end, min=eps)
+    mean_u = (x_t_start - x_t_end) / _bshape(denom, ndim)
+    local_u = policy.velocity(sigma_t_start)
+    return torch.where(_bshape(is_small, ndim), local_u, mean_u)

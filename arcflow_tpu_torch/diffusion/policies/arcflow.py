@@ -9,7 +9,8 @@ sigma_src, is
 
     u(sigma) = sum_k softmax(logweights)_k * m_k * exp(rate_k * (sigma_src - sigma)).
 
-Transforms return new policies; nothing is mutated.
+Transforms (``detach``, ``dropout``, ``temperature``) return new policies;
+nothing is mutated.
 """
 
 from __future__ import annotations
@@ -78,6 +79,29 @@ class ArcFlowPolicy:
         dt_past = self.sigma_t_src - sigma_t.reshape(self.sigma_t_src.shape)
         v_k = self.means_u * self.decay(dt_past) * self.weights()
         return v_k.sum(dim=1)
+
+    def detach(self) -> 'ArcFlowPolicy':
+        """The same policy cut from the autograd graph (JAX
+        ``stop_gradient`` over the pytree)."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).detach()
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+    def dropout(self, generator: torch.Generator, p: float
+                ) -> 'ArcFlowPolicy':
+        """Drop mixture components at random, never all of a cell's, by a
+        -inf logweight (JAX ``dropout``); one uniform draw per (sample,
+        component) from ``generator``."""
+        if p <= 0.0 or p >= 1.0:
+            return self
+        b, k = self.logweights.shape[:2]
+        mask_shape = (b, k) + (1,) * (self.logweights.dim() - 2)
+        drop = torch.rand(mask_shape, generator=generator,
+                          device=self.logweights.device) < p
+        drop = drop & ~drop.all(dim=1, keepdim=True)
+        return dataclasses.replace(
+            self, logweights=self.logweights.masked_fill(drop, -torch.inf))
 
     def temperature(self, temp: float) -> 'ArcFlowPolicy':
         """Sharpen or soften the mixture weights: logweights / temp."""

@@ -1,7 +1,9 @@
-from .flux import ArcFluxTransformer2DModel
+from .flux import ArcFluxTransformer2DModel, FluxTransformer2DModel
+from .latent_diffusion import LatentDiffusionTextImage
 from .qwen import ArcQwenImageTransformer2DModel
 from .qwen_vae import PretrainedVAEQwenImage
 from .vae import PretrainedVAE
 
 __all__ = ['ArcFluxTransformer2DModel', 'ArcQwenImageTransformer2DModel',
+           'FluxTransformer2DModel', 'LatentDiffusionTextImage',
            'PretrainedVAE', 'PretrainedVAEQwenImage']

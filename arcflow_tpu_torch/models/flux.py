@@ -1,23 +1,32 @@
-"""FLUX MM-DiT trunk and the ArcFlux student with its mixture heads.
+"""FLUX MM-DiT trunk, the teacher with its u head and the ArcFlux student
+with its mixture heads.
 
 Counterpart of ``arcflow_tpu/models/flux.py``: 19 dual-stream joint blocks
 and 38 single-stream blocks (held in ``nn.ModuleList``s, not scanned
 stacks), 3-axis RoPE, AdaLN-zero modulation, guidance embeds (FLUX.1-dev
-has them, as every FLUX config of the JAX package), patchify p=2, and the
-three ArcFlow heads, which run in fp32. Latents are channel
-last (B, H, W, C) and packed in (p, p, c) feature order, as in the JAX
-package. ControlNet residuals, fill inputs, MoE and pipeline parallelism
-wait for their slices.
+has them, as every FLUX config of the JAX package), patchify p=2, the
+teacher's ``proj_out`` and the three ArcFlow heads, which run in fp32.
+Latents are channel last (B, H, W, C) and packed in (p, p, c) feature
+order, as in the JAX package.
+
+Training: with ``checkpointing`` each block keeps only its inputs and is run
+again in the backward (``torch.utils.checkpoint``, the JAX ``nn.remat``),
+and the LoRA dropout of block ``i`` draws from a generator seeded from
+``(dropout_seed, i)`` (JAX ``jax.random.fold_in(key, i)``). The seed is an
+input of the checkpointed function, so the recompute draws the same masks.
+ControlNet residuals, fill inputs, MoE and pipeline parallelism wait for
+their slices.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (AdaLayerNormContinuous, AdaLayerNormZero,
                      AdaLayerNormZeroSingle, FeedForward, JointAttention,
@@ -25,35 +34,57 @@ from .layers import (AdaLayerNormContinuous, AdaLayerNormZero,
                      rope_frequencies, timestep_sinusoidal)
 
 
+# the student's trainable surface (reference freeze_exclude,
+# configs/flux/arcflux_2nfe_k16.py:20-26; JAX flux.py:45-46)
+ARCFLUX_ADAPTER_KEYS = ('proj_out_means', 'proj_out_logweights',
+                        'proj_out_loggamma', 'norm_out', 'lora')
+
+
+def dropout_generator(seed: Optional[int], index: int, device
+                      ) -> Optional[torch.Generator]:
+    """The generator of block ``index``'s LoRA dropout for a forward with
+    ``seed`` (None: no dropout): a function of both, so a recompute of the
+    block draws what its first run drew."""
+    if seed is None:
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed((seed * 0x9E3779B1 + index + 1) % 2 ** 63)
+    return g
+
+
 class MLPEmbedder(nn.Module):
     def __init__(self, in_dim: int, dim: int, lora_rank: int = 0,
-                 device=None, dtype=None):
+                 lora_dropout: float = 0.0, device=None, dtype=None):
         super().__init__()
-        kw = dict(lora_rank=lora_rank, device=device, dtype=dtype)
+        kw = dict(lora_rank=lora_rank, lora_dropout=lora_dropout,
+                  device=device, dtype=dtype)
         self.linear1 = LoRADense(in_dim, dim, **kw)
         self.linear2 = LoRADense(dim, dim, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear2(F.silu(self.linear1(x)))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.linear2(F.silu(self.linear1(x, generator)), generator)
 
 
 class TimeTextEmbed(nn.Module):
     """Timestep and guidance sinusoidal embeds + pooled-text MLP."""
 
     def __init__(self, dim: int, pooled_dim: int, lora_rank: int = 0,
-                 device=None, dtype=None):
+                 lora_dropout: float = 0.0, device=None, dtype=None):
         super().__init__()
         self.dtype = dtype
         kw = dict(device=device, dtype=dtype)
         self.timestep_embedder = MLPEmbedder(256, dim, lora_rank=lora_rank,
-                                             **kw)
+                                             lora_dropout=lora_dropout, **kw)
         self.guidance_embedder = MLPEmbedder(256, dim, **kw)
         self.text_embedder = MLPEmbedder(pooled_dim, dim, **kw)
 
     def forward(self, t: torch.Tensor, pooled: torch.Tensor,
-                guidance: torch.Tensor) -> torch.Tensor:
+                guidance: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype or pooled.dtype
-        temb = self.timestep_embedder(timestep_sinusoidal(t, 256).to(dt))
+        temb = self.timestep_embedder(timestep_sinusoidal(t, 256).to(dt),
+                                      generator)
         temb = temb + self.guidance_embedder(
             timestep_sinusoidal(guidance, 256).to(dt))
         return temb + self.text_embedder(pooled.to(dt))
@@ -64,16 +95,18 @@ class FluxJointBlock(nn.Module):
     optional key-padding mask (B, 1, 1, S_kv)), gated MLP."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
-                 lora_rank: int = 0, device=None, dtype=None):
+                 lora_rank: int = 0, lora_dropout: float = 0.0, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.img_norm1 = AdaLayerNormZero(dim, **kw)
         self.txt_norm1 = AdaLayerNormZero(dim, **kw)
         self.attn = JointAttention(dim, num_heads, head_dim, **kw)
-        self.ff_img = FeedForward(dim, lora_rank=lora_rank, **kw)
-        self.ff_txt = FeedForward(dim, lora_rank=lora_rank, **kw)
+        lora = dict(lora_rank=lora_rank, lora_dropout=lora_dropout)
+        self.ff_img = FeedForward(dim, **lora, **kw)
+        self.ff_txt = FeedForward(dim, **lora, **kw)
 
-    def forward(self, img, txt, rope, temb, mask=None):
+    def forward(self, img, txt, rope, temb, mask=None, generator=None):
         h_img, gate_i, shift_mlp_i, scale_mlp_i, gate_mlp_i = \
             self.img_norm1(img, temb)
         h_txt, gate_t, shift_mlp_t, scale_mlp_t, gate_mlp_t = \
@@ -83,8 +116,8 @@ class FluxJointBlock(nn.Module):
         txt = txt + gate_t * attn_txt
         h_img = layer_norm_no_affine(img) * (1 + scale_mlp_i) + shift_mlp_i
         h_txt = layer_norm_no_affine(txt) * (1 + scale_mlp_t) + shift_mlp_t
-        img = img + gate_mlp_i * self.ff_img(h_img)
-        txt = txt + gate_mlp_t * self.ff_txt(h_txt)
+        img = img + gate_mlp_i * self.ff_img(h_img, generator)
+        txt = txt + gate_mlp_t * self.ff_txt(h_txt, generator)
         return img, txt
 
 
@@ -92,21 +125,23 @@ class FluxSingleBlock(nn.Module):
     """Single-stream block: parallel attention + MLP, fused output proj."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
-                 lora_rank: int = 0, device=None, dtype=None):
+                 lora_rank: int = 0, lora_dropout: float = 0.0, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        lora = dict(lora_rank=lora_rank, lora_dropout=lora_dropout, **kw)
         mlp_dim = 4 * dim
         self.norm = AdaLayerNormZeroSingle(dim, **kw)
         self.attn = SingleStreamAttention(dim, num_heads, head_dim, **kw)
-        self.proj_mlp = LoRADense(dim, mlp_dim, lora_rank=lora_rank, **kw)
-        self.proj_out = LoRADense(num_heads * head_dim + mlp_dim, dim,
-                                  lora_rank=lora_rank, **kw)
+        self.proj_mlp = LoRADense(dim, mlp_dim, **lora)
+        self.proj_out = LoRADense(num_heads * head_dim + mlp_dim, dim, **lora)
 
-    def forward(self, x, rope, temb):
+    def forward(self, x, rope, temb, generator=None):
         h, gate = self.norm(x, temb)
         attn_out = self.attn(h, rope)
-        mlp_h = F.gelu(self.proj_mlp(h), approximate='tanh')
-        return x + gate * self.proj_out(torch.cat([attn_out, mlp_h], dim=-1))
+        mlp_h = F.gelu(self.proj_mlp(h, generator), approximate='tanh')
+        fused = torch.cat([attn_out, mlp_h], dim=-1)
+        return x + gate * self.proj_out(fused, generator)
 
 
 def make_img_ids(h_tokens: int, w_tokens: int, device=None) -> torch.Tensor:
@@ -143,42 +178,62 @@ class FluxBackbone(nn.Module):
                  num_attention_heads: int = 24, joint_attention_dim: int = 4096,
                  pooled_projection_dim: int = 768,
                  axes_dims_rope: Sequence[int] = (16, 56, 56),
-                 lora_rank: int = 0, device=None, dtype=None):
+                 lora_rank: int = 0, lora_dropout: float = 0.0,
+                 checkpointing: bool = True, device=None, dtype=None):
         super().__init__()
         self.in_channels = in_channels
         self.axes_dims_rope = tuple(axes_dims_rope)
+        self.lora_dropout = lora_dropout
+        self.checkpointing = checkpointing
         inner = num_attention_heads * attention_head_dim
         self.inner_dim = inner
         kw = dict(device=device, dtype=dtype)
+        lora = dict(lora_rank=lora_rank, lora_dropout=lora_dropout)
         self.x_embedder = LoRADense(in_channels, inner, **kw)
         self.context_embedder = LoRADense(joint_attention_dim, inner, **kw)
         self.time_text_embed = TimeTextEmbed(
-            inner, pooled_projection_dim, lora_rank=lora_rank, **kw)
+            inner, pooled_projection_dim, **lora, **kw)
         self.joint_blocks = nn.ModuleList([
             FluxJointBlock(inner, num_attention_heads, attention_head_dim,
-                           lora_rank=lora_rank, **kw)
+                           **lora, **kw)
             for _ in range(num_layers)])
         self.single_blocks = nn.ModuleList([
             FluxSingleBlock(inner, num_attention_heads, attention_head_dim,
-                            lora_rank=lora_rank, **kw)
+                            **lora, **kw)
             for _ in range(num_single_layers)])
+
+    def _block(self, block: nn.Module, index: int,
+               dropout_seed: Optional[int], *args):
+        """Run ``block(*args)`` with its dropout generator, under activation
+        checkpointing when ``checkpointing`` is on and autograd records."""
+        def run(seed, *a):
+            return block(*a, generator=dropout_generator(seed, index,
+                                                         a[0].device))
+        if self.checkpointing and torch.is_grad_enabled():
+            return checkpoint(run, dropout_seed, *args, use_reentrant=False)
+        return run(dropout_seed, *args)
 
     def trunk(self, packed: torch.Tensor, t: torch.Tensor,
               encoder_hidden_states: torch.Tensor,
               pooled_projections: torch.Tensor, img_ids: torch.Tensor,
-              txt_ids: torch.Tensor, guidance: torch.Tensor):
-        """packed (B, N_img, in_channels) -> (hidden (B, N_img, D), temb)."""
+              txt_ids: torch.Tensor, guidance: torch.Tensor,
+              dropout_seed: Optional[int] = None):
+        """packed (B, N_img, in_channels) -> (hidden (B, N_img, D), temb).
+        ``dropout_seed`` turns the LoRA dropout on (training)."""
+        n_blocks = len(self.joint_blocks) + len(self.single_blocks)
         img = self.x_embedder(packed)
         txt = self.context_embedder(encoder_hidden_states)
-        temb = self.time_text_embed(t.float() * 1000.0, pooled_projections,
-                                    guidance.float() * 1000.0)
+        temb = self.time_text_embed(
+            t.float() * 1000.0, pooled_projections, guidance.float() * 1000.0,
+            generator=dropout_generator(dropout_seed, n_blocks, packed.device))
         rope = rope_frequencies(torch.cat([txt_ids, img_ids], dim=0),
                                 self.axes_dims_rope)
-        for block in self.joint_blocks:
-            img, txt = block(img, txt, rope, temb)
+        for i, block in enumerate(self.joint_blocks):
+            img, txt = self._block(block, i, dropout_seed, img, txt, rope,
+                                   temb)
         hidden = torch.cat([txt, img], dim=1)
-        for block in self.single_blocks:
-            hidden = block(hidden, rope, temb)
+        for i, block in enumerate(self.single_blocks, len(self.joint_blocks)):
+            hidden = self._block(block, i, dropout_seed, hidden, rope, temb)
         return hidden[:, txt.shape[1]:], temb
 
     def _prepare_tokens(self, hidden_states, encoder_hidden_states):
@@ -267,11 +322,46 @@ class ArcFluxTransformer2DModel(ArcFlowHeads, FluxBackbone):
     def forward(self, hidden_states: torch.Tensor, t: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
                 pooled_projections: torch.Tensor,
-                guidance: torch.Tensor) -> dict:
+                guidance: torch.Tensor,
+                dropout_seed: Optional[int] = None) -> dict:
         b, h, w, _ = hidden_states.shape
         packed, img_ids, txt_ids = self._prepare_tokens(
             hidden_states, encoder_hidden_states)
         hidden, temb = self.trunk(packed, t, encoder_hidden_states,
                                   pooled_projections, img_ids, txt_ids,
-                                  guidance)
+                                  guidance, dropout_seed)
         return self._heads(hidden, temb, b, h, w)
+
+
+class FluxTransformer2DModel(FluxBackbone):
+    """The teacher: the FLUX trunk + ``norm_out`` and the fp32 ``proj_out``
+    u head (JAX ``flux.py:428-459``); returns u (B, H, W, C) in fp32."""
+
+    guidance_embeds = True
+
+    def __init__(self, device=None, dtype=None, **kwargs):
+        super().__init__(device=device, dtype=dtype, **kwargs)
+        self.init_head(device=device, dtype=dtype)
+
+    def init_head(self, device=None, dtype=None):
+        """(Re)make ``norm_out`` and ``proj_out``. The training composition
+        builds the teacher's trunk without storage (it borrows the
+        student's) and only this head on the device."""
+        self.norm_out = AdaLayerNormContinuous(self.inner_dim, device=device,
+                                               dtype=dtype)
+        self.proj_out = LoRADense(self.inner_dim, self.in_channels,
+                                  device=device, dtype=torch.float32)
+
+    def forward(self, hidden_states: torch.Tensor, t: torch.Tensor,
+                encoder_hidden_states: torch.Tensor,
+                pooled_projections: torch.Tensor,
+                guidance: torch.Tensor,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        b, h, w, _ = hidden_states.shape
+        packed, img_ids, txt_ids = self._prepare_tokens(
+            hidden_states, encoder_hidden_states)
+        hidden, temb = self.trunk(packed, t, encoder_hidden_states,
+                                  pooled_projections, img_ids, txt_ids,
+                                  guidance, dropout_seed)
+        out = self.proj_out(self.norm_out(hidden, temb).float())
+        return unpatchify(out, h, w, self.patch_size)

@@ -4,9 +4,17 @@ Counterpart of ``arcflow_tpu/models/layers.py``. Module and parameter names
 follow the JAX param tree (``img_q``, ``img_q_norm``, ``modulation``, ...),
 so ``pipelines/convert.py:jax_params_to_torch`` maps weights mechanically.
 
-Dtypes: ``dtype`` is a module's parameter and compute dtype for its
-matmuls. Norm scales and LoRA leaves are kept in fp32, as in the JAX
-package; RMSNorm, LayerNorm and RoPE compute in fp32 and cast back.
+Dtypes: ``dtype`` is the dtype a module's parameters are made in and the
+compute dtype of its matmuls, fixed at construction, as the JAX ``dtype``;
+a parameter may later be cast to another storage dtype (the training
+composition keeps the adapter in fp32 and may store the frozen trunk in
+bf16, the JAX ``param_dtype``) and the layer still computes in ``dtype``.
+Norm scales and LoRA leaves are made in fp32, as in the JAX package;
+RMSNorm, LayerNorm and RoPE compute in fp32 and cast back.
+
+Randomness: the LoRA branch's dropout draws from a ``torch.Generator``
+passed down the ``forward`` calls (``generator=``), and only when one is
+passed, as the JAX layers draw only under a ``dropout`` rng.
 
 ``LoRADense`` has the float path and the int4 path (weight-only or w4a8,
 after ``utils/quantize.py:quantize_weights_int4``); the int8 paths, MoE and
@@ -74,9 +82,11 @@ class LoRADense(nn.Linear):
     """Linear with an optional low-rank adapter: y = x W^T + b + (x A) B
     (LoRA alpha = rank, the only scale the JAX package's configs use).
 
-    ``lora_a`` (in, r) and ``lora_b`` (r, out) keep the JAX layout and stay
-    fp32; they are cast to the compute dtype per call. Eval only: the
-    adapter dropout of training is not ported.
+    ``lora_a`` (in, r) and ``lora_b`` (r, out) keep the JAX layout and are
+    made in fp32; every parameter is cast to the compute dtype ``self.dtype``
+    per call. ``lora_dropout`` drops the adapter branch's input only (peft's
+    LoRA dropout, JAX ``layers.py:210-213``), and only when ``forward`` gets
+    a ``generator``.
 
     After ``quantize_weights_int4`` the layer has no ``weight``; its kernel
     lives in the ``kernel_packed4``/``kernel_scale4`` buffers (JAX names
@@ -85,12 +95,14 @@ class LoRADense(nn.Linear):
     """
 
     def __init__(self, in_features: int, out_features: int,
-                 lora_rank: int = 0, device=None, dtype=None):
+                 lora_rank: int = 0, lora_dropout: float = 0.0, device=None,
+                 dtype=None):
         super().__init__(in_features, out_features, device=device,
                          dtype=dtype)
         self.dtype = self.weight.dtype           # compute dtype
         self.act_quant = False
         self.lora_rank = lora_rank
+        self.lora_dropout = lora_dropout
         if lora_rank > 0:
             self.lora_a = nn.Parameter(torch.empty(
                 in_features, lora_rank, device=device, dtype=torch.float32))
@@ -102,18 +114,26 @@ class LoRADense(nn.Linear):
     def is_int4(self) -> bool:
         return 'kernel_packed4' in self._buffers
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt = self.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
         if self.is_int4:
             y = _int4_matmul(x, self.kernel_packed4, self.kernel_scale4,
-                             self.dtype, self.act_quant)
-            if self.bias is not None:
-                y = y + self.bias.to(self.dtype)
-            x = x.to(self.dtype)
+                             dt, self.act_quant)
+            if bias is not None:
+                y = y + bias
+            x = x.to(dt)
         else:
-            x = x.to(self.weight.dtype)
-            y = F.linear(x, self.weight, self.bias)
+            x = x.to(dt)
+            y = F.linear(x, self.weight.to(dt), bias)
         if self.lora_rank > 0:
-            y = y + (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype)
+            if self.lora_dropout > 0.0 and generator is not None:
+                keep_prob = 1.0 - self.lora_dropout
+                keep = torch.rand(x.shape, generator=generator,
+                                  device=x.device) < keep_prob
+                x = torch.where(keep, x / keep_prob, 0.0)
+            y = y + (x @ self.lora_a.to(dt)) @ self.lora_b.to(dt)
         return y
 
 
@@ -192,14 +212,18 @@ class AdaLayerNormContinuous(nn.Module):
 class FeedForward(nn.Module):
     """gelu(tanh) MLP, dim -> 4*dim -> dim (dense; MoE is not ported)."""
 
-    def __init__(self, dim: int, lora_rank: int = 0, device=None, dtype=None):
+    def __init__(self, dim: int, lora_rank: int = 0, lora_dropout: float = 0.0,
+                 device=None, dtype=None):
         super().__init__()
-        kw = dict(lora_rank=lora_rank, device=device, dtype=dtype)
+        kw = dict(lora_rank=lora_rank, lora_dropout=lora_dropout,
+                  device=device, dtype=dtype)
         self.in_proj = LoRADense(dim, 4 * dim, **kw)
         self.out_proj = LoRADense(4 * dim, dim, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out_proj(F.gelu(self.in_proj(x), approximate='tanh'))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = F.gelu(self.in_proj(x, generator), approximate='tanh')
+        return self.out_proj(h, generator)
 
 
 # ---- rotary embeddings ------------------------------------------------------
@@ -250,15 +274,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Scaled dot-product attention on (B, S, H, D) tensors.
 
     The backend follows the tensors' device: a CUDA tensor runs the Hopper
-    kernel (``ops/attention.py:flash_attention_fwd``), a CPU tensor its
-    plain version. ``mask`` may be None or a key-padding mask
-    (B, 1, 1, S_kv); other masks raise.
+    kernels (``ops/attention.py:flash_attention``, forward and, under
+    autograd, backward), a CPU tensor their plain versions. ``mask`` may be
+    None or a key-padding mask (B, 1, 1, S_kv); other masks raise.
     """
     kv_valid = key_padding_mask(mask, k.shape[1])
     if mask is not None and kv_valid is None:
         raise ValueError('attention takes only key-padding masks '
                          f'(B, 1, 1, S_kv), got {tuple(mask.shape)}')
-    return attn_ops.flash_attention_fwd(q, k, v, kv_valid)
+    return attn_ops.flash_attention(q, k, v, kv_valid)
 
 
 class JointAttention(nn.Module):

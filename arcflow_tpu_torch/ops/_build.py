@@ -101,6 +101,9 @@ def load_library() -> ctypes.CDLL:
     lib.arcflow_attention_fwd.argtypes = [_P] * 6 + [_I32] * 3 + [_I64] * 13 \
         + [_P]
     lib.arcflow_attention_fwd.restype = _I32
+    lib.arcflow_attention_bwd.argtypes = [_P] * 11 + [_I32] * 3 + [
+        ctypes.POINTER(_I64), _I64, _P]
+    lib.arcflow_attention_bwd.restype = _I32
     lib.arcflow_w4a8_matmul.argtypes = [_P] * 4 + [_I32] * 4 + [_P]
     lib.arcflow_w4a8_matmul.restype = _I32
     lib.arcflow_cuda_error_string.argtypes = [_I32]

@@ -1,22 +1,27 @@
-"""Non-causal attention forward: the Hopper kernel, its wrapper and its
-plain PyTorch version.
+"""Non-causal attention, forward and backward: the Hopper kernels, their
+wrappers, their plain PyTorch versions and the autograd Function that joins
+them.
 
-The kernel (``csrc/attention_fwd.cu``) replaces the JAX package's two TPU
-attention kernels, ``arcflow_tpu/models/layers.py:_splash_call`` and the
-forward of ``_flash_call``. A CUDA tensor always launches the kernel (or the
-wrapper raises); only a CPU tensor takes ``attention_ref``.
+The forward kernel (``csrc/attention_fwd.cu``) replaces the JAX package's
+two TPU attention kernels, ``arcflow_tpu/models/layers.py:_splash_call`` and
+the forward of ``_flash_call``; the backward kernels
+(``csrc/attention_bwd.cu``) replace the dq/dkv kernels of ``_flash_call``'s
+custom VJP. A CUDA tensor always launches the kernels (or the wrapper
+raises); only a CPU tensor takes ``attention_ref`` and ``attention_bwd_ref``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
 import torch
 
-# Kernel launches since the count was last set to 0; the wrapper adds one
-# per launch and nothing else touches it except a caller resetting it.
-LAUNCHES = 0
+# Kernel launches since the count was last set to 0; each wrapper adds one
+# per launch and nothing else touches them except a caller resetting them.
+LAUNCHES = 0            # forward kernel
+BWD_LAUNCHES = 0        # backward (preprocess + dK/dV + dQ kernels)
 
 HEAD_DIM = 128          # the only D the kernel is compiled for
 
@@ -29,21 +34,26 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``kv_valid`` (B, S_kv), bool or uint8, excludes its false keys. Returns
     the output in q's dtype and, with ``return_lse``, the per-row
     log-sum-exp (B, H, S_q) in fp32. A row with no valid key gets output 0
-    and LSE -inf, as the kernel does.
+    and LSE -inf, as the kernel does. Written out of place, so that autograd
+    can differentiate it.
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum('bqhd,bkhd->bhqk', q.float(), k.float()) * scale
     if kv_valid is not None:
-        logits.masked_fill_(~kv_valid.bool()[:, None, None, :], -math.inf)
+        logits = logits.masked_fill(~kv_valid.bool()[:, None, None, :],
+                                    -math.inf)
     lse = torch.logsumexp(logits, dim=-1)                    # (B, H, S_q)
-    probs = logits.sub_(lse[..., None]).exp_()
-    probs.masked_fill_(torch.isinf(lse)[..., None], 0.0)     # no valid key
+    # no valid key: subtract +inf instead of -inf, so the row's P is 0
+    probs = torch.exp(logits - torch.where(torch.isinf(lse), math.inf,
+                                           lse)[..., None])
     out = torch.einsum('bhqk,bkhd->bqhd', probs, v.float()).to(q.dtype)
     return (out, lse) if return_lse else out
 
 
-def _check_cuda_args(q, k, v, kv_valid):
-    for name, t in (('q', q), ('k', k), ('v', v)):
+def _check_cuda_args(q, k, v, kv_valid, **more):
+    """Refuse what the kernels do not take; ``more`` names further
+    (B, S, H, D) tensors held to q's rules (the backward's o and dout)."""
+    for name, t in (('q', q), ('k', k), ('v', v), *more.items()):
         if t.device != q.device:
             raise ValueError(f'{name} is on {t.device}, q on {q.device}')
         if t.dtype != torch.bfloat16:
@@ -112,3 +122,106 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global LAUNCHES
     LAUNCHES += 1
     return (out, lse) if return_lse else out
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                      kv_valid: Optional[torch.Tensor] = None):
+    """Gradients (dq, dk, dv) of ``attention_ref`` in fp32, written out from
+    the formulas: with S = q k^T / sqrt(D) and P = exp(S - LSE),
+
+        dV = P^T dO,  dP = dO V^T,  delta = rowsum(dO * O),
+        dS = P (dP - delta),  dQ = dS K / sqrt(D),  dK = dS^T Q / sqrt(D).
+
+    ``o`` and ``lse`` (B, H, S_q) are the forward's outputs. Masked keys and
+    rows with LSE -inf (no valid key) get P = 0, so they add nothing and a
+    padded key's dk and dv are 0. Returns each gradient in its input's dtype.
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    logits = torch.einsum('bqhd,bkhd->bhqk', qf, kf) * scale
+    if kv_valid is not None:
+        logits.masked_fill_(~kv_valid.bool()[:, None, None, :], -math.inf)
+    # -inf LSE (no valid key) -> +inf, so that exp(S - LSE) = 0, not NaN
+    lse = torch.where(torch.isinf(lse), math.inf, lse.float())
+    probs = logits.sub_(lse[..., None]).exp_()                # (B, H, Sq, Sk)
+    dv = torch.einsum('bhqk,bqhd->bkhd', probs, dof)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)         # (B, H, Sq)
+    ds = torch.einsum('bqhd,bkhd->bhqk', dof, vf).sub_(
+        delta[..., None]).mul_(probs)
+    dq = torch.einsum('bhqk,bkhd->bqhd', ds, kf) * scale
+    dk = torch.einsum('bhqk,bqhd->bkhd', ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        kv_valid: Optional[torch.Tensor] = None):
+    """Attention backward on (B, S, H, D): the Hopper kernels on CUDA
+    tensors (preprocess, dK/dV, dQ; one count in ``BWD_LAUNCHES``).
+
+    q, k, v and o are read through their strides and held to the forward's
+    rules; ``do`` is made contiguous first (autograd may hand over a view).
+    ``lse`` is the forward's (B, H, S) fp32 output. CPU tensors go to
+    ``attention_bwd_ref``. Returns (dq, dk, dv), contiguous, bf16.
+    """
+    if q.device.type == 'cpu':
+        return attention_bwd_ref(q, k, v, o, do, lse, kv_valid)
+    if q.device.type != 'cuda':
+        raise ValueError(f'no attention kernel for device {q.device}')
+    do = do.contiguous()
+    _check_cuda_args(q, k, v, kv_valid, o=o, dout=do)
+    b, s, h, d = q.shape
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f'lse must be contiguous fp32 (B, H, S) = '
+                         f'{(b, h, s)} on {q.device}, got {lse.dtype} '
+                         f'{tuple(lse.shape)}')
+    from ._build import load_library
+    lib = load_library()
+    dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    mask_ptr, mask_sb = None, 0
+    if kv_valid is not None:
+        mask = kv_valid.view(torch.uint8) if kv_valid.dtype == torch.bool \
+            else kv_valid
+        mask_ptr, mask_sb = mask.data_ptr(), mask.stride(0)
+    strides = (ctypes.c_longlong * 24)(*(
+        st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.arcflow_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), mask_ptr, delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, s, h, strides, mask_sb, stream)
+    if err != 0:
+        raise RuntimeError('attention backward kernel launch failed: '
+                           + lib.arcflow_cuda_error_string(err).decode())
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a hand-written backward: the counterpart of
+    ``_flash_call``'s custom VJP. The forward keeps q, k, v, O and the LSE;
+    the backward recomputes P from them. ``kv_valid`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid):
+        out, lse = flash_attention_fwd(q, k, v, kv_valid, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, kv_valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, kv_valid = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, kv_valid)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v on (B, S, H, D), differentiable in q, k and
+    v: the kernels on CUDA tensors, the plain versions on CPU tensors."""
+    return FlashAttention.apply(q, k, v, kv_valid)

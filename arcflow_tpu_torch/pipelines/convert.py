@@ -15,7 +15,9 @@ which does the same unstacking for diffusers naming):
   collection, ``kernel_packed4`` (in/2, out) and ``kernel_scale4``
   (in/g, 1, out), are kept as they are.
 
-A loader for diffusers checkpoint keys comes with ``from_pretrained``.
+``load_jax_latent_diffusion`` carries a JAX ``LatentDiffusionTextImage``'s
+(trainable, frozen) pair into the port's composition. A loader for
+diffusers checkpoint keys comes with ``from_pretrained``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
+
+from ..utils.pytree import merge_params
 
 STACKED = ('joint_blocks', 'single_blocks', 'transformer_blocks')
 
@@ -71,3 +76,23 @@ def jax_params_to_torch(tree: Mapping, quant: Optional[Mapping] = None
             out['.'.join([*path, t_name])] = t_v
     return {k: torch.from_numpy(np.array(v, order='C'))
             for k, v in out.items()}
+
+
+def load_jax_latent_diffusion(model, trainable: Mapping, frozen: Mapping):
+    """Load the (trainable, frozen) pair of the JAX
+    ``LatentDiffusionTextImage.init_params`` into the port's composition,
+    each part with ``strict=True``: the student from the frozen ``base``
+    overlaid with the ``diffusion`` adapter, and the teacher's head from
+    ``teacher_head`` (its trunk is the student's). Values are cast to each
+    parameter's storage dtype."""
+    model.diffusion.denoising.load_state_dict(
+        jax_params_to_torch(merge_params(frozen['base'],
+                                         trainable['diffusion'])),
+        strict=True)
+    from ..models.latent_diffusion import TEACHER_HEAD_KEYS
+    if model.teacher is not None:
+        t_model = model.teacher.denoising
+        head = nn.ModuleDict({k: getattr(t_model, k)
+                              for k in TEACHER_HEAD_KEYS})
+        head.load_state_dict(jax_params_to_torch(frozen['teacher_head']),
+                             strict=True)

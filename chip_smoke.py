@@ -32,10 +32,29 @@ line each, and any failure exits non-zero:
    at 1024x1024 through ``ArcQwenImagePipeline.__call__``; the image must be
    finite, (1, 1024, 1024, 3) and the same on a second run, with exactly
    2 x 60 masked attention launches and 2 w4a8 launches per int4 layer;
-   then a ``torch.profiler`` split of one warm image by kernel name.
+   then a ``torch.profiler`` split of one warm image by kernel name;
+9. attention backward kernels vs plain: dq, dk and dv against
+   ``attention_bwd_ref`` at the FLUX shape, S = 777 and 1000, key-padded
+   cases and a batch row with no valid key; kernel, plain version and the
+   backward of one ``scaled_dot_product_attention`` call timed at the FLUX
+   shape;
+10. FLUX training at reduced depth (1 joint + 1 single block) and full
+    width, bf16: one ``LatentDiffusionTextImage.loss`` + backward through
+    both attention kernels, then the same weights and draws through the
+    plain versions; loss and adapter gradients compared by relative L2;
+11. FLUX training at full geometry: the FLUX-12B ArcFlow distillation of
+    ``configs/flux/arcflux_2nfe_k16.py`` (frozen bf16 trunk shared with the
+    teacher, fp32 LoRA rank 256 + heads, checkpointing, LoRA dropout 0.05,
+    nfe 2, 4 intermediate states) with random weights from a seed, 3
+    ``train_step``s of ``build_train_step`` on one batch of random prompt
+    embeds: finite losses and grad norms, the adapter moved, the frozen
+    trunk bit-identical, the EMA equal to the adapter (copy-through before
+    iteration 100), exactly 12 x 57 forward and 2 x 57 backward attention
+    launches per step; then a ``torch.profiler`` split of one warm step.
 
-Then one JSON line of per-kernel numbers, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+Then one JSON line of per-kernel numbers (each with its bound on the card
+and the time of one PyTorch library call for the same function, where there
+is one), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
 import gc
@@ -46,15 +65,20 @@ import time
 from unittest import mock
 
 import torch
+import torch.nn.functional as F
 
 from arcflow_tpu_torch.models import (ArcFluxTransformer2DModel,
                                       ArcQwenImageTransformer2DModel,
-                                      PretrainedVAE, PretrainedVAEQwenImage)
+                                      LatentDiffusionTextImage, PretrainedVAE,
+                                      PretrainedVAEQwenImage)
 from arcflow_tpu_torch.models.layers import LoRADense
 from arcflow_tpu_torch.ops import _build
 from arcflow_tpu_torch.ops import attention as attn
 from arcflow_tpu_torch.ops import quant_matmul as qmm
 from arcflow_tpu_torch.pipelines import ArcFluxPipeline, ArcQwenImagePipeline
+from arcflow_tpu_torch.runner import (EmaConfig, TrainState, build_optimizers,
+                                      build_train_step, count_params)
+from arcflow_tpu_torch.utils.pytree import flatten
 from arcflow_tpu_torch.utils.quantize import pack_int4
 
 SEED = 0
@@ -63,6 +87,39 @@ FLUX_12B = dict(in_channels=64, num_layers=19, num_single_layers=38,
                 joint_attention_dim=4096, pooled_projection_dim=768,
                 num_gaussians=16, lora_rank=0)
 FLUX_SHAPE = (1, 4608, 24, 128)
+# the Qwen path's masked attention: 512 text tokens of which 384 are valid,
+# then 4096 image tokens, so 4480 of 4608 keys are valid
+QWEN_VALID_KEYS = 4480
+# FLUX-12B ArcFlow distillation: configs/flux/arcflux_2nfe_k16.py:13-112
+# (model, train_cfg, EMA hook) and configs/flux/_mesh_train.py:19-26
+# (optimizer, clip), batch 1
+FLUX_TRAIN_NET = dict(in_channels=64, num_layers=19, num_single_layers=38,
+                      attention_head_dim=128, num_attention_heads=24,
+                      joint_attention_dim=4096, pooled_projection_dim=768,
+                      guidance_embeds=True, checkpointing=True)
+FLUX_TRAIN_LATENT = (128, 128, 16)          # 1024x1024
+FLUX_TRAIN_CFG = dict(num_decay_iters=2000, window_substeps=3, gm_dropout=0.1,
+                      num_intermediate_states=4, distilled_guidance_scale=3.5,
+                      teacher_distilled_guidance_scale=3.5, nfe=2,
+                      timestep_ratio=1.0, total_substeps=128,
+                      diffusion_grad_clip=50.0,
+                      diffusion_grad_clip_begin_iter=100,
+                      diffusion_grad_clip_skip_ratio=20.0)
+FLUX_TRAIN_OPT = dict(diffusion=dict(
+    type='AdamW', lr=1e-4, betas=(0.9, 0.95), weight_decay=0.0,
+    paramwise_cfg=dict(custom_keys={'proj_out_loggamma': dict(lr_mult=0.1)})))
+FLUX_TRAIN_EMA_HOOK = dict(type='ExponentialMovingAverageHookMod',
+                           module_keys=('diffusion_ema',), interp_mode='lerp',
+                           interval=1, start_iter=100,
+                           momentum_policy='karras',
+                           momentum_cfg=dict(gamma=7.0))
+# DiT forwards per train step: nfe student forwards with grad, nfe x
+# num_intermediate_states teacher forwards, and the nfe student forwards
+# recomputed block by block in the backward
+TRAIN_FORWARDS = 2 + 2 * 4 + 2
+TRAIN_BACKWARDS = 2
+# H100 SXM dense peaks and memory rate (NVIDIA's data sheet), for the bound
+H100_BF16, H100_INT8, H100_BYTES = 989e12, 1979e12, 3.35e12
 # configs/qwen/arcqwen_2nfe_k16.py and bench.py:build_qwen
 QWEN_20B = dict(in_channels=64, num_layers=60, attention_head_dim=128,
                 num_attention_heads=24, joint_attention_dim=3584,
@@ -104,11 +161,35 @@ SLICE_REL_L2 = 2e-2
 # (2^-8) over the block, as in the FLUX slice above, hence the same 2e-2. A
 # layout, sign or scale error in the kernel moves ``means`` by O(1).
 QWEN_SLICE_REL_L2 = 2e-2
+# kernel vs plain backward, per gradient: relative L2 of dq, dk, dv. The
+# kernels round P and dS to bf16 (8 significant bits) before their products
+# and write bf16 gradients: a few bf16 ulps of noise, 2^-8 = 4e-3 each
+BWD_REL_L2 = 2e-2
+# reduced training slice, kernels vs plain, relative L2 of the loss and of
+# all adapter gradients together: the forward differs by the bf16 rounding
+# of P (about 5e-3 after 2 blocks, phase 5), the teacher targets as much,
+# and the backward adds the bf16 rounding of P and dS in each block's
+# gradient; 5e-2 is ten times that and far below the O(1) of a wrong
+# gradient. Most of that norm is the heads' and the last block's, whose
+# gradients pass through no attention backward, and at random weights the
+# attention backward carries a small share of the rest (the residual stream
+# carries most). So the phase also isolates the backward: under the
+# kernels' forward, each adapter tensor upstream of an attention call (the
+# timestep embedder's LoRA feeds every block's modulation, the joint
+# block's LoRA feeds the single block) takes the kernels' backward, the
+# plain one, and the plain one with its outputs zeroed; the kernels' error
+# over the share the attention backward carries (plain minus zeroed) is
+# bounded at BWD_REL_L2, the per-gradient bound of phase 9. A planted fault,
+# the plain backward with dq zeroed, must break that bound.
+TRAIN_SLICE_REL_L2 = 5e-2
+UPSTREAM_OF_ATTENTION = ('time_text_embed.', 'joint_blocks.')
 # device time by kernel family in the profile: the first family with a
 # substring in the kernel's name takes it (cuDNN's implicit-GEMM convs
 # before cuBLAS's GEMMs)
 KERNEL_FAMILIES = (('w4a8 kernel', ('w4a8_matmul',)),
+                   ('attention backward kernels', ('attention_bwd',)),
                    ('attention kernel', ('attention_fwd',)),
+                   ('optimizer and EMA (foreach)', ('multi_tensor_apply',)),
                    ('convolution', ('conv', 'cudnn', 'fprop', 'implicit',
                                     'nchwToNhwc', 'nhwcToNchw')),
                    ('cuBLAS GEMM', ('gemm', 'nvjet', 'cutlass')),
@@ -126,6 +207,44 @@ def smi_line():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def roofline(ops, nbytes, peak):
+    """The least time (ms) the card could take for ``ops`` operations at
+    ``peak`` per second and ``nbytes`` moved at the memory rate, and which
+    of the two bounds it."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / H100_BYTES * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def attention_bound(shape, valid_keys=None, backward=False):
+    """Roofline of attention at (B, S, H, D) over ``valid_keys`` keys (all
+    by default): forward QK^T and PV, 4 S Sk D H FLOP, reading q, k, v and
+    writing o and the LSE; backward S, dP, dV, dK and dQ, 10 S Sk D H FLOP,
+    reading q, k, v, o, dO and the LSE, writing dq, dk, dv. Only the valid
+    keys' rows of k and v (and dk, dv) count as work."""
+    b, s, h, d = shape
+    kv = s if valid_keys is None else valid_keys
+    row = b * h * d * 2                        # one bf16 row of all heads
+    if backward:
+        ops = 10 * b * h * s * kv * d
+        nbytes = 4 * s * row + 4 * kv * row + b * h * s * 4
+    else:
+        ops = 4 * b * h * s * kv * d
+        nbytes = 2 * s * row + 2 * kv * row + b * h * s * 4
+    if valid_keys is not None:
+        nbytes += b * s                        # the key mask
+    return roofline(ops, nbytes, H100_BF16)
+
+
+def sdpa(q, k, v, kv_valid=None):
+    """One ``scaled_dot_product_attention`` call on the (B, S, H, D) tensors
+    (head-major views, no copies): the library yardstick, never on the
+    port's path."""
+    mask = None if kv_valid is None else kv_valid[:, None, None, :]
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask).transpose(1, 2)
 
 
 def cuda_ms(fn, iters):
@@ -198,15 +317,26 @@ def phase_kernel_vs_plain():
         if name == 'flux':
             flux_qkv = (q, k, v)
     q, k, v = flux_qkv
-    ms = cuda_ms(lambda: attn.flash_attention_fwd(q, k, v), 20)
-    plain_ms = cuda_ms(lambda: attn.attention_ref(q, k, v), 5)
     b, s, h, d = FLUX_SHAPE
-    tflops = 4 * b * h * s * s * d / (ms * 1e-3) / 1e12
+    masked = torch.arange(s, device='cuda')[None, :] < QWEN_VALID_KEYS
+    timed = {}
+    for name, kv_valid in (('unmasked', None), ('masked', masked)):
+        ms = cuda_ms(lambda: attn.flash_attention_fwd(q, k, v, kv_valid), 20)
+        plain_ms = cuda_ms(lambda: attn.attention_ref(q, k, v, kv_valid), 5)
+        with torch.inference_mode():
+            library_ms = cuda_ms(lambda: sdpa(q, k, v, kv_valid), 20)
+        bound_ms, bound_by = attention_bound(
+            FLUX_SHAPE, None if kv_valid is None else QWEN_VALID_KEYS)
+        timed[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
     log(f'phase 3 attention kernel vs plain: ok | {" ; ".join(parts)} | '
-        f'FLUX shape: '
-        f'kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain fp32 '
-        f'{plain_ms:.4f} ms')
-    return worst, ms, plain_ms
+        f'FLUX shape B{b} S{s} H{h} D{d}: ' + ' ; '.join(
+            f'{name}{"" if name == "unmasked" else f" ({QWEN_VALID_KEYS} valid keys)"}'
+            f' kernel {t["ms"]:.4f} ms, plain fp32 {t["plain_ms"]:.4f} ms, '
+            f'SDPA {t["library_ms"]:.4f} ms, bound {t["bound_ms"]:.4f} ms '
+            f'({t["bound_by"]}, {100 * t["bound_ms"] / t["ms"]:.1f}% of it)'
+            for name, t in timed.items()))
+    return worst, timed
 
 
 def w4a8_case(g, m, k, n, group=128):
@@ -261,14 +391,21 @@ def phase_w4a8_vs_plain():
         xq, _, packed, scale = w4a8_case(g, m, k, n)
         ms = cuda_ms(lambda: qmm.w4a8_matmul(xq, packed, scale), 20)
         plain_ms = cuda_ms(lambda: qmm.w4a8_matmul_ref(xq, packed, scale), 3)
+        # int8 activations, packed int4 weights, fp32 scales in; fp32 out
+        bound_ms, bound_by = roofline(
+            2 * m * k * n, m * k + k * n // 2 + scale.numel() * 4 + m * n * 4,
+            H100_INT8)
         timed.append(dict(shape=[m, k, n], ms=ms, plain_ms=plain_ms,
-                          tops=2 * m * k * n / (ms * 1e-3) / 1e12))
+                          tops=2 * m * k * n / (ms * 1e-3) / 1e12,
+                          bound_ms=bound_ms, bound_by=bound_by))
     log(f'phase 4 w4a8 kernel vs plain: ok | {len(cases) + 1} cases (path '
         f'shapes, M 777, groups 32/64, -8 nibbles) max|d| {worst:.3e}, max '
         f'|d| / sum|x||w|scale {worst_rel:.3e} (bound {W4A8_TOL}) | '
         + ' ; '.join(f'M{t["shape"][0]} K{t["shape"][1]} N{t["shape"][2]}: '
                      f'kernel {t["ms"]:.4f} ms ({t["tops"]:.1f} TOP/s), '
-                     f'plain fp32 {t["plain_ms"]:.4f} ms' for t in timed))
+                     f'plain fp32 {t["plain_ms"]:.4f} ms, bound '
+                     f'{t["bound_ms"]:.4f} ms ({t["bound_by"]})'
+                     for t in timed))
     return worst, timed
 
 
@@ -485,6 +622,17 @@ def profile_split(fn):
     return wall, busy / 1e6, by_name
 
 
+def split_families(by_name):
+    """{kernel name: (ms, calls)} -> {family: (ms, calls, largest name)}."""
+    families = {}
+    for name, (ms, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        family = next((f for f, keys in KERNEL_FAMILIES
+                       if any(key in name for key in keys)), 'other')
+        f_ms, f_calls, f_top = families.get(family, (0.0, 0, name))
+        families[family] = (f_ms + ms, f_calls + calls, f_top)
+    return families
+
+
 def phase_qwen_full():
     g = torch.Generator(device='cuda').manual_seed(SEED + 5)
     t0 = time.perf_counter()
@@ -526,12 +674,7 @@ def phase_qwen_full():
         lambda: pipe(prompt_embeds=embeds, latents=latents, output_type='pt'))
     total = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    families = {}                           # family: (ms, calls, top name)
-    for name, (ms, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
-        family = next((f for f, keys in KERNEL_FAMILIES
-                       if any(key in name for key in keys)), 'other')
-        f_ms, f_calls, f_top = families.get(family, (0.0, 0, name))
-        families[family] = (f_ms + ms, f_calls + calls, f_top)
+    families = split_families(by_name)
     log(f'phase 8 Qwen full slice (ArcQwen {n_params / 1e9:.2f}B params, '
         f'{n_int4} int4 layers w4a8, 2-NFE 1024x1024 + Wan decode): ok | '
         f'image {tuple(img.shape)} finite, range [{img.min().item():.3f}, '
@@ -553,13 +696,292 @@ def phase_qwen_full():
     return launches
 
 
+def rel_l2(a, b):
+    b = b.float()
+    return ((a.float() - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def phase_bwd_vs_plain():
+    g = torch.Generator(device='cuda').manual_seed(SEED + 6)
+    cases = [('flux', FLUX_SHAPE, None), ('s777', (2, 777, 3, 128), None),
+             ('s1000', (2, 1000, 4, 128), None),
+             ('key_padded', (2, 1000, 4, 128), (900, 1000)),
+             ('no_valid_key', (2, 300, 3, 128), (0, 250))]
+    worst_abs, worst_rel, parts = 0.0, 0.0, []
+    for name, shape, lengths in cases:
+        q, k, v, do = (torch.randn(shape, generator=g, device='cuda',
+                                   dtype=torch.bfloat16) for _ in range(4))
+        kv_valid = None
+        if lengths is not None:
+            kv_valid = torch.arange(shape[1], device='cuda')[None, :] < \
+                torch.tensor(lengths, device='cuda')[:, None]
+        o, lse = attn.flash_attention_fwd(q, k, v, kv_valid, return_lse=True)
+        got = attn.flash_attention_bwd(q, k, v, o, do, lse, kv_valid)
+        torch.cuda.synchronize()
+        want = attn.attention_bwd_ref(q, k, v, o, do, lse, kv_valid)
+        rels = [rel_l2(x, y) for x, y in zip(got, want)]
+        if not all(torch.isfinite(x).all() for x in got):
+            raise AssertionError(f'{name}: non-finite gradients')
+        if max(rels) > BWD_REL_L2:
+            raise AssertionError(f'{name}: rel L2 dq/dk/dv {rels} > '
+                                 f'{BWD_REL_L2}')
+        if lengths is not None and lengths[0] == 0 and any(
+                x[0].any() for x in got):
+            raise AssertionError(f'{name}: a row with no valid key got a '
+                                 f'gradient')
+        worst_abs = max(worst_abs, max((x.float() - y.float()).abs().max()
+                                       .item() for x, y in zip(got, want)))
+        worst_rel = max(worst_rel, max(rels))
+        parts.append(f'{name} {tuple(shape)} rel L2 dq/dk/dv '
+                     + '/'.join(f'{r:.2e}' for r in rels))
+        if name == 'flux':
+            flux = (q, k, v, o, do, lse)
+        del q, k, v, do, o, lse, got, want
+    q, k, v, o, do, lse = flux
+    ms = cuda_ms(lambda: attn.flash_attention_bwd(q, k, v, o, do, lse), 10)
+    plain_ms = cuda_ms(lambda: attn.attention_bwd_ref(q, k, v, o, do, lse), 3)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = sdpa(*leaves)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), 10)
+    bound_ms, bound_by = attention_bound(FLUX_SHAPE, backward=True)
+    b, s, h, d = FLUX_SHAPE
+    tflops = 10 * b * h * s * s * d / (ms * 1e-3) / 1e12
+    log(f'phase 9 attention backward kernels vs plain: ok | '
+        f'{" ; ".join(parts)} (bound {BWD_REL_L2}), max|d| {worst_abs:.3e} | '
+        f'FLUX shape: kernels {ms:.4f} ms ({tflops:.1f} TFLOP/s of the 5 '
+        f'needed products), plain fp32 {plain_ms:.4f} ms, SDPA backward '
+        f'{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, '
+        f'{100 * bound_ms / ms:.1f}% of it)')
+    return dict(max_abs_err=worst_abs, max_rel_l2=worst_rel, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def flux_train_model(generator, **net):
+    """The FLUX-12B distillation composition (``net`` cuts it) on the card,
+    frozen trunk in bf16, with random weights: normal(0.02) on every weight
+    matrix of the student (trunk and adapter) and of the teacher's head."""
+    net = dict(FLUX_TRAIN_NET, **net)
+    model = LatentDiffusionTextImage(
+        diffusion=dict(
+            type='ArcFlowImitationDataFree', policy_type='ArcFlow',
+            denoising=dict(type='ArcFluxTransformer2DModel', patch_size=2,
+                           num_gaussians=16, lora_rank=256, lora_dropout=0.05,
+                           **net),
+            flow_loss=dict(type='DiffusionMSELoss',
+                           data_info=dict(pred='u_t_pred', target='u_t'),
+                           rescale_mode='constant',
+                           rescale_cfg=dict(scale=30.0)),
+            num_timesteps=1,
+            timestep_sampler=dict(type='ContinuousTimeStepSampler',
+                                  shift=3.2),
+            denoising_mean_mode='U'),
+        teacher=dict(type='GaussianFlow',
+                     denoising=dict(type='FluxTransformer2DModel',
+                                    patch_size=2, **net),
+                     num_timesteps=1, denoising_mean_mode='U'),
+        tie_teacher=True, diffusion_use_ema=True,
+        latent_shape=FLUX_TRAIN_LATENT,
+        text_embed_dim=net['joint_attention_dim'],
+        pooled_dim=net['pooled_projection_dim'], frozen_dtype='bfloat16',
+        train_cfg=FLUX_TRAIN_CFG,
+        test_cfg=dict(distilled_guidance_scale=3.5, nfe=2, timestep_ratio=1.0,
+                      total_substeps=128),
+        device='cuda', dtype=torch.bfloat16)
+    randomize_(model.diffusion.denoising, generator)
+    teacher = model.teacher.denoising
+    randomize_(torch.nn.ModuleList([teacher.norm_out, teacher.proj_out]),
+               generator)
+    return model
+
+
+def flux_train_batch(generator):
+    """One batch of 1: random latents (only their shape and device are
+    used: the data-free loss starts from noise) and prompt embeds."""
+    return dict(latents=torch.randn(1, *FLUX_TRAIN_LATENT,
+                                    generator=generator, device='cuda'),
+                prompt_embed_kwargs=flux_inputs(generator))
+
+
+def phase_train_reduced():
+    g = torch.Generator(device='cuda').manual_seed(SEED + 7)
+    model = flux_train_model(g, num_layers=1, num_single_layers=1)
+    batch = flux_train_batch(g)
+    adapter = model.init_params()[0]['diffusion']
+
+    def run():
+        for p in adapter.values():
+            p.grad = None
+        draws = torch.Generator(device='cuda').manual_seed(SEED + 8)
+        loss, _ = model.loss(batch, draws, running_status=dict(iteration=0))
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {n: p.grad.float().clone()
+                             for n, p in adapter.items()}
+
+    def plain_fwd(q, k, v, kv_valid=None, return_lse=False):
+        return attn.attention_ref(q, k, v, kv_valid, return_lse)
+
+    def plain_bwd_zeroed(*which):
+        def bwd(*args):
+            return tuple(torch.zeros_like(t) if i in which else t for i, t
+                         in enumerate(attn.attention_bwd_ref(*args)))
+        return bwd
+
+    kernel_fwd = attn.flash_attention_fwd
+
+    def run_with(fwd, bwd):
+        with mock.patch.object(attn, 'flash_attention_fwd', fwd), \
+                mock.patch.object(attn, 'flash_attention_bwd', bwd):
+            return run()
+
+    before = (attn.LAUNCHES, attn.BWD_LAUNCHES)
+    loss_k, grads_k = run()
+    counts = (attn.LAUNCHES - before[0], attn.BWD_LAUNCHES - before[1])
+    want = (TRAIN_FORWARDS * 2, TRAIN_BACKWARDS * 2)
+    if counts != want:
+        raise AssertionError(f'launches (forward, backward) {counts}, '
+                             f'want {want}')
+    loss_p, grads_p = run_with(plain_fwd, attn.attention_bwd_ref)
+    # the backward alone, under the kernels' forward
+    grads_pb = run_with(kernel_fwd, attn.attention_bwd_ref)[1]
+    grads_0 = run_with(kernel_fwd, plain_bwd_zeroed(0, 1, 2))[1]
+    grads_fault = run_with(kernel_fwd, plain_bwd_zeroed(0))[1]
+    if not all(torch.isfinite(t).all() for t in grads_k.values()):
+        raise AssertionError('non-finite adapter gradients')
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    flat_k = torch.cat([t.flatten() for t in grads_k.values()])
+    flat_p = torch.cat([t.flatten() for t in grads_p.values()])
+    rel_grad = rel_l2(flat_k, flat_p)
+    per = {n: rel_l2(grads_k[n], grads_p[n]) for n in grads_k}
+    worst = max(per, key=per.get)
+    upstream = [n for n in per if n.startswith(UPSTREAM_OF_ATTENTION)]
+    if not upstream:
+        raise AssertionError('no adapter tensor upstream of an attention')
+    share = {n: (grads_pb[n] - grads_0[n]).norm().item() for n in upstream}
+
+    def over_share(grads):
+        return {n: (grads[n] - grads_pb[n]).norm().item() / share[n]
+                for n in upstream}
+
+    err, fault = over_share(grads_k), over_share(grads_fault)
+    worst_up, least_fault = max(err, key=err.get), min(fault, key=fault.get)
+    if max(rel_loss, rel_grad) > TRAIN_SLICE_REL_L2 or flat_p.norm() == 0:
+        raise AssertionError(f'loss rel {rel_loss:.3e}, adapter gradients '
+                             f'rel L2 {rel_grad:.3e} > {TRAIN_SLICE_REL_L2}')
+    if not min(share.values()) > 0 or err[worst_up] > BWD_REL_L2:
+        raise AssertionError(f'backward error over its share {err} > '
+                             f'{BWD_REL_L2}, shares {share}')
+    if max(fault.values()) <= BWD_REL_L2:
+        raise AssertionError(f'dq zeroed kept every tensor upstream of an '
+                             f'attention within {BWD_REL_L2}: {fault}')
+    log(f'phase 10 FLUX training reduced slice (1+1 blocks, full width, '
+        f'bf16 trunk, LoRA 256): ok | loss {loss_k:.6e} vs plain '
+        f'{loss_p:.6e}, rel {rel_loss:.3e} | adapter gradients '
+        f'({len(per)} tensors) rel L2 {rel_grad:.3e} (bound '
+        f'{TRAIN_SLICE_REL_L2}), worst tensor {worst} {per[worst]:.3e} | '
+        f'backward alone, {len(upstream)} tensors upstream of an attention, '
+        f'error over the attention backward\'s share: worst {worst_up} '
+        f'{err[worst_up]:.3e} (bound {BWD_REL_L2}), that share '
+        f'{share[worst_up] / grads_pb[worst_up].norm().item():.3e} of its '
+        f'gradient | planted fault, dq zeroed: {fault[least_fault]:.3e} '
+        f'({least_fault}) to {max(fault.values()):.3e} | launches forward '
+        f'{counts[0]}, backward {counts[1]}')
+
+
+def phase_train_full():
+    g = torch.Generator(device='cuda').manual_seed(SEED + 9)
+    t0 = time.perf_counter()
+    model = flux_train_model(g)
+    trainable, frozen = model.init_params()
+    optimizers = build_optimizers(FLUX_TRAIN_OPT, trainable)
+    state = TrainState.create(
+        torch.Generator(device='cuda').manual_seed(SEED + 10), trainable,
+        frozen, optimizers, ema_keys=model.ema_keys)
+    step = build_train_step(model, optimizers, model.train_cfg,
+                            EmaConfig.from_hook_cfg(FLUX_TRAIN_EMA_HOOK))
+    batch = flux_train_batch(g)
+    adapter = trainable['diffusion']
+    start = {n: p.detach().clone() for n, p in adapter.items()}
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    frozen_host = {n: t.detach().cpu() for n, t in flatten(frozen).items()}
+    n_blocks = FLUX_TRAIN_NET['num_layers'] + FLUX_TRAIN_NET[
+        'num_single_layers']
+    want = (TRAIN_FORWARDS * n_blocks, TRAIN_BACKWARDS * n_blocks)
+
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(3):
+        attn.LAUNCHES = attn.BWD_LAUNCHES = 0   # the main path's counted run
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, logs = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        launches = (attn.LAUNCHES, attn.BWD_LAUNCHES)
+        if launches != want:
+            raise AssertionError(f'step {state.step}: launches (forward, '
+                                 f'backward) {launches}, want {want}')
+        loss, gnorm = float(logs['loss']), logs['diffusion_grad_norm']
+        if not (torch.isfinite(torch.tensor([loss, gnorm])).all()
+                and logs['diffusion_skipped'] == 0.0):
+            raise AssertionError(f'step {state.step}: loss {loss}, grad '
+                                 f'norm {gnorm}, skipped '
+                                 f'{logs["diffusion_skipped"]}')
+        if not all(torch.equal(state.ema['diffusion'][n], p)
+                   for n, p in adapter.items()):
+            raise AssertionError(f'step {state.step}: the EMA is not the '
+                                 f'adapter before start_iter')
+        steps.append(dict(s=dt, loss=loss, grad_norm=gnorm,
+                          step0=float(logs['loss_diffusion_step0']),
+                          step1=float(logs['loss_diffusion_step1'])))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    resident_gib = torch.cuda.memory_allocated() / 2 ** 30
+    moved = sum(not torch.equal(p, start[n]) for n, p in adapter.items())
+    if moved == 0:
+        raise AssertionError('the adapter did not move')
+    changed = [n for n, t in flatten(frozen).items()
+               if not torch.equal(t.cpu(), frozen_host[n])]
+    if changed:
+        raise AssertionError(f'frozen tensors changed: {changed[:5]}')
+    del frozen_host
+    wall, busy, by_name = profile_split(lambda: step(state, batch))
+    families = split_families(by_name)
+    total = sum(ms for ms, _, _ in families.values())
+    warm = sum(st['s'] for st in steps[1:]) / len(steps[1:])
+    log(f'phase 11 FLUX training full slice (FLUX-12B ArcFlow distillation, '
+        f'{count_params(frozen) / 1e9:.2f}B frozen bf16 + '
+        f'{count_params(trainable)} fp32 adapter parameters, batch 1, '
+        f'1024x1024, nfe 2, 4 intermediate states, checkpointing): ok | '
+        + ' ; '.join(f'step {i + 1}: {st["s"]:.3f} s, loss {st["loss"]:.5e} '
+                     f'(NFE steps {st["step0"]:.4e} + {st["step1"]:.4e}), '
+                     f'grad norm {st["grad_norm"]:.4e}'
+                     for i, st in enumerate(steps))
+        + f' | warm {warm:.4f} s per step | launches per step forward '
+        f'{launches[0]}, backward {launches[1]} | {moved} of '
+        f'{len(adapter)} adapter tensors moved, frozen trunk bit-identical, '
+        f'EMA = adapter | build '
+        f'{t_build:.1f} s | peak memory {peak_gib:.2f} GiB, resident '
+        f'{resident_gib:.2f} GiB')
+    log(f'phase 11 profile (one warm step): wall {wall:.4f} s, device busy '
+        f'{busy:.4f} s, idle share {1 - busy / wall:.4f}, {len(by_name)} '
+        f'kernel names | by family: ' + ' ; '.join(
+            f'{f} {ms:.2f} ms {100 * ms / total:.1f}% x{calls} (largest: '
+            f'{top_name[:60]})'
+            for f, (ms, calls, top_name) in sorted(families.items(),
+                                                   key=lambda kv: -kv[1][0])))
+    return dict(forward=launches[0], backward=launches[1])
+
+
 def main():
     smi = phase_facts()
     torch.manual_seed(SEED)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    attn_err, attn_ms, attn_plain_ms = phase_kernel_vs_plain()
+    attn_err, attn_timed = phase_kernel_vs_plain()
     w4a8_err, w4a8_timed = phase_w4a8_vs_plain()
     phase_reduced_slice()
     torch.cuda.empty_cache()
@@ -570,24 +992,48 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     qwen_launches = phase_qwen_full()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd = phase_bwd_vs_plain()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_reduced()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = phase_train_full()
+    fwd = attn_timed['unmasked']
     ff_in = w4a8_timed[0]
+    fwd_by_path = {'flux': flux_launches, 'qwen': qwen_launches['attention'],
+                   'flux_train': train_launches['forward']}
     print(json.dumps({'kernels': [
         {'name': 'attention_fwd', 'route': 'cuda',
          'source': 'arcflow_tpu_torch/csrc/attention_fwd.cu',
          'replaces': 'arcflow_tpu/models/layers.py:525',
-         'launches': flux_launches + qwen_launches['attention'],
-         'launches_by_path': {'flux': flux_launches,
-                              'qwen': qwen_launches['attention']},
-         'max_abs_err': attn_err, 'ms': attn_ms, 'plain_ms': attn_plain_ms,
-         'shape': list(FLUX_SHAPE)},
+         'launches': sum(fwd_by_path.values()),
+         'launches_by_path': fwd_by_path,
+         'max_abs_err': attn_err, 'ms': fwd['ms'],
+         'plain_ms': fwd['plain_ms'], 'bound_ms': fwd['bound_ms'],
+         'bound_by': fwd['bound_by'], 'library_ms': fwd['library_ms'],
+         'shape': list(FLUX_SHAPE),
+         'masked': dict(attn_timed['masked'], valid_keys=QWEN_VALID_KEYS)},
         {'name': 'w4a8_matmul', 'route': 'cuda',
          'source': 'arcflow_tpu_torch/csrc/w4a8_matmul.cu',
          'replaces': 'arcflow_tpu/ops/quant_matmul.py:88',
          'launches': qwen_launches['w4a8'],
          'launches_by_path': {'qwen': qwen_launches['w4a8']},
          'max_abs_err': w4a8_err, 'ms': ff_in['ms'],
-         'plain_ms': ff_in['plain_ms'], 'shape': ff_in['shape'],
-         'timed': w4a8_timed}]}))
+         'plain_ms': ff_in['plain_ms'], 'bound_ms': ff_in['bound_ms'],
+         'bound_by': ff_in['bound_by'], 'library_ms': None,
+         'shape': ff_in['shape'], 'timed': w4a8_timed},
+        {'name': 'attention_bwd', 'route': 'cuda',
+         'source': 'arcflow_tpu_torch/csrc/attention_bwd.cu',
+         'replaces': 'arcflow_tpu/models/layers.py:542',
+         'launches': train_launches['backward'],
+         'launches_by_path': {'flux_train': train_launches['backward']},
+         'max_abs_err': bwd['max_abs_err'], 'max_rel_l2': bwd['max_rel_l2'],
+         'ms': bwd['ms'], 'plain_ms': bwd['plain_ms'],
+         'bound_ms': bwd['bound_ms'], 'bound_by': bwd['bound_by'],
+         'library_ms': bwd['library_ms'], 'shape': list(FLUX_SHAPE)}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
