@@ -34,7 +34,7 @@ from ..diffusion.gaussian_flow import GaussianFlow
 from ..diffusion.losses import DiffusionMSELoss
 from ..diffusion.sampler import ContinuousTimeStepSampler
 from ..utils.pytree import name_matches
-from .base import BaseModel
+from .base import BaseModel, _typed
 from .flux import (ARCFLUX_ADAPTER_KEYS, ArcFluxTransformer2DModel,
                    FluxTransformer2DModel)
 
@@ -45,14 +45,6 @@ _DENOISERS = {'ArcFluxTransformer2DModel': ArcFluxTransformer2DModel,
 # fields of the JAX configs that the port's FLUX models fix
 _FIXED = dict(patch_size=2, guidance_embeds=True, pretrained=None,
               pretrained_adapter=None)
-
-
-def _typed(cfg: dict, want: str) -> dict:
-    cfg = dict(cfg)
-    got = cfg.pop('type', want)
-    if got != want:
-        raise ValueError(f'the port builds {want} here, got {got}')
-    return cfg
 
 
 def _build_denoiser(cfg: dict, device, dtype) -> nn.Module:

@@ -277,12 +277,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernels (``ops/attention.py:flash_attention``, forward and, under
     autograd, backward), a CPU tensor their plain versions. ``mask`` may be
     None or a key-padding mask (B, 1, 1, S_kv); other masks raise.
+
+    A batch row whose keys are all masked gets what the JAX ``attention``
+    gives it (XLA attention masks with a large negative number, so the row
+    attends uniformly to every key): O = the mean of v over the keys, so
+    dv = sum_q dO / S_kv and dq = dk = 0 from that row. The kernels'
+    contract for such a row stays O = 0, LSE = -inf; the replacement is a
+    ``torch.where`` on the device, with no host sync.
     """
     kv_valid = key_padding_mask(mask, k.shape[1])
     if mask is not None and kv_valid is None:
         raise ValueError('attention takes only key-padding masks '
                          f'(B, 1, 1, S_kv), got {tuple(mask.shape)}')
-    return attn_ops.flash_attention(q, k, v, kv_valid)
+    out = attn_ops.flash_attention(q, k, v, kv_valid)
+    if kv_valid is None:
+        return out
+    has_key = kv_valid.any(dim=1)[:, None, None, None]
+    v_mean = v.mean(dim=1, keepdim=True, dtype=torch.float32)
+    return torch.where(has_key, out, v_mean.to(out.dtype))
 
 
 class JointAttention(nn.Module):

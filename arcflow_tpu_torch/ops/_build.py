@@ -106,6 +106,9 @@ def load_library() -> ctypes.CDLL:
     lib.arcflow_attention_bwd.restype = _I32
     lib.arcflow_w4a8_matmul.argtypes = [_P] * 4 + [_I32] * 4 + [_P]
     lib.arcflow_w4a8_matmul.restype = _I32
+    lib.arcflow_gm_inverse_cdf.argtypes = [_P] * 7 + [_I32] * 2 + [_I64, _I32] \
+        + [ctypes.c_float] * 2 + [_P]
+    lib.arcflow_gm_inverse_cdf.restype = _I32
     lib.arcflow_cuda_error_string.argtypes = [_I32]
     lib.arcflow_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -6,8 +6,10 @@ It needs one CUDA card and ``nvcc``; it imports nothing of JAX. Phases, one
 line each, and any failure exits non-zero:
 
 1. facts: the card's name and power limit (nvidia-smi), torch, CUDA, nvcc;
-2. build: compile both kernels (attention, w4a8 matmul) from
-   ``arcflow_tpu_torch/csrc``, one ``nvcc`` per source, all in parallel;
+   and the bounds of the TPU kernels not yet ported, from their shapes;
+2. build: compile every kernel source of ``arcflow_tpu_torch/csrc``
+   (attention forward and backward, w4a8 matmul, inverse CDF), one
+   ``nvcc`` per source, all in parallel;
 3. attention kernel vs plain: against ``attention_ref`` at the FLUX shape
    (B1 S4608 H24 D128), a ragged S and key-padded cases, and both timed at
    the FLUX shape;
@@ -50,7 +52,22 @@ line each, and any failure exits non-zero:
     embeds: finite losses and grad norms, the adapter moved, the frozen
     trunk bit-identical, the EMA equal to the adapter (copy-through before
     iteration 100), exactly 12 x 57 forward and 2 x 57 backward attention
-    launches per step; then a ``torch.profiler`` split of one warm step.
+    launches per step; then a ``torch.profiler`` split of one warm step;
+12. inverse-CDF kernel vs plain: against ``gm1d_inverse_cdf_ref`` at the
+    KR transport's per-axis problem (G 16 over the 128 x 128 latent, one
+    target, 16 steps), 64 times that (1024 x 1024), a ragged M, five
+    targets and saturated targets; finite, within the root tolerance,
+    bitwise deterministic; kernel and plain version timed at both sizes;
+13. KR transport on the card: ``gaussian_samples_to_gm_samples`` on a
+    mixture of the ArcFlux head geometry at 1024x1024 (K=16 over the
+    128 x 128 x 16 latent): exactly 16 kernel launches (one per channel
+    axis), the plain path's result by relative L2, and the round trip
+    through ``gm_samples_to_gaussian_samples`` back to z;
+14. GMFlow on the checkerboard at the full width of
+    ``configs/gmflow/checkerboard_gmflow.py``: 1000 ``build_train_step``
+    steps of ``Diffusion2D`` at batch 512 (finite losses that fall), then
+    ``val_step`` with the EMA weights: 4096 samples, finite and the same on
+    a repeat.
 
 Then one JSON line of per-kernel numbers (each with its bound on the card
 and the time of one PyTorch library call for the same function, where there
@@ -59,22 +76,27 @@ is one), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from arcflow_tpu_torch.data import CheckerboardData
 from arcflow_tpu_torch.models import (ArcFluxTransformer2DModel,
                                       ArcQwenImageTransformer2DModel,
-                                      LatentDiffusionTextImage, PretrainedVAE,
-                                      PretrainedVAEQwenImage)
+                                      Diffusion2D, LatentDiffusionTextImage,
+                                      PretrainedVAE, PretrainedVAEQwenImage)
 from arcflow_tpu_torch.models.layers import LoRADense
 from arcflow_tpu_torch.ops import _build
 from arcflow_tpu_torch.ops import attention as attn
 from arcflow_tpu_torch.ops import quant_matmul as qmm
+from arcflow_tpu_torch.ops.gm import gm_ops
+from arcflow_tpu_torch.ops.gm import inverse_cdf as icdf
 from arcflow_tpu_torch.pipelines import ArcFluxPipeline, ArcQwenImagePipeline
 from arcflow_tpu_torch.runner import (EmaConfig, TrainState, build_optimizers,
                                       build_train_step, count_params)
@@ -120,6 +142,48 @@ TRAIN_FORWARDS = 2 + 2 * 4 + 2
 TRAIN_BACKWARDS = 2
 # H100 SXM dense peaks and memory rate (NVIDIA's data sheet), for the bound
 H100_BF16, H100_INT8, H100_BYTES = 989e12, 1979e12, 3.35e12
+# fp32 outside the tensor cores (NVIDIA's data sheet: 67 TFLOP/s), and the
+# special-function units: 16 results per clock per SM for exp2, sin, rsqrt
+# and the like (CUDA C++ Programming Guide, throughput of arithmetic
+# instructions, compute capability 9.0) x 132 SMs x the 1.98 GHz boost
+# clock of the data sheet
+H100_FP32, H100_SFU = 67e12, 16 * 132 * 1.98e9
+# the KR transport at the ArcFlux head geometry: K=16 heads
+# (configs/flux/arcflux_2nfe_k16.py) over the 128 x 128 x 16 latent of a
+# 1024^2 image (FLUX_TRAIN_LATENT), one draw, 16 NR steps, no grad
+KR_K, KR_LATENT, KR_STEPS, KR_LOGSTD = 16, (128, 128, 16), 16, -1.0
+K6_LARGE_HW = (1024, 1024)              # 64 x the 16,384 elements of an axis
+# kernel vs plain, per unsaturated element (|target| < 0.999): both run the
+# same fp32 steps with sums in another order, so their cdfs differ by a few
+# 1e-7 and a root moves by that over the slope 2 pdf
+K6_ATOL, K6_CDF_TOL = 1e-5, 1e-6
+# KR on the card: kernel path vs plain path, relative L2 over the pixels
+# whose every axis is unsaturated; and the round trip z -> x -> z, max abs
+# error there (about 4e-5 in a CPU rehearsal at 96 x 96)
+KR_REL_L2, KR_ROUND_TRIP = 1e-4, 1e-3
+# configs/gmflow/checkerboard_gmflow.py:6-44 (model, train_cfg, test_cfg,
+# optimizer, data, EMA hook)
+CKB_MODEL = dict(
+    data_shape=(1, 1, 2), diffusion_use_ema=True,
+    diffusion=dict(
+        type='GMFlow',
+        denoising=dict(type='ToyGMFlowDenoiser', out_channels=2,
+                       num_gaussians=8, hidden=(256, 256, 256),
+                       num_timesteps=1000),
+        flow_loss=dict(type='GMFlowNLLLoss', data_info=dict(
+            pred_means='means', target='x_t_low', pred_logstds='logstds',
+            pred_logweights='logweights')),
+        num_timesteps=1000,
+        timestep_sampler=dict(type='ContinuousTimeStepSampler', shift=1.0)))
+CKB_TRAIN_CFG = dict(trans_ratio=1.0, diffusion_grad_clip=10.0)
+CKB_TEST_CFG = dict(sampler='FlowEulerODE', num_timesteps=16,
+                    output_mode='mean', order=2, num_substeps=2)
+CKB_OPT = dict(diffusion=dict(type='AdamW', lr=1e-3, weight_decay=0.0))
+CKB_EMA_HOOK = dict(type='ExponentialMovingAverageHookMod',
+                    module_keys=('diffusion_ema',), interp_mode='lerp',
+                    interval=1, start_iter=100, momentum_policy='karras',
+                    momentum_cfg=dict(gamma=7.0))
+CKB_BATCH, CKB_STEPS, CKB_SAMPLES = 512, 1000, 4096
 # configs/qwen/arcqwen_2nfe_k16.py and bench.py:build_qwen
 QWEN_20B = dict(in_channels=64, num_layers=60, attention_head_dim=128,
                 num_attention_heads=24, joint_attention_dim=3584,
@@ -267,9 +331,13 @@ def phase_facts():
     smi = smi_line()
     nvcc = subprocess.run([_build.find_nvcc(), '--version'],
                           capture_output=True, text=True, check=True)
+    bounds = unported_bounds()
     log(f'phase 1 facts: ok | nvidia-smi: {smi} | torch {torch.__version__} '
         f'cuda {torch.version.cuda} | devices {torch.cuda.device_count()} | '
-        f'nvcc: {nvcc.stdout.strip().splitlines()[-1]}')
+        f'nvcc: {nvcc.stdout.strip().splitlines()[-1]} | bounds of the TPU '
+        f'kernels still to port: ' + ' ; '.join(
+            f'{k} {b["bound_ms"]:.4f} ms ({b["bound_by"]}, {b["ops"]:.3e} '
+            f'operations, {b["bytes"]} bytes)' for k, b in bounds.items()))
     return smi
 
 
@@ -975,6 +1043,244 @@ def phase_train_full():
     return dict(forward=launches[0], backward=launches[1])
 
 
+def unported_bounds():
+    """Bounds (ms) of the TPU kernels still to port, from their shapes: K4,
+    one ring hop at sp = 4 of the FLUX shape (1152 queries x 1152 keys, H24
+    D128, bf16 q, k, v and o, int32 segment ids, fp32 l and m); K7, the
+    int8-QK^T attention at B1 S4608 H24 D128 (int8 q and k with fp32 row
+    scales, bf16 v and o, QK^T at the int8 peak and P.V at the bf16
+    peak)."""
+    h, d, s4 = 24, 128, 4608 // 4
+    k4_ops = 4 * h * s4 * s4 * d
+    k4_bytes = 4 * s4 * h * d * 2 + 2 * s4 * 4 + 2 * h * s4 * 4
+    k4 = roofline(k4_ops, k4_bytes, H100_BF16)
+    s = 4608
+    half = 2 * h * s * s * d
+    k7_ms = (half / H100_INT8 + half / H100_BF16) * 1e3
+    k7_bytes = 2 * (s * h * d + s * h * 4) + 2 * s * h * d * 2 + s * 4
+    k7 = (k7_ms, 'operations') if k7_ms >= k7_bytes / H100_BYTES * 1e3 \
+        else (k7_bytes / H100_BYTES * 1e3, 'bytes')
+    return dict(K4=dict(bound_ms=k4[0], bound_by=k4[1], ops=k4_ops,
+                        bytes=k4_bytes),
+                K7=dict(bound_ms=k7[0], bound_by=k7[1], ops=2 * half,
+                        bytes=k7_bytes))
+
+
+def k6_bound(g, n, m, n_steps):
+    """Roofline of one inverse-CDF launch, counted as the TPU kernel's cost
+    estimate counts it (inverse_cdf.py:134-137: 12 fp32 operations and 2
+    transcendentals per step, target and component), plus the output
+    written: the largest of fp32 operations over the fp32 peak,
+    transcendentals over the special-function rate and bytes over the
+    memory rate. Returns (ms, 'operations' or 'bytes', which)."""
+    times = {'fp32 operations': n_steps * n * g * m * 12 / H100_FP32,
+             'special functions': n_steps * n * g * m * 2 / H100_SFU,
+             'bytes': ((3 * g + 2 * n + 1) * m + n * m) * 4 / H100_BYTES}
+    which = max(times, key=times.get)
+    return (times[which] * 1e3, 'bytes' if which == 'bytes'
+            else 'operations', which)
+
+
+def k6_case(g, hw, k=KR_K, n=1, saturate=False):
+    """A random 1-D mixture in the KR transport's per-axis layout: means
+    and log-weights (1, 1, k, H, W), logstd (1, 1, 1, 1, 1), targets
+    erf(z / sqrt 2) (1, 1, n, H, W) and the isotropic-proxy initial samples
+    of ``gm1d_inverse_cdf``; with ``saturate`` some targets at and next to
+    +-1."""
+    kw = dict(generator=g, device='cuda')
+    means = torch.randn(1, 1, k, *hw, **kw)
+    lw = torch.log_softmax(torch.randn(1, 1, k, *hw, **kw), dim=2)
+    logstds = torch.full((1, 1, 1, 1, 1), KR_LOGSTD, device='cuda')
+    z = torch.randn(1, 1, n, *hw, **kw)
+    tgt = torch.erf(z / math.sqrt(2))
+    if saturate:
+        tgt[0, 0, 0, 0, :8] = 1.0
+        tgt[0, 0, 1, 0, :8] = -1.0
+        tgt[0, 0, 2, 0, :8] = 1 - 1e-7
+    wt = lw.exp()
+    mean = (wt * means).sum(2, keepdim=True)
+    var = (wt * (means - mean).square()).sum(2, keepdim=True) \
+        + math.exp(2 * KR_LOGSTD)
+    return means, lw, wt, logstds, tgt, z * var.sqrt() + mean
+
+
+def k6_check(name, args):
+    """Kernel vs plain at one problem: raises past the root tolerance, on a
+    non-finite output or on two runs that differ; returns the max abs error
+    over unsaturated elements."""
+    out = icdf.gm1d_inverse_cdf_kernel(*args, n_steps=KR_STEPS)
+    again = icdf.gm1d_inverse_cdf_kernel(*args, n_steps=KR_STEPS)
+    torch.cuda.synchronize()
+    ref = icdf.gm1d_inverse_cdf_ref(*args, n_steps=KR_STEPS)
+    if not torch.isfinite(out).all():
+        raise AssertionError(f'K6 {name}: non-finite output')
+    if not torch.equal(out, again):
+        raise AssertionError(f'K6 {name}: two runs differ')
+    means, lw, _, logstds, tgt, _ = args
+    pdf, _ = gm_ops.gm1d_pdf_cdf(dict(means=means, logstds=logstds,
+                                      logweights=lw), ref)
+    uns = tgt.abs() < 0.999
+    err = (out - ref).abs()
+    bad = (err > K6_ATOL + K6_CDF_TOL / (2 * pdf)) & uns
+    if bad.any():
+        raise AssertionError(f'K6 {name}: {int(bad.sum())} unsaturated '
+                             f'elements past the root tolerance, max err '
+                             f'{err[uns].max().item():.3e}')
+    return err[uns].max().item()
+
+
+def phase_k6_vs_plain():
+    g = torch.Generator(device='cuda').manual_seed(SEED + 11)
+    cases = [('kr_axis', dict(hw=KR_LATENT[:2])),
+             ('large', dict(hw=K6_LARGE_HW)),
+             ('ragged', dict(hw=(37, 53))),
+             ('n5_g1', dict(hw=(40, 40), k=1, n=5)),
+             ('saturated', dict(hw=(64, 64), n=3, saturate=True))]
+    worst, parts, timed = 0.0, [], {}
+    for name, kw in cases:
+        args = k6_case(g, **kw)
+        err = k6_check(name, args)
+        worst = max(worst, err)
+        m = math.prod(args[0].shape[-2:])
+        parts.append(f'{name} G{args[0].shape[2]} N{args[4].shape[2]} M{m} '
+                     f'max|d| {err:.3e}')
+        if name in ('kr_axis', 'large'):
+            rows, _ = icdf.kernel_layout(*args)
+            ms = cuda_ms(lambda: icdf.launch(rows, KR_STEPS, 1e-6, 1.5), 50)
+            wrapper_ms = cuda_ms(lambda: icdf.gm1d_inverse_cdf_kernel(
+                *args, n_steps=KR_STEPS), 20)
+            plain_ms = cuda_ms(lambda: icdf.nr_steps_ref(
+                *rows, KR_STEPS, 1e-6, 1.5), 5)
+            bound_ms, bound_by, which = k6_bound(KR_K, 1, m, KR_STEPS)
+            timed[name] = dict(shape=dict(G=KR_K, N=1, M=m,
+                                          n_steps=KR_STEPS),
+                               ms=ms, wrapper_ms=wrapper_ms,
+                               plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, bound_detail=which)
+    log(f'phase 12 inverse-CDF kernel vs plain: ok | {" ; ".join(parts)} '
+        f'(bound {K6_ATOL} + {K6_CDF_TOL} / 2 pdf, unsaturated), finite, '
+        f'deterministic | ' + ' ; '.join(
+            f'{name} M{t["shape"]["M"]}: kernel {t["ms"]:.4f} ms (with the '
+            f'wrapper\'s layout copies {t["wrapper_ms"]:.4f} ms), plain fp32 '
+            f'{t["plain_ms"]:.4f} ms, bound {t["bound_ms"]:.4f} ms '
+            f'({t["bound_detail"]}, {100 * t["bound_ms"] / t["ms"]:.1f}% '
+            f'of it)' for name, t in timed.items()))
+    return worst, timed
+
+
+def kr_mixture(g):
+    """A random mixture of the ArcFlux head geometry: means (1, K, 128,
+    128, 16), log-weights (1, K, 128, 128, 1), one scalar logstd; and one
+    standard normal draw z (1, 1, 128, 128, 16)."""
+    kw = dict(generator=g, device='cuda')
+    h, w, c = KR_LATENT
+    gm = dict(means=torch.randn(1, KR_K, h, w, c, **kw),
+              logstds=torch.full((1, 1, 1, 1, 1), KR_LOGSTD, device='cuda'),
+              logweights=torch.log_softmax(
+                  torch.randn(1, KR_K, h, w, 1, **kw), dim=1))
+    return gm, torch.randn(1, 1, h, w, c, **kw)
+
+
+def timed_kr(gm, z):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    x = gm_ops.gaussian_samples_to_gm_samples(gm, z, n_steps=KR_STEPS,
+                                              backward_steps=0)
+    torch.cuda.synchronize()
+    return x, time.perf_counter() - t
+
+
+def phase_kr():
+    g = torch.Generator(device='cuda').manual_seed(SEED + 12)
+    gm, z = kr_mixture(g)
+    c = KR_LATENT[-1]
+    _, t_cold = timed_kr(gm, z)
+    icdf.LAUNCHES = 0                       # the main path's counted run
+    x, t_warm = timed_kr(gm, z)
+    launches = icdf.LAUNCHES
+    if launches != c:
+        raise AssertionError(f'{launches} inverse-CDF launches, want {c}')
+    with mock.patch.object(icdf, 'gm1d_inverse_cdf_kernel',
+                           icdf.gm1d_inverse_cdf_ref):
+        x_plain, t_plain = timed_kr(gm, z)
+    if not torch.isfinite(x).all():
+        raise AssertionError('non-finite KR samples')
+    uns = (torch.erf(z / math.sqrt(2)).abs() < 0.999).all(-1, keepdim=True)
+    rel = rel_l2(x * uns, x_plain * uns)
+    if rel > KR_REL_L2:
+        raise AssertionError(f'KR kernel vs plain rel L2 {rel:.3e} > '
+                             f'{KR_REL_L2}')
+    z_rec = gm_ops.gm_samples_to_gaussian_samples(gm, x)
+    rt = ((z_rec - z).abs() * uns).max().item()
+    if not rt <= KR_ROUND_TRIP:
+        raise AssertionError(f'round trip max |z_rec - z| {rt:.3e} > '
+                             f'{KR_ROUND_TRIP}')
+    log(f'phase 13 KR transport (K={KR_K} over a {KR_LATENT} latent, 1 '
+        f'draw, {KR_STEPS} NR steps): ok | samples {tuple(x.shape)} finite | '
+        f'kernel launches {launches} | rel L2 vs the plain path '
+        f'{rel:.3e} (bound {KR_REL_L2}) over the {uns.float().mean().item():.4f} '
+        f'of pixels with every axis unsaturated | round trip max |z_rec - '
+        f'z| {rt:.3e} (bound {KR_ROUND_TRIP}) | seconds per call: cold '
+        f'{t_cold:.4f}, warm {t_warm:.4f}, plain path {t_plain:.4f}')
+    return dict(launches=launches, s=t_warm, plain_s=t_plain, rel_l2=rel,
+                round_trip=rt)
+
+
+def phase_gmflow():
+    torch.manual_seed(SEED + 13)
+    model = Diffusion2D(train_cfg=CKB_TRAIN_CFG, test_cfg=CKB_TEST_CFG,
+                        device='cuda', **CKB_MODEL)
+    trainable, frozen = model.init_params()
+    optimizers = build_optimizers(CKB_OPT, trainable)
+    state = TrainState.create(
+        torch.Generator(device='cuda').manual_seed(SEED + 14), trainable,
+        frozen, optimizers, ema_keys=model.ema_keys)
+    step = build_train_step(model, optimizers, model.train_cfg,
+                            EmaConfig.from_hook_cfg(CKB_EMA_HOOK))
+    data = CheckerboardData(n_rc=4, scale=1.0)
+    rng = np.random.default_rng(SEED)
+    losses = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(CKB_STEPS):
+        x = torch.from_numpy(data.batch(rng, CKB_BATCH)['x']).to('cuda')
+        state, logs = step(state, dict(x=x))
+        losses.append(logs['loss'])
+    losses = torch.stack(losses).cpu()
+    t_step = (time.perf_counter() - t) / CKB_STEPS
+    if not torch.isfinite(losses).all():
+        raise AssertionError('non-finite GMFlow losses')
+    first, last = losses[:100].mean().item(), losses[-100:].mean().item()
+    if not last < first:
+        raise AssertionError(f'GMFlow loss did not fall: first 100 {first}, '
+                             f'last 100 {last}')
+    noise = torch.randn(CKB_SAMPLES, *CKB_MODEL['data_shape'],
+                        generator=torch.Generator(device='cuda').manual_seed(
+                            SEED + 15), device='cuda')
+    ema = state.ema['diffusion']
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    samples = model.val_step(dict(noise=noise), None, ema=ema)
+    torch.cuda.synchronize()
+    t_sample = time.perf_counter() - t
+    again = model.val_step(dict(noise=noise), None, ema=ema)
+    if not torch.isfinite(samples).all():
+        raise AssertionError('non-finite GMFlow samples')
+    if not torch.equal(samples, again):
+        raise AssertionError('GMFlow samples differ on a repeat')
+    support = data.log_prob_support(samples.reshape(-1, 2).cpu().numpy())
+    log(f'phase 14 GMFlow checkerboard (ToyGMFlowDenoiser K=8, hidden '
+        f'256 x 3, GMFlowNLLLoss, AdamW 1e-3, Karras EMA from 100, batch '
+        f'{CKB_BATCH}): ok | {CKB_STEPS} steps, loss mean of the first 100 '
+        f'{first:.4f}, last 100 {last:.4f} | {t_step * 1e3:.3f} ms per step '
+        f'| val_step (EMA, FlowEulerODE 16 steps, order 2, 2 substeps, '
+        f'mean): {CKB_SAMPLES} samples finite, equal on a repeat, '
+        f'{t_sample:.4f} s per call, in-support share {support.mean():.4f} '
+        f'(not gated)')
+    return dict(s_per_step=t_step, s_per_sample_call=t_sample,
+                support=float(support.mean()))
+
+
 def main():
     smi = phase_facts()
     torch.manual_seed(SEED)
@@ -1001,6 +1307,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = phase_train_full()
+    gc.collect()
+    torch.cuda.empty_cache()
+    k6_err, k6_timed = phase_k6_vs_plain()
+    kr = phase_kr()
+    phase_gmflow()
     fwd = attn_timed['unmasked']
     ff_in = w4a8_timed[0]
     fwd_by_path = {'flux': flux_launches, 'qwen': qwen_launches['attention'],
@@ -1033,7 +1344,19 @@ def main():
          'max_abs_err': bwd['max_abs_err'], 'max_rel_l2': bwd['max_rel_l2'],
          'ms': bwd['ms'], 'plain_ms': bwd['plain_ms'],
          'bound_ms': bwd['bound_ms'], 'bound_by': bwd['bound_by'],
-         'library_ms': bwd['library_ms'], 'shape': list(FLUX_SHAPE)}]}))
+         'library_ms': bwd['library_ms'], 'shape': list(FLUX_SHAPE)},
+        {'name': 'gm_inverse_cdf', 'route': 'cuda',
+         'source': 'arcflow_tpu_torch/csrc/gm_inverse_cdf.cu',
+         'replaces': 'arcflow_tpu/ops/gm/inverse_cdf.py:70',
+         'launches': kr['launches'],
+         'launches_by_path': {'kr_transport': kr['launches']},
+         'max_abs_err': k6_err, 'ms': k6_timed['kr_axis']['ms'],
+         'plain_ms': k6_timed['kr_axis']['plain_ms'],
+         'bound_ms': k6_timed['kr_axis']['bound_ms'],
+         'bound_by': k6_timed['kr_axis']['bound_by'], 'library_ms': None,
+         'shape': k6_timed['kr_axis']['shape'],
+         'wrapper_ms': k6_timed['kr_axis']['wrapper_ms'],
+         'large': k6_timed['large']}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -18,6 +18,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from arcflow_tpu.models.layers import _flash_call
+from arcflow_tpu.models.layers import attention as j_attention
 from arcflow_tpu_torch.models import layers as t_layers
 from arcflow_tpu_torch.ops import attention as t_attn
 
@@ -112,6 +113,27 @@ def test_attention_dispatcher_takes_key_padding_masks_only():
     torch.testing.assert_close(out, t_attn.attention_ref(q, k, v, kv_valid))
     with pytest.raises(ValueError, match='key-padding'):
         t_layers.attention(q, k, v, mask=torch.ones(2, 1, 12, 12, dtype=bool))
+
+
+@pytest.mark.parametrize('lengths', [(0, 12), (0, 0), (5, 12)])
+def test_layers_attention_matches_jax_attention_with_a_keyless_row(lengths):
+    """The model's ``attention()`` against the JAX ``attention`` (XLA on the
+    CPU) with a key-padding mask, rows with no valid key included: there
+    both give the mean of v over all keys. fp32 on both sides, rtol 2e-5,
+    atol 2e-6 as above."""
+    q, k, v = _qkv(2, 12, 2, 16, seed=7)
+    kv_valid = np.arange(12)[None, :] < np.asarray(lengths)[:, None]
+    want = j_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       mask=jnp.asarray(kv_valid)[:, None, None, :])
+    got = t_layers.attention(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        mask=torch.from_numpy(kv_valid)[:, None, None, :])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-6)
+    for row in np.flatnonzero(~kv_valid.any(1)):
+        np.testing.assert_allclose(got.numpy()[row],
+                                   np.broadcast_to(v[row].mean(0), (12, 2, 16)),
+                                   rtol=1e-6, atol=1e-6)
 
 
 def _bf16(shape, **kw):

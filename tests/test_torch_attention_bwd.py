@@ -4,10 +4,11 @@ Function that carries it, against autograd and against the JAX package.
 
 On the CPU the Function runs ``attention_ref`` forward and
 ``attention_bwd_ref`` backward; these tests hold that pair against
-``torch.autograd`` through ``attention_ref``, against ``jax.vjp`` of
-``arcflow_tpu.models.layers.attention`` (XLA attention on the CPU) and
-against the JAX package's flash kernel with its dq/dkv backward kernels
-(``_flash_call``), run in Pallas interpret mode as
+``torch.autograd`` through ``attention_ref``, the model's
+``layers.attention`` (the Function plus its keyless-row rule) against
+``jax.vjp`` of ``arcflow_tpu.models.layers.attention`` (XLA attention on
+the CPU), and the Function against the JAX package's flash kernel with its
+dq/dkv backward kernels (``_flash_call``), run in Pallas interpret mode as
 tests/test_flash_attention.py runs the forward. The CUDA kernels run only
 on a card: tests/test_torch_attention_bwd_cuda.py, which imports no JAX.
 
@@ -43,6 +44,16 @@ def _lengths_mask(s, lengths):
     return np.arange(s)[None, :] < np.asarray(lengths)[:, None]
 
 
+def _layers_grads(q, k, v, do, kv_valid=None):
+    """(dq, dk, dv) of the model's ``attention()`` on CPU tensors."""
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    mask = None if kv_valid is None \
+        else torch.from_numpy(kv_valid)[:, None, None, :]
+    out = t_layers.attention(q, k, v, mask=mask)
+    return [g.numpy() for g in torch.autograd.grad(out, (q, k, v),
+                                                   torch.from_numpy(do))]
+
+
 def _port_grads(q, k, v, do, kv_valid=None):
     """(dq, dk, dv) of the Function on CPU tensors, as numpy."""
     q, k, v = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
@@ -75,24 +86,38 @@ def test_bwd_ref_matches_autograd_through_the_forward_ref(s, d, lengths):
 @pytest.mark.parametrize('d', [16, 128])
 @pytest.mark.parametrize('masked', [False, True])
 def test_grads_match_jax_vjp_of_attention(s, d, masked):
-    """jax.vjp of the JAX ``attention`` (XLA on the CPU) with a key mask.
-    The batch row with no valid key is where the two differ by design: XLA
-    attention gives it uniform weights over the masked keys (and gradients
-    to match), the port O = 0 and zero gradients; it is compared to zero."""
+    """The port's ``layers.attention`` against jax.vjp of the JAX
+    ``attention`` (XLA on the CPU) with a key mask, every row compared. The
+    batch row with no valid key attends uniformly to all keys in both: dq =
+    dk = 0 from it and each key's dv = sum_q dO_q / S; padded keys of the
+    valid row get dk = dv = 0."""
     q, k, v, do = _inputs(2, s, 2, d, seed=s + d)
     kv_valid = _lengths_mask(s, (s - 17, 0)) if masked else None
     mask = None if kv_valid is None else jnp.asarray(kv_valid)[:, None, None]
     _, vjp = jax.vjp(lambda a, b, c: j_attention(a, b, c, mask=mask),
                      jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
-    got = _port_grads(q, k, v, do, kv_valid)
-    rows = slice(0, 1) if masked else slice(None)
+    got = _layers_grads(q, k, v, do, kv_valid)
     for x, y in zip(got, want):
-        np.testing.assert_allclose(x[rows], y[rows], **TOL)
+        np.testing.assert_allclose(x, y, **TOL)
     if masked:
-        assert all(not x[1].any() for x in got)
-        # padded keys of the valid row get dk = dv = 0
+        assert not got[0][1].any() and not got[1][1].any()
+        np.testing.assert_allclose(
+            got[2][1], np.broadcast_to(do[1].sum(0) / s, (s, 2, d)), **TOL)
         assert not got[1][0, s - 17:].any() and not got[2][0, s - 17:].any()
+
+
+def test_function_gives_a_keyless_row_zero_output_and_gradients():
+    """The ops-level Function keeps the kernels' contract for a row with no
+    valid key: O = 0 and zero dq, dk, dv (``layers.attention`` replaces that
+    row's output, see above)."""
+    q, k, v, do = _inputs(2, 30, 2, 16, seed=8)
+    kv_valid = _lengths_mask(30, (30, 0))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = t_attn.flash_attention(tq, tk, tv, torch.from_numpy(kv_valid))
+    assert not out[1].detach().any() and out[0].detach().abs().sum() > 0
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    assert all(not g[1].any() for g in got)
 
 
 @pytest.mark.parametrize('masked', [False, True])
