@@ -14,8 +14,16 @@ again in the backward (``torch.utils.checkpoint``, the JAX ``nn.remat``),
 and the LoRA dropout of block ``i`` draws from a generator seeded from
 ``(dropout_seed, i)`` (JAX ``jax.random.fold_in(key, i)``). The seed is an
 input of the checkpointed function, so the recompute draws the same masks.
-ControlNet residuals, fill inputs, MoE and pipeline parallelism wait for
-their slices.
+
+Sequence parallelism (serving): with a ``parallel.SequenceParallel`` state
+(``sequence_parallel``, set by ``parallel.set_sequence_parallel``) each rank
+keeps its shard of the image tokens and its shard of the text tokens, with
+RoPE from the matching slices of the position ids, as the JAX trunk shards
+img and txt separately (``arcflow_tpu/models/flux.py:327-330``). The blocks
+concatenate [txt_r, img_r] locally, a permutation of the global sequence that
+non-causal attention does not see, and the image tokens are gathered before
+the heads, so every rank returns the whole output. ControlNet residuals,
+fill inputs, MoE and pipeline parallelism wait for their slices.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import SequenceParallel
 from .layers import (AdaLayerNormContinuous, AdaLayerNormZero,
                      AdaLayerNormZeroSingle, FeedForward, JointAttention,
                      LoRADense, SingleStreamAttention, layer_norm_no_affine,
@@ -185,6 +194,7 @@ class FluxBackbone(nn.Module):
         self.axes_dims_rope = tuple(axes_dims_rope)
         self.lora_dropout = lora_dropout
         self.checkpointing = checkpointing
+        self.sequence_parallel = None
         inner = num_attention_heads * attention_head_dim
         self.inner_dim = inner
         kw = dict(device=device, dtype=dtype)
@@ -221,6 +231,12 @@ class FluxBackbone(nn.Module):
         """packed (B, N_img, in_channels) -> (hidden (B, N_img, D), temb).
         ``dropout_seed`` turns the LoRA dropout on (training)."""
         n_blocks = len(self.joint_blocks) + len(self.single_blocks)
+        sp = self.sequence_parallel
+        # a LocalRing keeps every shard in this process: nothing to cut
+        if isinstance(sp, SequenceParallel):
+            packed, img_ids = sp.shard(packed), sp.shard(img_ids, dim=0)
+            encoder_hidden_states = sp.shard(encoder_hidden_states)
+            txt_ids = sp.shard(txt_ids, dim=0)
         img = self.x_embedder(packed)
         txt = self.context_embedder(encoder_hidden_states)
         temb = self.time_text_embed(
@@ -234,7 +250,10 @@ class FluxBackbone(nn.Module):
         hidden = torch.cat([txt, img], dim=1)
         for i, block in enumerate(self.single_blocks, len(self.joint_blocks)):
             hidden = self._block(block, i, dropout_seed, hidden, rope, temb)
-        return hidden[:, txt.shape[1]:], temb
+        img = hidden[:, txt.shape[1]:]
+        if isinstance(sp, SequenceParallel):
+            img = sp.gather(img)
+        return img, temb
 
     def _prepare_tokens(self, hidden_states, encoder_hidden_states):
         """patchify + position ids."""

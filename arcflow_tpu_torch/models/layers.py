@@ -17,8 +17,11 @@ passed down the ``forward`` calls (``generator=``), and only when one is
 passed, as the JAX layers draw only under a ``dropout`` rng.
 
 ``LoRADense`` has the float path and the int4 path (weight-only or w4a8,
-after ``utils/quantize.py:quantize_weights_int4``); the int8 paths, MoE and
-the mesh/ring attention routing wait for their slices.
+after ``utils/quantize.py:quantize_weights_int4``). The attention modules
+hold their sequence-parallel state (``sequence_parallel``: None, a
+``parallel.SequenceParallel`` in ring or Ulysses mode, or a
+``parallel.LocalRing``), set by ``parallel.set_sequence_parallel``; the int8
+paths and MoE wait for their slices.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from torch import nn
 
 from ..ops import attention as attn_ops
 from ..ops import quant_matmul as qmm_ops
+from ..parallel.ring_attention import (LocalRing, check_no_autograd,
+                                       ring_attention)
 from ..utils.quantize import unpack_nibbles
 
 
@@ -270,13 +275,20 @@ def key_padding_mask(mask: Optional[torch.Tensor], s_kv: int
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              mask: Optional[torch.Tensor] = None, sp=None) -> torch.Tensor:
     """Scaled dot-product attention on (B, S, H, D) tensors.
 
     The backend follows the tensors' device: a CUDA tensor runs the Hopper
     kernels (``ops/attention.py:flash_attention``, forward and, under
     autograd, backward), a CPU tensor their plain versions. ``mask`` may be
     None or a key-padding mask (B, 1, 1, S_kv); other masks raise.
+
+    ``sp`` routes the call over the sequence-parallel ranks (inference
+    only): a ``LocalRing`` or a ``SequenceParallel`` in 'ring' mode runs
+    ``parallel/ring_attention.py`` on this rank's token shard; one in
+    'ulysses' mode turns the token shards into head shards of the full
+    sequence (all-to-all), runs the kernel on them with the key mask
+    gathered from every rank, and turns them back.
 
     A batch row whose keys are all masked gets what the JAX ``attention``
     gives it (XLA attention masks with a large negative number, so the row
@@ -289,6 +301,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None and kv_valid is None:
         raise ValueError('attention takes only key-padding masks '
                          f'(B, 1, 1, S_kv), got {tuple(mask.shape)}')
+    if sp is None:
+        return _attention_one_device(q, k, v, kv_valid)
+    if isinstance(sp, LocalRing) or sp.mode == 'ring':
+        return ring_attention(q, k, v, kv_valid, sp)
+    check_no_autograd(q, k, v)
+    q, k, v = (sp.seq_to_heads(t) for t in (q, k, v))
+    if kv_valid is not None:
+        kv_valid = sp.gather(kv_valid)
+    return sp.heads_to_seq(_attention_one_device(q, k, v, kv_valid))
+
+
+def _attention_one_device(q, k, v, kv_valid):
     out = attn_ops.flash_attention(q, k, v, kv_valid)
     if kv_valid is None:
         return out
@@ -305,6 +329,7 @@ class JointAttention(nn.Module):
                  lora_rank: int = 0, device=None, dtype=None):
         super().__init__()
         self.num_heads, self.head_dim = num_heads, head_dim
+        self.sequence_parallel = None
         inner = num_heads * head_dim
         kw = dict(lora_rank=lora_rank, device=device, dtype=dtype)
         for s in ('img', 'txt'):
@@ -337,7 +362,8 @@ class JointAttention(nn.Module):
         q = apply_rope(torch.cat([q_t, q_i], dim=1), cos, sin)
         k = apply_rope(torch.cat([k_t, k_i], dim=1), cos, sin)
         v = torch.cat([v_t, v_i], dim=1)
-        out = attention(q, k, v, mask=mask).reshape(b, s_txt + s_img, -1)
+        out = attention(q, k, v, mask=mask, sp=self.sequence_parallel
+                        ).reshape(b, s_txt + s_img, -1)
         return self.img_out(out[:, s_txt:]), self.txt_out(out[:, :s_txt])
 
 
@@ -349,6 +375,7 @@ class SingleStreamAttention(nn.Module):
                  lora_rank: int = 0, device=None, dtype=None):
         super().__init__()
         self.num_heads, self.head_dim = num_heads, head_dim
+        self.sequence_parallel = None
         inner = num_heads * head_dim
         kw = dict(lora_rank=lora_rank, device=device, dtype=dtype)
         self.q = LoRADense(dim, inner, **kw)
@@ -365,4 +392,4 @@ class SingleStreamAttention(nn.Module):
         q = apply_rope(self.q_norm(self.q(x).reshape(shape)), cos, sin)
         k = apply_rope(self.k_norm(self.k(x).reshape(shape)), cos, sin)
         v = self.v(x).reshape(shape)
-        return attention(q, k, v).reshape(b, s, -1)
+        return attention(q, k, v, sp=self.sequence_parallel).reshape(b, s, -1)

@@ -7,8 +7,10 @@ Counterpart of ``arcflow_tpu/models/qwen.py`` (``QwenJointBlock``,
 stream, a timestep-only embedder (no pooled text, no guidance embeds),
 centred 3-axis RoPE, text truncation at ``max_text_len``, and a text key
 mask in every block's joint attention. The heads are ArcFlux's
-(``flux.py:ArcFlowHeads``). The teacher ``QwenImageTransformer2DModel`` and
-MoE wait for the training slices.
+(``flux.py:ArcFlowHeads``). Under sequence parallelism the trunk shards its
+tokens as the FLUX trunk does, and the text mask with the text tokens, so
+each rank's key mask is [txt_mask_r, ones(img_r)]. The teacher
+``QwenImageTransformer2DModel`` and MoE wait for the training slices.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..parallel.mesh import SequenceParallel
 from .flux import (ArcFlowHeads, FluxJointBlock, MLPEmbedder, make_img_ids,
                    patchify)
 from .layers import LoRADense, RMSNorm, rope_frequencies, timestep_sinusoidal
@@ -65,6 +68,7 @@ class QwenBackbone(nn.Module):
         self.in_channels = in_channels
         self.axes_dims_rope = tuple(axes_dims_rope)
         self.max_text_len = max_text_len
+        self.sequence_parallel = None
         self.dtype = dtype if dtype is not None else torch.get_default_dtype()
         inner = num_attention_heads * attention_head_dim
         self.inner_dim = inner
@@ -91,6 +95,13 @@ class QwenBackbone(nn.Module):
             if encoder_hidden_states_mask is not None:
                 encoder_hidden_states_mask = \
                     encoder_hidden_states_mask[:, :self.max_text_len]
+        sp = self.sequence_parallel
+        if isinstance(sp, SequenceParallel):     # see flux.py:FluxBackbone
+            packed, img_ids = sp.shard(packed), sp.shard(img_ids, dim=0)
+            encoder_hidden_states = sp.shard(encoder_hidden_states)
+            if encoder_hidden_states_mask is not None:
+                encoder_hidden_states_mask = sp.shard(
+                    encoder_hidden_states_mask)
         img = self.img_in(packed.to(dt))
         txt = self.txt_in(self.txt_norm(encoder_hidden_states.to(dt)))
         temb = self.timestep_embedder(
@@ -101,6 +112,8 @@ class QwenBackbone(nn.Module):
                                 self.axes_dims_rope)
         for block in self.transformer_blocks:
             img, txt = block(img, txt, rope, temb, encoder_hidden_states_mask)
+        if isinstance(sp, SequenceParallel):
+            img = sp.gather(img)
         return img, temb
 
 

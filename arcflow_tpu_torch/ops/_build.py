@@ -109,6 +109,9 @@ def load_library() -> ctypes.CDLL:
     lib.arcflow_gm_inverse_cdf.argtypes = [_P] * 7 + [_I32] * 2 + [_I64, _I32] \
         + [ctypes.c_float] * 2 + [_P]
     lib.arcflow_gm_inverse_cdf.restype = _I32
+    lib.arcflow_ring_hop.argtypes = [_P] * 8 + [_I32] * 4 + [_I64] * 13 \
+        + [_I32] * 2 + [_P]
+    lib.arcflow_ring_hop.restype = _I32
     lib.arcflow_cuda_error_string.argtypes = [_I32]
     lib.arcflow_cuda_error_string.restype = ctypes.c_char_p
     return lib

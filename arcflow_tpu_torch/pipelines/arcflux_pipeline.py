@@ -6,10 +6,11 @@ Counterpart of ``arcflow_tpu/pipelines/arcflux_pipeline.py``
 ``ArcQwenImagePipeline``): nfe-step ArcFlow sampling (one DiT call +
 closed-form momentum integration per step, temperature on every step but
 the last) -> VAE decode. The kernels follow the device the modules and
-inputs live on, and the w4a8 mode is state of the transformer's layers;
-there is no process-wide serving or quantization flag. Prompt encoding,
-``from_pretrained``, adapter loading, int8 and sharding wait for their
-slices.
+inputs live on; the w4a8 mode is state of the transformer's layers and the
+sequence-parallel layout (``shard``) state of its trunk and attention
+modules; there is no process-wide serving, quantization or mesh flag.
+Prompt encoding, ``from_pretrained``, adapter loading, int8 and the mesh
+axes other than ``sp`` wait for their slices.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import torch
 from torch import nn
 
 from ..diffusion import ArcFlowImitationDataFree, ContinuousTimeStepSampler
+from ..parallel.mesh import (SequenceParallel, make_mesh,
+                             set_sequence_parallel)
 
 
 def retrieve_raw_timesteps(num_inference_steps: int,
@@ -83,6 +86,33 @@ class ArcFluxPipeline:
         return len(quantize_weights_int4(self.transformer, min_size=min_size,
                                          group_size=group_size,
                                          act_quant=act_quant))
+
+    def shard(self, mesh_axes: Dict[str, int], sp_mode: str = 'ulysses',
+              min_size: Optional[int] = None):
+        """Serve one image across the ranks of a sequence-parallel group:
+        ``mesh_axes={'sp': n}`` over the n processes started with
+        ``parallel.setup_distributed`` (JAX ``shard``, lines 349-391, same
+        default mode). Each rank keeps its shard of the image and text
+        tokens; attention runs in ``sp_mode`` 'ulysses' (all-to-all to head
+        shards, heads % n == 0) or 'ring' (K/V blocks rotate, one K4 hop per
+        block). The weights stay replicated and the VAE decodes on every
+        rank. Call it after ``quantize_int4``; then every rank calls
+        ``__call__`` with the same ``latents`` or generator seed and gets
+        the same images. Other axes raise, and so does ``min_size`` (JAX's
+        smallest array the weight-sharding axes cut: ``sp`` cuts none).
+        Returns the mesh ({'sp': process group})."""
+        if min_size is not None:
+            raise NotImplementedError(
+                'min_size sizes weight sharding, which waits for the fsdp and '
+                'tensor axes (ROADMAP A12): with sp alone the weights stay '
+                'replicated')
+        mesh = make_mesh(dict(mesh_axes))
+        group = mesh['sp']
+        sp = None
+        if group is not None and group.size() > 1:
+            sp = SequenceParallel(group, sp_mode)
+        set_sequence_parallel(self.transformer, sp)
+        return mesh
 
     @torch.inference_mode()
     def __call__(self, prompt_embeds: Dict[str, torch.Tensor],

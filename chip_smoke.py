@@ -6,10 +6,10 @@ It needs one CUDA card and ``nvcc``; it imports nothing of JAX. Phases, one
 line each, and any failure exits non-zero:
 
 1. facts: the card's name and power limit (nvidia-smi), torch, CUDA, nvcc;
-   and the bounds of the TPU kernels not yet ported, from their shapes;
+   and the bound of the TPU kernel not yet ported (K7), from its shape;
 2. build: compile every kernel source of ``arcflow_tpu_torch/csrc``
-   (attention forward and backward, w4a8 matmul, inverse CDF), one
-   ``nvcc`` per source, all in parallel;
+   (attention forward and backward, w4a8 matmul, inverse CDF, ring hop),
+   one ``nvcc`` per source, all in parallel;
 3. attention kernel vs plain: against ``attention_ref`` at the FLUX shape
    (B1 S4608 H24 D128), a ragged S and key-padded cases, and both timed at
    the FLUX shape;
@@ -24,6 +24,7 @@ line each, and any failure exits non-zero:
    weights from a seed, 2-NFE at 1024x1024 from random prompt embeds through
    ``ArcFluxPipeline.__call__``; the image must be finite, (1, 1024, 1024, 3),
    and the run must launch the attention kernel exactly 2 x 57 times;
+   phase 18 follows on the same model;
 7. Qwen-Image at reduced depth (1 joint block) and full width, w4a8: one
    forward through the w4a8 kernel, the same weights through its plain
    version, ``means`` compared by relative L2;
@@ -67,23 +68,46 @@ line each, and any failure exits non-zero:
     ``configs/gmflow/checkerboard_gmflow.py``: 1000 ``build_train_step``
     steps of ``Diffusion2D`` at batch 512 (finite losses that fall), then
     ``val_step`` with the EMA weights: 4096 samples, finite and the same on
-    a repeat.
+    a repeat;
+15. ring-hop kernel vs plain: ``ring_hop`` against ``ring_hop_ref`` at the
+    hop shape of FLUX at sp = 4 (B1, 1152 x 1152, H24 D128), padded, a fully
+    padded block, ragged and a 4-hop chain, on O and on the carry; three
+    planted faults must break the limits; kernel, plain version and flash
+    SDPA timed at one middle hop;
+16. ``ring_attention`` on ``LocalRing(4)`` against ``attention_ref`` at the
+    FLUX shape, unmasked and masked (16 hop launches per call), and a
+    planted lost rotation that the limits must refuse;
+17. FLUX (1 + 1 blocks) and Qwen w4a8 (1 block) at full width, every
+    attention on ``LocalRing(4)`` against the attention kernel;
+18. (right after phase 6, on its model) FLUX-12B 2-NFE with every attention
+    on ``LocalRing(4)``: exactly 1824 hop and no attention-kernel launches,
+    latents against phase 6's, and a planted lost rotation refused.
+
+``python3 chip_smoke.py --ranks 4`` (four cards) instead spawns 4 NCCL
+ranks and serves FLUX-12B through ``pipe.shard({'sp': 4})`` in ring and in
+Ulysses mode, against one card and against ``LocalRing(4)``.
 
 Then one JSON line of per-kernel numbers (each with its bound on the card
 and the time of one PyTorch library call for the same function, where there
 is one), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import gc
+import importlib
+import itertools
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from arcflow_tpu_torch.data import CheckerboardData
@@ -91,17 +115,27 @@ from arcflow_tpu_torch.models import (ArcFluxTransformer2DModel,
                                       ArcQwenImageTransformer2DModel,
                                       Diffusion2D, LatentDiffusionTextImage,
                                       PretrainedVAE, PretrainedVAEQwenImage)
+from arcflow_tpu_torch.models import layers
 from arcflow_tpu_torch.models.layers import LoRADense
 from arcflow_tpu_torch.ops import _build
 from arcflow_tpu_torch.ops import attention as attn
 from arcflow_tpu_torch.ops import quant_matmul as qmm
+from arcflow_tpu_torch.ops import ring_hop as hop
 from arcflow_tpu_torch.ops.gm import gm_ops
 from arcflow_tpu_torch.ops.gm import inverse_cdf as icdf
+from arcflow_tpu_torch.parallel import (LocalRing, SequenceParallel,
+                                        ring_attention,
+                                        set_sequence_parallel,
+                                        setup_distributed, spawn)
 from arcflow_tpu_torch.pipelines import ArcFluxPipeline, ArcQwenImagePipeline
 from arcflow_tpu_torch.runner import (EmaConfig, TrainState, build_optimizers,
                                       build_train_step, count_params)
 from arcflow_tpu_torch.utils.pytree import flatten
 from arcflow_tpu_torch.utils.quantize import pack_int4
+
+# the module, which the package's ``ring_attention`` function shadows
+ring_mod = importlib.import_module(
+    'arcflow_tpu_torch.parallel.ring_attention')
 
 SEED = 0
 FLUX_12B = dict(in_channels=64, num_layers=19, num_single_layers=38,
@@ -260,6 +294,28 @@ KERNEL_FAMILIES = (('w4a8 kernel', ('w4a8_matmul',)),
                    ('reduction', ('reduce_kernel',)),
                    ('elementwise and copies', ('elementwise', 'copy',
                                                'Memcpy', 'Memset')))
+# sequence parallelism: the FLUX sequence in 4 shards of 1152 tokens
+SP = 4
+# the ring hop (K4) and the ring against their fp32 plain versions, on O
+# (bf16) and on the normalized carry acc / l (fp32): every element within
+# K4_ATOL + K4_RTOL |ref| and the whole within K4_REL_L2 by relative L2.
+# The kernel rounds P to bf16 (2^-9 relative) before P.V: a sound run reads
+# up to 1.2e-3 on acc / l and one bf16 ulp of O (at most 2^-7 of |O|), and a
+# few 1e-3 by relative L2. A dropped hop, a V tile read with its key rows
+# out of place or a carried acc left unscaled moves O by a tenth of its
+# norm or more; phases 15 and 16 plant such faults and require that both
+# limits refuse each.
+K4_ATOL, K4_RTOL, K4_REL_L2 = 2e-3, 2 ** -7, 1e-2
+# FLUX-12B under a ring against the same image on the attention kernel,
+# relative L2 of the latents: 57 blocks of random weights amplify the bf16
+# rounding by which the ring's hop-by-hop softmax and the one-pass kernel
+# differ (phase 17 measures it after 2 blocks; a sound image reads about
+# 1e-2), so the bound is three times that; phase 18 plants a lost rotation
+# and requires that the bound refuse it
+SP_IMAGE_REL_L2 = 3e-2
+# ``--ranks``: Qwen w4a8 at full width and this depth, its text mask sharded
+# with the text tokens and rotated with the K/V blocks
+RANKS_QWEN_LAYERS = 2
 
 
 def log(line):
@@ -597,7 +653,7 @@ def phase_full_slice():
         f'{t_cold:.3f} s | warm per image {t_e2e:.4f} s: transformer + '
         f'integration {t_dit:.4f} s, decode {t_dec:.4f} s | peak memory '
         f'{peak_gib:.2f} GiB')
-    return launches
+    return launches, (pipe, embeds, latents, lat, t_e2e)
 
 
 def qwen_inputs(generator):
@@ -1044,26 +1100,33 @@ def phase_train_full():
 
 
 def unported_bounds():
-    """Bounds (ms) of the TPU kernels still to port, from their shapes: K4,
-    one ring hop at sp = 4 of the FLUX shape (1152 queries x 1152 keys, H24
-    D128, bf16 q, k, v and o, int32 segment ids, fp32 l and m); K7, the
+    """Bound (ms) of the TPU kernel still to port, from its shape: K7, the
     int8-QK^T attention at B1 S4608 H24 D128 (int8 q and k with fp32 row
     scales, bf16 v and o, QK^T at the int8 peak and P.V at the bf16
     peak)."""
-    h, d, s4 = 24, 128, 4608 // 4
-    k4_ops = 4 * h * s4 * s4 * d
-    k4_bytes = 4 * s4 * h * d * 2 + 2 * s4 * 4 + 2 * h * s4 * 4
-    k4 = roofline(k4_ops, k4_bytes, H100_BF16)
-    s = 4608
+    h, d, s = 24, 128, 4608
     half = 2 * h * s * s * d
     k7_ms = (half / H100_INT8 + half / H100_BF16) * 1e3
     k7_bytes = 2 * (s * h * d + s * h * 4) + 2 * s * h * d * 2 + s * 4
     k7 = (k7_ms, 'operations') if k7_ms >= k7_bytes / H100_BYTES * 1e3 \
         else (k7_bytes / H100_BYTES * 1e3, 'bytes')
-    return dict(K4=dict(bound_ms=k4[0], bound_by=k4[1], ops=k4_ops,
-                        bytes=k4_bytes),
-                K7=dict(bound_ms=k7[0], bound_by=k7[1], ops=2 * half,
+    return dict(K7=dict(bound_ms=k7[0], bound_by=k7[1], ops=2 * half,
                         bytes=k7_bytes))
+
+
+def k4_bound(b, sq, skv, h, valid_keys=None, first=False, last=False):
+    """Roofline of one ring hop as the port's kernel does it: QK^T and PV,
+    4 Sq Skv D H FLOP over the valid keys, reading q and the valid keys'
+    rows of k and v (bf16) and the key mask, reading the fp32 carry (acc,
+    m, l) unless ``first``, writing it, and writing O (bf16) when
+    ``last``."""
+    d = 128
+    kv = skv if valid_keys is None else valid_keys
+    carry = b * sq * h * d * 4 + 2 * b * h * sq * 4
+    nbytes = (b * sq * h * d * 2 + 2 * b * kv * h * d * 2 + carry
+              + (0 if first else carry) + (b * sq * h * d * 2 if last else 0)
+              + (0 if valid_keys is None else b * skv))
+    return roofline(4 * b * h * sq * kv * d, nbytes, H100_BF16)
 
 
 def k6_bound(g, n, m, n_steps):
@@ -1281,7 +1344,508 @@ def phase_gmflow():
                 support=float(support.mean()))
 
 
+def hop_case(g, b, s, h, lengths=None):
+    """A random bf16 K/V block (B, s, H, 128) and its key validity (None, or
+    the first ``lengths[i]`` keys of row i valid)."""
+    k, v = (torch.randn(b, s, h, 128, generator=g, device='cuda',
+                        dtype=torch.bfloat16) for _ in range(2))
+    valid = None
+    if lengths is not None:
+        valid = torch.arange(s, device='cuda')[None, :] < torch.tensor(
+            lengths, device='cuda')[:, None]
+    return k, v, valid
+
+
+def hop_chain(fn, q, blocks):
+    """The hops of ``blocks`` from the first to the last through ``fn``
+    (``ring_hop`` or ``ring_hop_ref``): the final carry and O."""
+    carry = None
+    for i, (k, v, valid) in enumerate(blocks):
+        carry, out = fn(q, k, v, valid, carry, last=i == len(blocks) - 1)
+    return carry, out
+
+
+def k4_readings(got, want):
+    """max |d| of ``got`` against the fp32 plain version ``want``, how far
+    the worst element lies past K4_ATOL + K4_RTOL |want| (> 0: refused), and
+    the relative L2."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    over = (d - K4_ATOL - K4_RTOL * want.abs()).max().item()
+    return d.max().item(), over, rel_l2(got, want)
+
+
+def k4_close(name, got, want):
+    """Raises unless ``got`` is within both K4 limits of ``want``; returns
+    (max |d|, relative L2)."""
+    err, over, rel = k4_readings(got, want)
+    if over > 0 or not rel <= K4_REL_L2:
+        raise AssertionError(f'{name}: max|d| {err:.3e} ({over:+.2e} past '
+                             f'{K4_ATOL} + {K4_RTOL:.4g} |ref|), rel L2 '
+                             f'{rel:.3e} (bound {K4_REL_L2})')
+    return err, rel
+
+
+def normalized(carry):
+    """acc / l of a carry, 0 on the rows that have seen no valid key."""
+    acc, _, l = carry
+    l_t = l.transpose(1, 2)[..., None]
+    return torch.where(l_t > 0, acc / l_t, 0.0)
+
+
+def carry_errors(name, carry, ref):
+    """Kernel carry vs plain carry: raises unless the rows that have seen
+    no valid key agree exactly (l = 0, m = -inf), the log-sum-exp m + log l
+    is within ``LSE_TOL`` and the normalized acc / l within the K4 limits;
+    returns (max |d(acc / l)|, its relative L2, max |d(m + log l)|)."""
+    (_, m, l), (_, m_r, l_r) = carry, ref
+    seen = l_r > 0
+    if not (torch.equal(seen, l > 0) and torch.isneginf(m[~seen]).all()):
+        raise AssertionError(f'K4 {name}: rows without a valid key differ')
+    lse_err = ((m + l.log()) - (m_r + l_r.log()))[seen].abs().max().item()
+    if lse_err > LSE_TOL:
+        raise AssertionError(f'K4 {name} carry: max|d(m + log l)| '
+                             f'{lse_err:.3e} (bound {LSE_TOL})')
+    return (*k4_close(f'K4 {name} acc / l', normalized(carry),
+                      normalized(ref)), lse_err)
+
+
+def fold_without_acc_rescale(q, k, v, kv_valid=None, carry=None, last=False):
+    """Planted fault: the plain fold with the carried acc not rescaled by
+    exp(m_old - m_new) on entry (l still is)."""
+    new, _ = hop.ring_hop_ref(q, k, v, kv_valid, carry)
+    acc, m, l = new
+    if carry is not None:
+        keep = torch.where(carry[2] > 0, torch.exp(carry[1] - m), 0.0)
+        acc = acc + carry[0] * (1 - keep).transpose(1, 2)[..., None]
+    out = normalized((acc, m, l)).to(q.dtype) if last else None
+    return (acc, m, l), out
+
+
+def planted_k4_faults(q, blocks, out_r):
+    """Three faults a hop could make, on the chain of ``blocks``: each must
+    break both K4 limits on O against the sound plain O ``out_r``. Returns
+    their readings."""
+    k, v, valid = blocks[0]
+    swap = torch.cat([torch.arange(8, 16), torch.arange(8)]).to(v.device)
+    v_bad = v.clone()
+    v_bad[:, :16] = v[:, swap]
+    faults = {
+        'hop 2 of 4 dropped': (hop.ring_hop, blocks[:1] + blocks[2:]),
+        'V key rows 0-7 and 8-15 swapped in the first tile':
+            (hop.ring_hop, [(k, v_bad, valid)] + blocks[1:]),
+        'carried acc not rescaled (plain fold)':
+            (fold_without_acc_rescale, blocks)}
+    parts = []
+    for name, (fn, chain) in faults.items():
+        err, over, rel = k4_readings(hop_chain(fn, q, chain)[1], out_r)
+        if not (over > 0 and rel > K4_REL_L2):
+            raise AssertionError(f'K4 planted fault "{name}" passes a K4 '
+                                 f'limit: max|dO| {err:.3e} ({over:+.2e}), '
+                                 f'rel L2 {rel:.3e}')
+        parts.append(f'{name}: max|dO| {err:.3e}, rel L2 {rel:.3e}')
+    return parts
+
+
+def phase_k4_vs_plain():
+    g = torch.Generator(device='cuda').manual_seed(SEED + 16)
+    b, s, h, _ = FLUX_SHAPE
+    sq = s // SP
+    cases = [('unmasked', (1, sq, h), [None]),
+             ('padded', (2, sq, h), [(1000, sq)]),
+             ('padded_block', (2, sq, h), [(0, sq), (700, 0)]),
+             ('ragged', (2, 193, h), [(150, 193)]),
+             ('chain4', (1, sq, h), [None, (1000,), (0,), None])]
+    worst, parts = 0.0, []
+    for name, (bb, ss, hh), lengths in cases:
+        q = torch.randn(bb, ss, hh, 128, generator=g, device='cuda',
+                        dtype=torch.bfloat16)
+        blocks = [hop_case(g, bb, ss, hh, ln) for ln in lengths]
+        before = hop.LAUNCHES
+        carry, out = hop_chain(hop.ring_hop, q, blocks)
+        again = hop_chain(hop.ring_hop, q, blocks)
+        torch.cuda.synchronize()
+        if hop.LAUNCHES != before + 2 * len(blocks):
+            raise AssertionError(f'K4 {name}: {hop.LAUNCHES - before} '
+                                 f'launches, want {2 * len(blocks)}')
+        if not (torch.equal(out, again[1])
+                and all(map(torch.equal, carry, again[0]))):
+            raise AssertionError(f'K4 {name}: two runs differ')
+        ref, out_r = hop_chain(hop.ring_hop_ref, q, blocks)
+        acc_err, acc_rel, lse_err = carry_errors(name, carry, ref)
+        err, rel = k4_close(f'K4 {name} O', out, out_r)
+        worst = max(worst, err)
+        parts.append(f'{name} B{bb} S{ss} H{hh} x{len(blocks)} hops max|dO| '
+                     f'{err:.3e} rel L2 {rel:.3e}, max|d(acc/l)| '
+                     f'{acc_err:.3e} rel L2 {acc_rel:.3e}, max|d(m + log '
+                     f'l)| {lse_err:.3e}')
+    faults = planted_k4_faults(q, blocks, out_r)     # on the chain4 case
+    # one middle hop of the FLUX ring: the carry read and written, no O
+    q = torch.randn(1, sq, h, 128, generator=g, device='cuda',
+                    dtype=torch.bfloat16)
+    k, v, _ = hop_case(g, 1, sq, h)
+    carry, _ = hop.ring_hop(q, k, v)
+    carry_r, _ = hop.ring_hop_ref(q, k, v)
+    ms = cuda_ms(lambda: hop.ring_hop(q, k, v, None, carry), 50)
+    plain_ms = cuda_ms(lambda: hop.ring_hop_ref(q, k, v, None, carry_r), 5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    with torch.inference_mode():
+        library_ms = cuda_ms(
+            lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt), 50)
+    bound_ms, bound_by = k4_bound(1, sq, sq, h)
+    log(f'phase 15 ring-hop kernel vs plain: ok | {" ; ".join(parts)} '
+        f'(limits on O and acc / l: |d| <= {K4_ATOL} + {K4_RTOL:.4g} |ref|, '
+        f'rel L2 {K4_REL_L2}; m + log l {LSE_TOL}), keyless rows exact, two '
+        f'runs bitwise equal | planted faults refused by both limits: '
+        f'{" ; ".join(faults)} | one middle hop at B1 Sq {sq} Skv {sq} H{h} '
+        f'D128: kernel {ms:.4f} ms, plain fp32 {plain_ms:.4f} ms, flash SDPA '
+        f'(O + LSE) {library_ms:.4f} ms, bound {bound_ms:.4f} ms '
+        f'({bound_by}, {100 * bound_ms / ms:.1f}% of it)')
+    return worst, dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       shape=[1, sq, sq, h, 128])
+
+
+@contextlib.contextmanager
+def lost_rotation():
+    """Planted fault: the first rotation of every ring call hands each
+    shard its own block again, so it folds that block twice and never sees
+    the one ``size - 1`` shards back."""
+    real, calls = ring_mod._rotation, itertools.count()
+
+    def stale(ring, blocks):
+        if next(calls) % (ring.size - 1) == 0:
+            return lambda: blocks
+        return real(ring, blocks)
+    with mock.patch.object(ring_mod, '_rotation', stale):
+        yield
+
+
+def max_diff(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def phase_ring_vs_k1():
+    g = torch.Generator(device='cuda').manual_seed(SEED + 17)
+    q, k, v = (torch.randn(FLUX_SHAPE, generator=g, device='cuda',
+                           dtype=torch.bfloat16) for _ in range(3))
+    s = FLUX_SHAPE[1]
+    masked = torch.arange(s, device='cuda')[None, :] < QWEN_VALID_KEYS
+    ring = LocalRing(SP)
+    parts = []
+    for name, kv_valid in (('unmasked', None), ('masked', masked)):
+        before = hop.LAUNCHES
+        out, lse = ring_attention(q, k, v, kv_valid, ring, return_lse=True)
+        torch.cuda.synchronize()
+        if hop.LAUNCHES != before + SP * SP:
+            raise AssertionError(f'{name}: {hop.LAUNCHES - before} hop '
+                                 f'launches, want {SP * SP}')
+        ref, ref_lse = attn.attention_ref(q, k, v, kv_valid, return_lse=True)
+        err, rel = k4_close(f'ring {name} O', out, ref)
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=LSE_TOL)
+        k1 = attn.flash_attention_fwd(q, k, v, kv_valid)
+        ring_ms = cuda_ms(lambda: ring_attention(q, k, v, kv_valid, ring), 10)
+        k1_ms = cuda_ms(lambda: attn.flash_attention_fwd(q, k, v, kv_valid),
+                        10)
+        parts.append(
+            f'{name}: max|dO| {err:.3e} rel L2 {rel:.3e} max|dLSE| '
+            f'{max_diff(lse, ref_lse):.3e} against the plain version, '
+            f'max|ring - K1| {max_diff(out, k1):.3e}; ring {ring_ms:.4f} ms '
+            f'({SP * SP} hops), K1 {k1_ms:.4f} ms')
+    with lost_rotation():
+        lost = ring_attention(q, k, v, masked, ring)
+    err, over, rel = k4_readings(lost, ref)
+    if not (over > 0 and rel > K4_REL_L2):
+        raise AssertionError(f'a ring with a lost rotation passes a K4 '
+                             f'limit: max|dO| {err:.3e} ({over:+.2e}), rel '
+                             f'L2 {rel:.3e}')
+    log(f'phase 16 ring attention (LocalRing({SP})) vs the attention kernel '
+        f'at B1 S{s} H24 D128: ok | {" ; ".join(parts)} | limits on O: |d| '
+        f'<= {K4_ATOL} + {K4_RTOL:.4g} |ref|, rel L2 {K4_REL_L2}; LSE '
+        f'{LSE_TOL} | planted lost rotation (masked) refused by both: '
+        f'max|dO| {err:.3e}, rel L2 {rel:.3e}')
+
+
+def counted_forward(model, x, kw):
+    """``means`` of one forward and its (ring-hop, attention) launches."""
+    before = (hop.LAUNCHES, attn.LAUNCHES)
+    with torch.inference_mode():
+        means = model(x, **kw)['means'].float()
+    torch.cuda.synchronize()
+    return means, (hop.LAUNCHES - before[0], attn.LAUNCHES - before[1])
+
+
+def local_ring_slice(name, model, x, kw, n_blocks, bound):
+    """One forward on the attention kernel, one on ``LocalRing(SP)``;
+    raises past ``bound`` (relative L2 of ``means``) or on wrong counts."""
+    k1, n_k1 = counted_forward(model, x, kw)
+    set_sequence_parallel(model, LocalRing(SP))
+    try:
+        ring, n_ring = counted_forward(model, x, kw)
+    finally:
+        set_sequence_parallel(model, None)
+    if n_k1 != (0, n_blocks) or n_ring != (SP * SP * n_blocks, 0):
+        raise AssertionError(f'{name}: launches (hop, attention) {n_k1} on '
+                             f'the kernel and {n_ring} on the ring')
+    if not torch.isfinite(ring).all():
+        raise AssertionError(f'{name}: non-finite means')
+    rel = rel_l2(ring, k1)
+    if rel > bound:
+        raise AssertionError(f'{name}: means rel L2 {rel:.3e} > {bound}')
+    return f'{name}: rel L2 ring vs K1 {rel:.3e} (bound {bound}), ' \
+        f'{n_ring[0]} hop launches'
+
+
+def phase_local_ring_slices():
+    g = torch.Generator(device='cuda').manual_seed(SEED + 18)
+    cfg = dict(FLUX_12B, num_layers=1, num_single_layers=1)
+    with torch.device('cuda'):
+        model = ArcFluxTransformer2DModel(dtype=torch.bfloat16, **cfg)
+    randomize_(model, g)
+    x = torch.randn(1, 128, 128, 16, generator=g, device='cuda')
+    kw = dict(flux_inputs(g), t=torch.full((1,), 0.7, device='cuda'),
+              guidance=torch.full((1,), 3.5, device='cuda'))
+    flux = local_ring_slice('FLUX 1+1 blocks bf16', model, x, kw, 2,
+                            SLICE_REL_L2)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe, _, _ = qwen_w4a8(g, num_layers=1)
+    kw = dict(qwen_inputs(g), t=torch.full((1,), 0.7, device='cuda'))
+    qwen = local_ring_slice('Qwen 1 block w4a8', pipe.transformer, x, kw, 1,
+                            QWEN_SLICE_REL_L2)
+    log(f'phase 17 reduced slices under LocalRing({SP}) (full width): ok | '
+        f'{flux} ; {qwen}')
+
+
+def phase_full_local_ring(pipe, embeds, latents, lat_single, t_single):
+    set_sequence_parallel(pipe.transformer, LocalRing(SP))
+    try:
+        _, t_cold = timed_call(pipe, embeds, latents, output_type='pt')
+        torch.cuda.reset_peak_memory_stats()
+        hop.LAUNCHES = attn.LAUNCHES = 0    # the main path's counted run
+        out, t_e2e = timed_call(pipe, embeds, latents, output_type='pt')
+        launches = dict(ring_hop=hop.LAUNCHES, attention=attn.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        lat = timed_call(pipe, embeds, latents,
+                         output_type='latent')[0]['latents']
+        with lost_rotation():
+            lost = pipe(prompt_embeds=embeds, latents=latents,
+                        output_type='latent')['latents']
+    finally:
+        set_sequence_parallel(pipe.transformer, None)
+    n_blocks = FLUX_12B['num_layers'] + FLUX_12B['num_single_layers']
+    want = dict(ring_hop=2 * n_blocks * SP * SP, attention=0)
+    if launches != want:
+        raise AssertionError(f'launches {launches}, want {want}')
+    check_image(out['images'])
+    rel = rel_l2(lat, lat_single)
+    if not rel <= SP_IMAGE_REL_L2:
+        raise AssertionError(f'latents rel L2 {rel:.3e} against one device '
+                             f'> {SP_IMAGE_REL_L2}')
+    rel_lost = rel_l2(lost, lat_single)
+    if not rel_lost > SP_IMAGE_REL_L2:
+        raise AssertionError(f'a lost rotation passes: latents rel L2 '
+                             f'{rel_lost:.3e} <= {SP_IMAGE_REL_L2}')
+    log(f'phase 18 FLUX full slice under LocalRing({SP}) (phase 6 model): ok '
+        f'| image finite | launches {launches} | latents rel L2 against '
+        f'phase 6 {rel:.3e} (bound {SP_IMAGE_REL_L2}; planted lost rotation '
+        f'{rel_lost:.3e}, refused) | cold run {t_cold:.3f} s, warm per image '
+        f'{t_e2e:.4f} s (phase 6: {t_single:.4f} s) | peak memory '
+        f'{peak_gib:.2f} GiB')
+    return launches['ring_hop']
+
+
+def spied_call(pipe, embeds, latents, output_type):
+    """One counted call of the sharded ``pipe`` (every count set to 0 just
+    before it): (result, seconds, launches, the first ring attention's q,
+    k, v, key mask and output, or None under Ulysses)."""
+    calls = []
+
+    def spy(*args, **kw):
+        out = ring_attention(*args, **kw)
+        if not calls:
+            calls.append((*args[:4], out))
+        return out
+    hop.LAUNCHES = attn.LAUNCHES = qmm.LAUNCHES = 0
+    with mock.patch.object(layers, 'ring_attention', spy):
+        out, t = timed_call(pipe, embeds, latents, output_type=output_type)
+    launches = dict(ring_hop=hop.LAUNCHES, attention=attn.LAUNCHES,
+                    w4a8=qmm.LAUNCHES)
+    return out, t, launches, calls[0] if calls else None
+
+
+def equals_local_ring(sp, call):
+    """Whether this rank's first ring attention is, bit for bit, its shard
+    of ``LocalRing`` on every rank's q, k, v and key mask put together."""
+    if call is None:
+        return None
+    q, k, v, valid, got = call
+    full = [sp.gather(t) for t in (q, k, v)]
+    mask = None if valid is None else sp.gather(valid)
+    local = ring_attention(*full, mask, LocalRing(sp.size))
+    return torch.equal(local.split(q.shape[1], dim=1)[sp.rank], got)
+
+
+def broadcast_from_rank0(*tensors):
+    for t in tensors:
+        dist.broadcast(t, 0)
+
+
+def rank_main(out_dir):
+    """One rank of ``--ranks N``: FLUX-12B on one device, then sharded over
+    the N ranks in ring and in Ulysses mode; then Qwen w4a8 at full width
+    and RANKS_QWEN_LAYERS blocks, with its text mask, the same way; writes
+    ``rank{r}.json``."""
+    dev = setup_distributed(timeout=300.0)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(SEED)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    with torch.device(dev):
+        model = ArcFluxTransformer2DModel(dtype=torch.bfloat16, **FLUX_12B)
+        vae = PretrainedVAE(dtype=torch.bfloat16)
+    randomize_(model, g)
+    pipe = ArcFluxPipeline(model, vae=vae)
+    embeds = flux_inputs(g)
+    latents = pipe.prepare_latents(1, 1024, 1024, generator=g, device=dev)
+    broadcast_from_rank0(*model.state_dict().values(),
+                         *vae.state_dict().values(), *embeds.values(),
+                         latents)
+    timed_call(pipe, embeds, latents, output_type='pt')     # cold
+    single, t_single = timed_call(pipe, embeds, latents, output_type='pt')
+    single_lat = pipe(prompt_embeds=embeds, latents=latents,
+                      output_type='latent')['latents']
+    res = dict(rank=rank, single_s=t_single)
+    n_blocks = FLUX_12B['num_layers'] + FLUX_12B['num_single_layers']
+    for mode in ('ring', 'ulysses'):
+        pipe.shard({'sp': n}, sp_mode=mode)
+        sp = pipe.transformer.sequence_parallel
+        _, t_cold = timed_call(pipe, embeds, latents, output_type='pt')
+        torch.cuda.reset_peak_memory_stats()
+        out, t_e2e, launches, call = spied_call(pipe, embeds, latents, 'pt')
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        img = out['images']
+        lat = pipe(prompt_embeds=embeds, latents=latents,
+                   output_type='latent')['latents']
+        wall, busy, _ = profile_split(lambda: pipe(
+            prompt_embeds=embeds, latents=latents, output_type='pt'))
+        rank0 = img.clone(memory_format=torch.contiguous_format)
+        broadcast_from_rank0(rank0)
+        want = dict(ring=dict(ring_hop=2 * n_blocks * n, attention=0, w4a8=0),
+                    ulysses=dict(ring_hop=0, attention=2 * n_blocks,
+                                 w4a8=0))[mode]
+        res[mode] = dict(
+            launches=launches, launches_ok=launches == want,
+            image_finite=bool(torch.isfinite(img).all()),
+            equal_to_rank0=torch.equal(img, rank0),
+            local_ring_equal=equals_local_ring(sp, call),
+            rel_l2_image=rel_l2(img, single['images']),
+            rel_l2_latents=rel_l2(lat, single_lat), cold_s=t_cold,
+            warm_s=t_e2e, peak_gib=peak_gib, profiled_wall_s=wall,
+            device_busy_s=busy, idle_share=1 - busy / wall)
+    del pipe, model, vae, single, img, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    pipe, _, n_int4 = qwen_w4a8(g, num_layers=RANKS_QWEN_LAYERS)
+    embeds = qwen_inputs(g)
+    latents = pipe.prepare_latents(1, 1024, 1024, generator=g, device=dev)
+    broadcast_from_rank0(*pipe.transformer.state_dict().values(),
+                         *embeds.values(), latents)
+    timed_call(pipe, embeds, latents, output_type='latent')  # cold
+    single_lat = pipe(prompt_embeds=embeds, latents=latents,
+                      output_type='latent')['latents']
+    for mode in ('ring', 'ulysses'):
+        pipe.shard({'sp': n}, sp_mode=mode)
+        sp = pipe.transformer.sequence_parallel
+        timed_call(pipe, embeds, latents, output_type='latent')  # cold
+        out, t_e2e, launches, call = spied_call(pipe, embeds, latents,
+                                                'latent')
+        lat = out['latents']
+        rank0 = lat.clone(memory_format=torch.contiguous_format)
+        broadcast_from_rank0(rank0)
+        want = dict(ring=dict(ring_hop=2 * RANKS_QWEN_LAYERS * n,
+                              attention=0, w4a8=2 * n_int4),
+                    ulysses=dict(ring_hop=0, attention=2 * RANKS_QWEN_LAYERS,
+                                 w4a8=2 * n_int4))[mode]
+        res[f'qwen_{mode}'] = dict(
+            launches=launches, launches_ok=launches == want,
+            image_finite=bool(torch.isfinite(lat).all()),
+            equal_to_rank0=torch.equal(lat, rank0),
+            local_ring_equal=equals_local_ring(sp, call),
+            masked_ring_call=call is not None and call[3] is not None,
+            rel_l2_latents=rel_l2(lat, single_lat), warm_s=t_e2e)
+    with open(os.path.join(out_dir, f'rank{rank}.json'), 'w') as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def main_ranks(n):
+    smi = phase_facts()
+    if torch.cuda.device_count() < n:
+        raise SystemExit(f'FAIL ranks: --ranks {n} needs {n} cards, '
+                         f'{torch.cuda.device_count()} visible')
+    phase_build()
+    out_dir = tempfile.mkdtemp(prefix='ranks-', dir=_build.BUILD_DIR)
+    t = time.perf_counter()
+    spawn(rank_main, n, (out_dir,), timeout=600.0)
+    wall = time.perf_counter() - t
+    ranks = [json.load(open(os.path.join(out_dir, f'rank{r}.json')))
+             for r in range(n)]
+    modes = ('ring', 'ulysses', 'qwen_ring', 'qwen_ulysses')
+    bad = [(r['rank'], mode, key) for r in ranks for mode in modes
+           for key in ('launches_ok', 'image_finite', 'equal_to_rank0')
+           if not r[mode][key]]
+    bad += [(r['rank'], mode, 'local_ring_equal') for r in ranks
+            for mode in ('ring', 'qwen_ring')
+            if r[mode]['local_ring_equal'] is not True]
+    bad += [(r['rank'], 'qwen_ring', 'masked_ring_call') for r in ranks
+            if not r['qwen_ring']['masked_ring_call']]
+    bad += [(r['rank'], mode, 'rel_l2_latents') for r in ranks
+            for mode in modes
+            if not r[mode]['rel_l2_latents'] <= SP_IMAGE_REL_L2]
+    if bad:
+        raise AssertionError(f'--ranks {n} failed: {bad}; {ranks}')
+    r0 = ranks[0]
+    log(f'phase R FLUX-12B on {n} NCCL ranks (sp = {n}): ok in {wall:.1f} s '
+        f'| single device {r0["single_s"]:.4f} s per warm image | '
+        + ' ; '.join(
+            f'{mode}: launches per rank {r0[mode]["launches"]}, warm per '
+            f'image {r0[mode]["warm_s"]:.4f} s (cold {r0[mode]["cold_s"]:.3f}'
+            f'), rank 0 profiled: wall {r0[mode]["profiled_wall_s"]:.4f} s, '
+            f'device busy {r0[mode]["device_busy_s"]:.4f} s, idle share '
+            f'{r0[mode]["idle_share"]:.4f}, peak {r0[mode]["peak_gib"]:.2f} '
+            f'GiB, rank 0 against one '
+            f'device: image rel L2 {r0[mode]["rel_l2_image"]:.3e}, latents '
+            f'{r0[mode]["rel_l2_latents"]:.3e} (bound {SP_IMAGE_REL_L2}); '
+            f'every rank bitwise equal to rank 0'
+            for mode in modes[:2])
+        + f' ; first ring attention bitwise equal to LocalRing({n}) on every '
+        f'rank')
+    log(f'phase RQ Qwen w4a8 ({RANKS_QWEN_LAYERS} blocks, full width, text '
+        f'mask {QWEN_TXT_VALID} of {QWEN_TXT}) on {n} NCCL ranks: ok | '
+        + ' ; '.join(
+            f'{mode[5:]}: launches per rank {r0[mode]["launches"]}, latents '
+            f'rel L2 against one device {r0[mode]["rel_l2_latents"]:.3e} '
+            f'(bound {SP_IMAGE_REL_L2}), warm {r0[mode]["warm_s"]:.4f} s, '
+            f'every rank bitwise equal to rank 0' for mode in modes[2:])
+        + f' ; first masked ring attention bitwise equal to LocalRing({n}) '
+        f'on every rank')
+    print(json.dumps({'ranks': ranks}))
+    print(smi)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
+    if sys.argv[1:2] == ['--ranks']:
+        return main_ranks(int(sys.argv[2]))
     smi = phase_facts()
     torch.manual_seed(SEED)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1291,7 +1855,9 @@ def main():
     w4a8_err, w4a8_timed = phase_w4a8_vs_plain()
     phase_reduced_slice()
     torch.cuda.empty_cache()
-    flux_launches = phase_full_slice()
+    flux_launches, flux_run = phase_full_slice()
+    ring_launches = phase_full_local_ring(*flux_run)
+    del flux_run
     gc.collect()                            # the FLUX model goes first
     torch.cuda.empty_cache()
     phase_qwen_reduced()
@@ -1312,6 +1878,13 @@ def main():
     k6_err, k6_timed = phase_k6_vs_plain()
     kr = phase_kr()
     phase_gmflow()
+    gc.collect()
+    torch.cuda.empty_cache()
+    k4_err, k4_timed = phase_k4_vs_plain()
+    phase_ring_vs_k1()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_local_ring_slices()
     fwd = attn_timed['unmasked']
     ff_in = w4a8_timed[0]
     fwd_by_path = {'flux': flux_launches, 'qwen': qwen_launches['attention'],
@@ -1356,7 +1929,17 @@ def main():
          'bound_by': k6_timed['kr_axis']['bound_by'], 'library_ms': None,
          'shape': k6_timed['kr_axis']['shape'],
          'wrapper_ms': k6_timed['kr_axis']['wrapper_ms'],
-         'large': k6_timed['large']}]}))
+         'large': k6_timed['large']},
+        {'name': 'ring_hop', 'route': 'cuda',
+         'source': 'arcflow_tpu_torch/csrc/ring_hop.cu',
+         'replaces': 'arcflow_tpu/parallel/ring_attention.py:116',
+         'launches': ring_launches,
+         'launches_by_path': {'flux_local_ring': ring_launches},
+         'max_abs_err': k4_err, 'ms': k4_timed['ms'],
+         'plain_ms': k4_timed['plain_ms'], 'bound_ms': k4_timed['bound_ms'],
+         'bound_by': k4_timed['bound_by'],
+         'library_ms': k4_timed['library_ms'],
+         'shape': k4_timed['shape']}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
