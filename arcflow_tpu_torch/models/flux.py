@@ -22,7 +22,12 @@ RoPE from the matching slices of the position ids, as the JAX trunk shards
 img and txt separately (``arcflow_tpu/models/flux.py:327-330``). The blocks
 concatenate [txt_r, img_r] locally, a permutation of the global sequence that
 non-causal attention does not see, and the image tokens are gathered before
-the heads, so every rank returns the whole output. ControlNet residuals,
+the heads, so every rank returns the whole output. A stream whose length
+``sp`` does not divide gets zero tokens at its end (``parallel/mesh.py:
+stream_padding``): they are masked as keys in every attention (the same
+key-padding mask a Qwen text mask takes) and their rows are dropped before
+the heads, so the output is the unsharded one. Streams ``sp`` divides are
+not padded and run unmasked, as before. ControlNet residuals,
 fill inputs, MoE and pipeline parallelism wait for their slices.
 """
 
@@ -36,7 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.mesh import SequenceParallel
+from ..parallel.mesh import (SequenceParallel, pad_tokens, stream_padding,
+                             token_validity)
 from .layers import (AdaLayerNormContinuous, AdaLayerNormZero,
                      AdaLayerNormZeroSingle, FeedForward, JointAttention,
                      LoRADense, SingleStreamAttention, layer_norm_no_affine,
@@ -145,9 +151,9 @@ class FluxSingleBlock(nn.Module):
         self.proj_mlp = LoRADense(dim, mlp_dim, **lora)
         self.proj_out = LoRADense(num_heads * head_dim + mlp_dim, dim, **lora)
 
-    def forward(self, x, rope, temb, generator=None):
+    def forward(self, x, rope, temb, mask=None, generator=None):
         h, gate = self.norm(x, temb)
-        attn_out = self.attn(h, rope)
+        attn_out = self.attn(h, rope, mask=mask)
         mlp_h = F.gelu(self.proj_mlp(h, generator), approximate='tanh')
         fused = torch.cat([attn_out, mlp_h], dim=-1)
         return x + gate * self.proj_out(fused, generator)
@@ -232,11 +238,26 @@ class FluxBackbone(nn.Module):
         ``dropout_seed`` turns the LoRA dropout on (training)."""
         n_blocks = len(self.joint_blocks) + len(self.single_blocks)
         sp = self.sequence_parallel
+        n_img = packed.shape[1]
+        pad_t, pad_i = stream_padding(sp, encoder_hidden_states.shape[1],
+                                      n_img)
+        valid = None                         # (txt, img) key validity
+        if pad_t or pad_i:
+            valid = [token_validity(encoder_hidden_states, pad_t),
+                     token_validity(packed, pad_i)]
+            encoder_hidden_states = pad_tokens(encoder_hidden_states, pad_t)
+            txt_ids = pad_tokens(txt_ids, pad_t, dim=0)
+            packed = pad_tokens(packed, pad_i)
+            img_ids = pad_tokens(img_ids, pad_i, dim=0)
         # a LocalRing keeps every shard in this process: nothing to cut
         if isinstance(sp, SequenceParallel):
             packed, img_ids = sp.shard(packed), sp.shard(img_ids, dim=0)
             encoder_hidden_states = sp.shard(encoder_hidden_states)
             txt_ids = sp.shard(txt_ids, dim=0)
+            if valid is not None:
+                valid = [sp.shard(v) for v in valid]
+        mask = None if valid is None else \
+            torch.cat(valid, dim=1)[:, None, None, :]
         img = self.x_embedder(packed)
         txt = self.context_embedder(encoder_hidden_states)
         temb = self.time_text_embed(
@@ -246,14 +267,15 @@ class FluxBackbone(nn.Module):
                                 self.axes_dims_rope)
         for i, block in enumerate(self.joint_blocks):
             img, txt = self._block(block, i, dropout_seed, img, txt, rope,
-                                   temb)
+                                   temb, mask)
         hidden = torch.cat([txt, img], dim=1)
         for i, block in enumerate(self.single_blocks, len(self.joint_blocks)):
-            hidden = self._block(block, i, dropout_seed, hidden, rope, temb)
+            hidden = self._block(block, i, dropout_seed, hidden, rope, temb,
+                                 mask)
         img = hidden[:, txt.shape[1]:]
         if isinstance(sp, SequenceParallel):
             img = sp.gather(img)
-        return img, temb
+        return img[:, :n_img], temb
 
     def _prepare_tokens(self, hidden_states, encoder_hidden_states):
         """patchify + position ids."""

@@ -16,12 +16,17 @@ Randomness: the LoRA branch's dropout draws from a ``torch.Generator``
 passed down the ``forward`` calls (``generator=``), and only when one is
 passed, as the JAX layers draw only under a ``dropout`` rng.
 
-``LoRADense`` has the float path and the int4 path (weight-only or w4a8,
-after ``utils/quantize.py:quantize_weights_int4``). The attention modules
-hold their sequence-parallel state (``sequence_parallel``: None, a
+Initialisation follows the flax defaults of the JAX modules: a ``LoRADense``
+kernel is truncated LeCun normal (fan-in = ``in_features``) and its bias
+zero (``lecun_normal_``); the AdaLN modulations are zero (``_zero_dense``).
+
+``LoRADense`` has the float path, the int8 path (weight-only or w8a8,
+after ``utils/quantize.py:quantize_weights_int8``) and the int4 path
+(weight-only or w4a8, after ``quantize_weights_int4``). The attention
+modules hold their sequence-parallel state (``sequence_parallel``: None, a
 ``parallel.SequenceParallel`` in ring or Ulysses mode, or a
-``parallel.LocalRing``), set by ``parallel.set_sequence_parallel``; the int8
-paths and MoE wait for their slices.
+``parallel.LocalRing``), set by ``parallel.set_sequence_parallel``; MoE
+waits for its slice.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention as attn_ops
+from ..ops import int8_matmul as i8_ops
 from ..ops import quant_matmul as qmm_ops
 from ..parallel.ring_attention import (LocalRing, check_no_autograd,
                                        ring_attention)
@@ -49,6 +55,36 @@ def timestep_sinusoidal(t: torch.Tensor, dim: int) -> torch.Tensor:
                                      device=t.device) / half)
     args = t.float()[:, None] * freqs[None]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """flax's default kernel init in place: normal with variance 1 / fan-in,
+    truncated at two standard deviations (the std corrected for the cut),
+    fan-in = every axis but the output one (``in`` x kh x kw for a conv)."""
+    std = 1.0 / math.sqrt(weight[0].numel()) / 0.87962566103423978
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+
+
+def _int8_matmul(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor,
+                 dtype: torch.dtype, act_quant: bool) -> torch.Tensor:
+    """x @ dequant(kernel int8 (in, out)) with ``scale`` (1, out) fp32, in
+    the JAX package's two modes (``arcflow_tpu/models/layers.py:171-195``):
+
+    * weight-only: ``kernel.to(dtype) * scale.to(dtype)`` (the scale cast
+      before the product), then the dot in ``dtype``;
+    * w8a8: per-token symmetric int8 activations (absmax / 127 with a 1e-8
+      floor, round half to even, in fp32), the int8 x int8 -> int32 product
+      (``ops/int8_matmul.py``), then ``y * (x_scale * scale)`` in fp32 with
+      the product of the two scales formed first, cast to ``dtype``.
+    """
+    if not act_quant:
+        return x.to(dtype) @ (kernel.to(dtype) * scale.to(dtype))
+    lead = x.shape[:-1]
+    x32 = x.float()
+    xs = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    xq = torch.round(x32 / xs).clamp_(-127, 127).to(torch.int8)
+    y = i8_ops.int8_matmul(xq.reshape(-1, x.shape[-1]), kernel)
+    return (y.reshape(*lead, -1).float() * (xs * scale.float())).to(dtype)
 
 
 def _int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
@@ -93,10 +129,13 @@ class LoRADense(nn.Linear):
     LoRA dropout, JAX ``layers.py:210-213``), and only when ``forward`` gets
     a ``generator``.
 
-    After ``quantize_weights_int4`` the layer has no ``weight``; its kernel
-    lives in the ``kernel_packed4``/``kernel_scale4`` buffers (JAX names
-    and layout), and ``act_quant`` selects w4a8 over weight-only int4. The
-    bias and the LoRA branch are added after the int4 product.
+    The kernel is drawn as flax draws it (``lecun_normal_``), the bias is
+    zero. After ``quantize_weights_int8`` or ``quantize_weights_int4`` the
+    layer has no ``weight``; its kernel lives in the ``kernel`` /
+    ``kernel_scale`` or the ``kernel_packed4`` / ``kernel_scale4`` buffers
+    (JAX names and shapes), and ``act_quant`` selects w8a8 or w4a8 over the
+    weight-only mode. The bias and the LoRA branch are added after the
+    quantized product.
     """
 
     def __init__(self, in_features: int, out_features: int,
@@ -115,17 +154,34 @@ class LoRADense(nn.Linear):
             self.lora_b = nn.Parameter(torch.zeros(
                 lora_rank, out_features, device=device, dtype=torch.float32))
 
+    def reset_parameters(self) -> None:
+        lecun_normal_(self.weight)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
     @property
     def is_int4(self) -> bool:
         return 'kernel_packed4' in self._buffers
+
+    @property
+    def is_int8(self) -> bool:
+        return 'kernel' in self._buffers
+
+    @property
+    def is_quantized(self) -> bool:
+        return self.is_int8 or self.is_int4
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        if self.is_int4:
-            y = _int4_matmul(x, self.kernel_packed4, self.kernel_scale4,
-                             dt, self.act_quant)
+        if self.is_quantized:
+            if self.is_int8:
+                y = _int8_matmul(x, self.kernel, self.kernel_scale, dt,
+                                 self.act_quant)
+            else:
+                y = _int4_matmul(x, self.kernel_packed4, self.kernel_scale4,
+                                 dt, self.act_quant)
             if bias is not None:
                 y = y + bias
             x = x.to(dt)
@@ -385,11 +441,13 @@ class SingleStreamAttention(nn.Module):
         self.k_norm = RMSNorm(head_dim, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor,
-                rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+                rope: Tuple[torch.Tensor, torch.Tensor],
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, s, _ = x.shape
         shape = (b, s, self.num_heads, self.head_dim)
         cos, sin = (r[None, :, None, :] for r in rope)
         q = apply_rope(self.q_norm(self.q(x).reshape(shape)), cos, sin)
         k = apply_rope(self.k_norm(self.k(x).reshape(shape)), cos, sin)
         v = self.v(x).reshape(shape)
-        return attention(q, k, v, sp=self.sequence_parallel).reshape(b, s, -1)
+        return attention(q, k, v, mask=mask, sp=self.sequence_parallel
+                         ).reshape(b, s, -1)

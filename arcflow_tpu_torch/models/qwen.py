@@ -9,7 +9,9 @@ centred 3-axis RoPE, text truncation at ``max_text_len``, and a text key
 mask in every block's joint attention. The heads are ArcFlux's
 (``flux.py:ArcFlowHeads``). Under sequence parallelism the trunk shards its
 tokens as the FLUX trunk does, and the text mask with the text tokens, so
-each rank's key mask is [txt_mask_r, ones(img_r)]. The teacher
+each rank's key mask is [txt_mask_r, ones(img_r)]; a stream that ``sp``
+does not divide is padded with masked tokens, as in the FLUX trunk. The
+teacher
 ``QwenImageTransformer2DModel`` and MoE wait for the training slices.
 """
 
@@ -20,7 +22,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..parallel.mesh import SequenceParallel
+from ..parallel.mesh import (SequenceParallel, pad_tokens, stream_padding,
+                             token_validity)
 from .flux import (ArcFlowHeads, FluxJointBlock, MLPEmbedder, make_img_ids,
                    patchify)
 from .layers import LoRADense, RMSNorm, rope_frequencies, timestep_sinusoidal
@@ -28,17 +31,17 @@ from .layers import LoRADense, RMSNorm, rope_frequencies, timestep_sinusoidal
 
 class QwenJointBlock(FluxJointBlock):
     """Dual-stream block whose joint attention masks padded text keys: the
-    key mask over the [txt, img] sequence is [txt_mask, ones(img)]."""
+    key mask over the [txt, img] sequence is [txt_mask, img_valid], where
+    ``img_valid`` (every image token when None) marks the image tokens that
+    sequence-parallel padding did not add."""
 
     def forward(self, img, txt, rope, temb,
-                txt_mask: Optional[torch.Tensor] = None):
+                txt_mask: Optional[torch.Tensor] = None,
+                img_valid: Optional[torch.Tensor] = None):
         mask = None
-        if txt_mask is not None:
-            b = txt_mask.shape[0]
-            key_mask = torch.cat(
-                [txt_mask.bool(),
-                 torch.ones(b, img.shape[1], dtype=torch.bool,
-                            device=img.device)], dim=1)
+        if txt_mask is not None or img_valid is not None:
+            key_mask = torch.cat([token_validity(txt, 0, txt_mask),
+                                  token_validity(img, 0, img_valid)], dim=1)
             mask = key_mask[:, None, None, :]          # (B, 1, 1, S_kv)
         return super().forward(img, txt, rope, temb, mask=mask)
 
@@ -96,12 +99,25 @@ class QwenBackbone(nn.Module):
                 encoder_hidden_states_mask = \
                     encoder_hidden_states_mask[:, :self.max_text_len]
         sp = self.sequence_parallel
-        if isinstance(sp, SequenceParallel):     # see flux.py:FluxBackbone
+        n_img = packed.shape[1]
+        pad_t, pad_i = stream_padding(sp, encoder_hidden_states.shape[1],
+                                      n_img)
+        img_valid = None                         # see flux.py:FluxBackbone
+        if pad_t or pad_i:
+            encoder_hidden_states_mask = token_validity(
+                encoder_hidden_states, pad_t, encoder_hidden_states_mask)
+            img_valid = token_validity(packed, pad_i)
+            encoder_hidden_states = pad_tokens(encoder_hidden_states, pad_t)
+            packed = pad_tokens(packed, pad_i)
+            img_ids = pad_tokens(img_ids, pad_i, dim=0)
+        if isinstance(sp, SequenceParallel):
             packed, img_ids = sp.shard(packed), sp.shard(img_ids, dim=0)
             encoder_hidden_states = sp.shard(encoder_hidden_states)
             if encoder_hidden_states_mask is not None:
                 encoder_hidden_states_mask = sp.shard(
                     encoder_hidden_states_mask)
+            if img_valid is not None:
+                img_valid = sp.shard(img_valid)
         img = self.img_in(packed.to(dt))
         txt = self.txt_in(self.txt_norm(encoder_hidden_states.to(dt)))
         temb = self.timestep_embedder(
@@ -111,10 +127,11 @@ class QwenBackbone(nn.Module):
         rope = rope_frequencies(torch.cat([txt_ids, img_ids], dim=0),
                                 self.axes_dims_rope)
         for block in self.transformer_blocks:
-            img, txt = block(img, txt, rope, temb, encoder_hidden_states_mask)
+            img, txt = block(img, txt, rope, temb, encoder_hidden_states_mask,
+                             img_valid)
         if isinstance(sp, SequenceParallel):
             img = sp.gather(img)
-        return img, temb
+        return img[:, :n_img], temb
 
 
 class ArcQwenImageTransformer2DModel(ArcFlowHeads, QwenBackbone):

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import lecun_normal_
+
 
 def timestep_embedding(t: torch.Tensor, dim: int,
                        max_period: float = 10000.0) -> torch.Tensor:
@@ -43,8 +45,7 @@ def _dense(n_in: int, n_out: int, zero_kernel: bool = False,
         if zero_kernel:
             lin.weight.zero_()
         else:
-            std = 1.0 / math.sqrt(n_in) / 0.87962566103423978
-            nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std, b=2 * std)
+            lecun_normal_(lin.weight)
     return lin
 
 

@@ -4,8 +4,10 @@ Counterpart of ``arcflow_tpu/models/vae.py`` (``ResnetBlock``, ``AttnBlock``,
 ``Upsample``, ``Decoder`` and ``PretrainedVAE._denormalize``/``decode``).
 The public layout is the JAX package's, channel last: ``decode`` takes
 (B, h, w, C) latents and returns (B, H, W, 3) images; inside, the convs run
-NCHW. GroupNorms compute in fp32, as in the JAX package. The encoder and
-the quant convs wait for their slice.
+NCHW. GroupNorms compute in fp32, as in the JAX package. Convs and linears
+are drawn as flax's ``nn.Conv``/``nn.Dense`` defaults draw them (truncated
+LeCun normal, zero bias: ``flax_init_``). The encoder and the quant convs
+wait for their slice.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .layers import lecun_normal_
 
 
 class GroupNorm32(nn.GroupNorm):
@@ -31,9 +35,18 @@ class GroupNorm32(nn.GroupNorm):
                             self.bias, self.eps)
 
 
+def flax_init_(layer: nn.Module) -> nn.Module:
+    """A conv or linear layer with flax's default init: truncated LeCun
+    normal kernel, zero bias."""
+    with torch.no_grad():
+        lecun_normal_(layer.weight)
+        nn.init.zeros_(layer.bias)
+    return layer
+
+
 def _conv(in_ch: int, out_ch: int, k: int, device=None, dtype=None):
-    return nn.Conv2d(in_ch, out_ch, k, padding=k // 2, device=device,
-                     dtype=dtype)
+    return flax_init_(nn.Conv2d(in_ch, out_ch, k, padding=k // 2,
+                                device=device, dtype=dtype))
 
 
 def _run(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -69,10 +82,9 @@ class AttnBlock(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.group_norm = GroupNorm32(channels, device)
-        self.to_q = nn.Linear(channels, channels, **kw)
-        self.to_k = nn.Linear(channels, channels, **kw)
-        self.to_v = nn.Linear(channels, channels, **kw)
-        self.to_out = nn.Linear(channels, channels, **kw)
+        for name in ('to_q', 'to_k', 'to_v', 'to_out'):
+            self.add_module(name, flax_init_(nn.Linear(channels, channels,
+                                                       **kw)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape

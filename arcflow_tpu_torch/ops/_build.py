@@ -112,6 +112,9 @@ def load_library() -> ctypes.CDLL:
     lib.arcflow_ring_hop.argtypes = [_P] * 8 + [_I32] * 4 + [_I64] * 13 \
         + [_I32] * 2 + [_P]
     lib.arcflow_ring_hop.restype = _I32
+    lib.arcflow_flash_int8.argtypes = [_P] * 7 + [_I32] * 4 + [_I64] * 13 \
+        + [ctypes.c_float, _P]
+    lib.arcflow_flash_int8.restype = _I32
     lib.arcflow_cuda_error_string.argtypes = [_I32]
     lib.arcflow_cuda_error_string.restype = ctypes.c_char_p
     return lib

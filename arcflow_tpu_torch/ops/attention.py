@@ -50,14 +50,16 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
-def _check_cuda_args(q, k, v, kv_valid, **more):
-    """Refuse what the kernels do not take; ``more`` names further
-    (B, S, H, D) tensors held to q's rules (the backward's o and dout)."""
+def _check_cuda_args(q, k, v, kv_valid, dtypes=(torch.bfloat16,), **more):
+    """Refuse what the kernels do not take: q, k, v and ``more`` (further
+    (B, S, H, D) tensors held to q's rules, the backward's o and dout) on
+    one device, of one dtype among ``dtypes``."""
     for name, t in (('q', q), ('k', k), ('v', v), *more.items()):
         if t.device != q.device:
             raise ValueError(f'{name} is on {t.device}, q on {q.device}')
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f'{name} must be bfloat16, got {t.dtype}')
+        if t.dtype not in dtypes or t.dtype != q.dtype:
+            raise ValueError(f'{name} must be one of {dtypes} and q\'s '
+                             f'dtype, got {t.dtype}')
         if t.shape != q.shape:
             raise ValueError(f'{name} shape {tuple(t.shape)} != q shape '
                              f'{tuple(q.shape)}')

@@ -126,6 +126,36 @@ class SequenceParallel:
         return recv.permute(1, 2, 0, 3, 4).reshape(b, s_all // n, n * hn, d)
 
 
+def stream_padding(sp, *lengths: int):
+    """The zero tokens to append to each stream of ``lengths`` tokens so
+    that the sequence-parallel state ``sp`` (a ``SequenceParallel``, a
+    ``LocalRing`` or None) cuts it into equal shards: 0 without ``sp`` or
+    where ``sp.size`` divides the length. The JAX package leaves such a
+    stream replicated instead (``arcflow_tpu/parallel/mesh.py:459-460``);
+    padded keys are masked and padded rows dropped, so the result is the
+    same."""
+    size = 1 if sp is None else sp.size
+    return [-n % size for n in lengths]
+
+
+def pad_tokens(x: torch.Tensor, pad: int, dim: int = 1) -> torch.Tensor:
+    """``x`` with ``pad`` zero tokens appended along ``dim``."""
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def token_validity(x: torch.Tensor, pad: int,
+                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, N + pad) bool validity of the tokens of ``x`` (B, N, ...):
+    ``valid`` (every token when None), then ``pad`` invalid ones."""
+    if valid is None:
+        valid = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+    return pad_tokens(valid.bool(), pad)
+
+
 def set_sequence_parallel(module: nn.Module, sp) -> None:
     """Give ``module`` and each of its submodules that holds sequence-
     parallel state (the trunks and their attention modules) ``sp``: a

@@ -2,15 +2,15 @@
 embeds.
 
 Counterpart of ``arcflow_tpu/pipelines/arcflux_pipeline.py``
-(``retrieve_raw_timesteps``, ``ArcFluxPipeline`` with ``quantize_int4``,
-``ArcQwenImagePipeline``): nfe-step ArcFlow sampling (one DiT call +
-closed-form momentum integration per step, temperature on every step but
-the last) -> VAE decode. The kernels follow the device the modules and
-inputs live on; the w4a8 mode is state of the transformer's layers and the
-sequence-parallel layout (``shard``) state of its trunk and attention
-modules; there is no process-wide serving, quantization or mesh flag.
-Prompt encoding, ``from_pretrained``, adapter loading, int8 and the mesh
-axes other than ``sp`` wait for their slices.
+(``retrieve_raw_timesteps``, ``ArcFluxPipeline`` with ``quantize_int8`` and
+``quantize_int4``, ``ArcQwenImagePipeline``): nfe-step ArcFlow sampling
+(one DiT call + closed-form momentum integration per step, temperature on
+every step but the last) -> VAE decode. The kernels follow the device the
+modules and inputs live on; the w8a8 and w4a8 modes are state of the
+transformer's layers and the sequence-parallel layout (``shard``) state of
+its trunk and attention modules; there is no process-wide serving,
+quantization or mesh flag. Prompt encoding, ``from_pretrained``, adapter
+loading and the mesh axes other than ``sp`` wait for their slices.
 """
 
 from __future__ import annotations
@@ -73,6 +73,26 @@ class ArcFluxPipeline:
                            generator=generator, dtype=torch.float32,
                            device=device)
 
+    def _check_not_quantized(self) -> None:
+        from ..models.layers import LoRADense
+        if any(isinstance(m, LoRADense) and m.is_quantized
+               for m in self.transformer.modules()):
+            raise ValueError('the transformer is already quantized')
+
+    def quantize_int8(self, act_quant: bool = False,
+                      min_size: int = 2 ** 16) -> int:
+        """int8-quantize the transformer's big kernels in place, one scale
+        per output channel (``utils/quantize.py:quantize_weights_int8``);
+        ``act_quant=True`` (w8a8) also quantizes activations per token and
+        runs an int8 x int8 -> int32 product. The ArcFlow adapter surface
+        (heads, LoRA, ``norm_out``) stays as it is. Call after the weights
+        are loaded; a quantized transformer is refused. Returns the number
+        of quantized layers."""
+        from ..utils.quantize import quantize_weights_int8
+        self._check_not_quantized()
+        return len(quantize_weights_int8(self.transformer, min_size=min_size,
+                                         act_quant=act_quant))
+
     def quantize_int4(self, act_quant: bool = False,
                       min_size: int = 2 ** 16, group_size: int = 128
                       ) -> int:
@@ -81,8 +101,10 @@ class ArcFluxPipeline:
         ``act_quant=True`` (w4a8) also quantizes activations per token and
         runs the grouped-matmul kernel. The ArcFlow adapter surface (heads,
         LoRA, ``norm_out``) stays as it is. Call after the weights are
-        loaded. Returns the number of quantized layers."""
+        loaded; a quantized transformer is refused. Returns the number of
+        quantized layers."""
         from ..utils.quantize import quantize_weights_int4
+        self._check_not_quantized()
         return len(quantize_weights_int4(self.transformer, min_size=min_size,
                                          group_size=group_size,
                                          act_quant=act_quant))
@@ -96,7 +118,7 @@ class ArcFluxPipeline:
         tokens; attention runs in ``sp_mode`` 'ulysses' (all-to-all to head
         shards, heads % n == 0) or 'ring' (K/V blocks rotate, one K4 hop per
         block). The weights stay replicated and the VAE decodes on every
-        rank. Call it after ``quantize_int4``; then every rank calls
+        rank. Call it after quantizing; then every rank calls
         ``__call__`` with the same ``latents`` or generator seed and gets
         the same images. Other axes raise, and so does ``min_size`` (JAX's
         smallest array the weight-sharding axes cut: ``sp`` cuts none).

@@ -7,8 +7,12 @@ which does the same unstacking for diffusers naming):
 * ``joint_blocks`` / ``single_blocks`` / ``transformer_blocks`` are
   ``nn.scan`` stacks in JAX: their axis 0 becomes the ``nn.ModuleList``
   index;
-* a 2-D ``kernel`` (in, out) becomes ``weight`` (out, in); a conv
+* a 2-D float ``kernel`` (in, out) becomes ``weight`` (out, in); a conv
   ``kernel`` (kh, kw, in, out) becomes ``weight`` (out, in, kh, kw);
+* an int8 ``kernel`` (in, out) of ``quantize_weights_int8`` stays
+  ``kernel``, and its ``kernel_scale`` (1, out) from the ``quant``
+  collection stays as it is, for a module quantized by the port's
+  ``quantize_weights_int8`` (whose int8 ``kernel`` buffer has that shape);
 * an RMSNorm or GroupNorm ``scale`` becomes ``weight``;
 * ``bias``, the LoRA leaves ``lora_a`` (in, r) / ``lora_b`` (r, out), the
   Wan RMSNorm ``gamma`` and the int4 leaves of the JAX ``quant``
@@ -45,6 +49,10 @@ def _flatten(tree: Mapping, prefix: str = '') -> Dict[str, np.ndarray]:
 
 
 def _leaf(name: str, v: np.ndarray):
+    if name == 'kernel' and v.dtype == np.int8:
+        if v.ndim != 2:
+            raise ValueError(f'unexpected int8 kernel rank {v.ndim}')
+        return name, v
     if name == 'kernel':
         if v.ndim == 2:
             return 'weight', v.T
@@ -59,11 +67,12 @@ def _leaf(name: str, v: np.ndarray):
 def jax_params_to_torch(tree: Mapping, quant: Optional[Mapping] = None
                         ) -> Dict[str, torch.Tensor]:
     """JAX param tree (nested dicts of numpy arrays, e.g. from
-    ``jax.device_get``), and the ``quant`` collection of an int4-quantized
-    model if there is one, -> ``state_dict`` for the port's module of the
-    same structure (``ArcFluxTransformer2DModel``,
-    ``ArcQwenImageTransformer2DModel`` (after ``quantize_weights_int4`` when
-    ``quant`` is given), ``PretrainedVAE``, ``PretrainedVAEQwenImage``)."""
+    ``jax.device_get``), and the ``quant`` collection of an int8- or
+    int4-quantized model if there is one, -> ``state_dict`` for the port's
+    module of the same structure (``ArcFluxTransformer2DModel``,
+    ``ArcQwenImageTransformer2DModel`` (after ``quantize_weights_int8`` or
+    ``quantize_weights_int4`` when ``quant`` is given), ``PretrainedVAE``,
+    ``PretrainedVAEQwenImage``)."""
     out = {}
     for key, v in {**_flatten(tree), **_flatten(quant or {})}.items():
         *path, name = key.split('.')

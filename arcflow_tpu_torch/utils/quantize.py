@@ -1,24 +1,27 @@
-"""Group-wise int4 weight quantization for serving.
+"""Weight quantization for serving: per-channel int8 and group-wise int4.
 
-Counterpart of the int4 half of ``arcflow_tpu/utils/quantize.py``:
-``pack_int4``/``unpack_int4`` keep the JAX package's group-local half-split
-layout byte for byte, and ``quantize_weights_int4`` applies its skip rules
-to a module's ``LoRADense`` layers. A quantized layer keeps the JAX names
-and layout (not transposed):
+Counterpart of ``arcflow_tpu/utils/quantize.py``. ``quantize_weights_int8``
+and ``quantize_weights_int4`` apply the JAX package's skip rules to a
+module's ``LoRADense`` layers; ``pack_int4``/``unpack_int4`` keep its
+group-local half-split layout byte for byte. A quantized layer keeps the
+JAX names and shapes:
 
-* ``kernel_packed4`` (in/2, out) int8, two nibbles per byte;
-* ``kernel_scale4`` (in/g, 1, out) fp32, one scale per (input group x
-  output channel).
+* int8: ``kernel`` (in, out) int8, stored column-major (the bytes of an
+  (out, in) row-major matrix, what the GEMM reads for ``x @ W^T`` without
+  a copy), and ``kernel_scale`` (1, out) fp32, one scale per output
+  channel;
+* int4: ``kernel_packed4`` (in/2, out) int8, two nibbles per byte, and
+  ``kernel_scale4`` (in/g, 1, out) fp32, one scale per (input group x
+  output channel), both row-major as in JAX.
 
 The JAX package's process-wide ``set_act_quant``/``set_serving`` flags are
-not ported: whether a layer quantizes its activations (w4a8) is its own
-``act_quant`` attribute, set here. The int8 and w8a8 paths wait for their
-slice.
+not ported: whether a layer quantizes its activations (w8a8, w4a8) is its
+own ``act_quant`` attribute, set here.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -62,6 +65,18 @@ def unpack_int4(packed: torch.Tensor, group_size: int = 128) -> torch.Tensor:
         *packed.shape[:-2], packed.shape[-2] * 2, packed.shape[-1])
 
 
+def quantize_kernel_int8(kernel: torch.Tensor):
+    """(in, out) kernel -> (int8 (in, out), scale (1, out) fp32): symmetric
+    per output channel, absmax over the input axis, max(absmax, 1e-8) / 127,
+    round half to even, clip to [-127, 127], all in fp32 as in the JAX
+    package. The int8 kernel is column-major (``kernel.t()`` is
+    contiguous)."""
+    kf = kernel.float()
+    scale = kf.abs().amax(dim=-2, keepdim=True).clamp_min(1e-8) / 127.0
+    q = torch.round(kf / scale).clamp_(-127, 127).to(torch.int8)
+    return q.t().contiguous().t(), scale.contiguous()
+
+
 def quantize_kernel_int4(kernel: torch.Tensor, group_size: int = 128):
     """(in, out) kernel -> (packed (in/2, out) int8, scale (in/g, 1, out)
     fp32): symmetric per (input group x output channel), absmax / 7,
@@ -75,13 +90,52 @@ def quantize_kernel_int4(kernel: torch.Tensor, group_size: int = 128):
     return pack_int4(q, group_size), scale
 
 
-def _skip(key: str, layer: nn.Module, min_size: int, group_size: int
-          ) -> bool:
+def _skip(key: str, layer: nn.Module, min_size: int,
+          group_size: Optional[int] = None) -> bool:
+    """The JAX skip rules: the adapter surface, kernels below ``min_size``
+    and, for int4 (``group_size``), inputs that do not split into groups."""
     w = layer.weight
     return (any(s in key for s in _SKIP_SUBSTRINGS)
             or any(key.startswith(p) for p in _SKIP_PREFIXES)
             or w.numel() < min_size
-            or w.shape[1] % group_size != 0 or group_size % 2 != 0)
+            or (group_size is not None
+                and (w.shape[1] % group_size != 0 or group_size % 2 != 0)))
+
+
+def _float_layers(module: nn.Module):
+    """(name, layer) of each ``LoRADense`` that still has a float kernel."""
+    from ..models.layers import LoRADense
+    for name, layer in module.named_modules():
+        if isinstance(layer, LoRADense) and not layer.is_quantized:
+            yield name, layer
+
+
+def quantize_weights_int8(module: nn.Module, min_size: int = 2 ** 16,
+                          act_quant: bool = False) -> List[str]:
+    """Quantize ``module``'s ``LoRADense`` kernels to int8 in place.
+
+    Each layer that passes the JAX package's skip rules (adapter surface,
+    ``min_size``) loses its ``weight`` and gains the ``kernel`` and
+    ``kernel_scale`` buffers, one layer at a time, so a bf16 trunk never
+    needs room for a second copy of itself. ``act_quant`` selects w8a8
+    (per-token int8 activations, an int8 x int8 -> int32 product) over
+    weight-only int8. ``min_size`` counts one layer's kernel; the JAX
+    package counts a scanned stack of them, which decides differently only
+    for a block kernel smaller than ``min_size`` whose stack is not.
+    Returns the names of the quantized layers.
+    """
+    done = []
+    for name, layer in list(_float_layers(module)):
+        if _skip(f'{name}.kernel', layer, min_size):
+            continue
+        with torch.no_grad():
+            kernel, scale = quantize_kernel_int8(layer.weight.t())
+        del layer.weight
+        layer.register_buffer('kernel', kernel)
+        layer.register_buffer('kernel_scale', scale)
+        layer.act_quant = act_quant
+        done.append(name)
+    return done
 
 
 def quantize_weights_int4(module: nn.Module, min_size: int = 2 ** 16,
@@ -99,13 +153,9 @@ def quantize_weights_int4(module: nn.Module, min_size: int = 2 ** 16,
     decides differently only for a block kernel smaller than ``min_size``
     whose stack is not. Returns the names of the quantized layers.
     """
-    from ..models.layers import LoRADense
     done = []
-    for name, layer in module.named_modules():
-        if not isinstance(layer, LoRADense) or layer.is_int4:
-            continue
-        key = f'{name}.kernel'
-        if _skip(key, layer, min_size, group_size):
+    for name, layer in list(_float_layers(module)):
+        if _skip(f'{name}.kernel', layer, min_size, group_size):
             continue
         with torch.no_grad():
             packed, scale = quantize_kernel_int4(layer.weight.t(), group_size)
@@ -119,10 +169,16 @@ def quantize_weights_int4(module: nn.Module, min_size: int = 2 ** 16,
 
 def dequantize_weights(state: Dict[str, torch.Tensor]
                        ) -> Dict[str, torch.Tensor]:
-    """Inverse transform on a state dict: every ``kernel_packed4`` /
-    ``kernel_scale4`` pair becomes an fp32 ``weight`` (out, in) again."""
-    out = {k: v for k, v in state.items()
-           if not k.endswith(('.kernel_packed4', '.kernel_scale4'))}
+    """Inverse transform on a state dict: every int8 ``kernel`` /
+    ``kernel_scale`` pair and every ``kernel_packed4`` / ``kernel_scale4``
+    pair becomes an fp32 ``weight`` (out, in) again."""
+    quant = ('.kernel', '.kernel_scale', '.kernel_packed4', '.kernel_scale4')
+    out = {k: v for k, v in state.items() if not k.endswith(quant)}
+    for key, kernel in state.items():
+        if key.endswith('.kernel'):
+            stem = key[:-len('.kernel')]
+            w = kernel.float() * state[stem + '.kernel_scale'].float()
+            out[stem + '.weight'] = w.t().contiguous()
     for key, packed in state.items():
         if not key.endswith('.kernel_packed4'):
             continue

@@ -6,10 +6,9 @@ It needs one CUDA card and ``nvcc``; it imports nothing of JAX. Phases, one
 line each, and any failure exits non-zero:
 
 1. facts: the card's name and power limit (nvidia-smi), torch, CUDA, nvcc;
-   and the bound of the TPU kernel not yet ported (K7), from its shape;
 2. build: compile every kernel source of ``arcflow_tpu_torch/csrc``
-   (attention forward and backward, w4a8 matmul, inverse CDF, ring hop),
-   one ``nvcc`` per source, all in parallel;
+   (attention forward and backward, w4a8 matmul, inverse CDF, ring hop,
+   int8-QK^T attention), one ``nvcc`` per source, all in parallel;
 3. attention kernel vs plain: against ``attention_ref`` at the FLUX shape
    (B1 S4608 H24 D128), a ragged S and key-padded cases, and both timed at
    the FLUX shape;
@@ -78,10 +77,31 @@ line each, and any failure exits non-zero:
     FLUX shape, unmasked and masked (16 hop launches per call), and a
     planted lost rotation that the limits must refuse;
 17. FLUX (1 + 1 blocks) and Qwen w4a8 (1 block) at full width, every
-    attention on ``LocalRing(4)`` against the attention kernel;
+    attention on ``LocalRing(4)`` against the attention kernel, and FLUX on
+    ``LocalRing(3)``, which pads both of its streams;
 18. (right after phase 6, on its model) FLUX-12B 2-NFE with every attention
     on ``LocalRing(4)``: exactly 1824 hop and no attention-kernel launches,
-    latents against phase 6's, and a planted lost rotation refused.
+    latents against phase 6's, and a planted lost rotation refused;
+19. the int8 product of the w8a8 layers (``ops/int8_matmul.py``,
+    ``torch._int_mm``) against its exact plain version at every (M, K, N)
+    of the FLUX-12B int8 layers at batch 1, bitwise; timed at the two
+    largest;
+20. FLUX at reduced depth (1 + 1 blocks) and full width under w8a8: one
+    forward through the attention kernel and the int8 product, the same
+    weights through their plain versions, ``means`` by relative L2; and
+    the quantization's own effect against the bf16 forward;
+21. (after phase 18, on phase 6's model) FLUX-12B quantized in place with
+    ``pipe.quantize_int8(act_quant=True)``: a finite image, the same on a
+    second run, with exactly 114 attention and 2 x 502 int8 launches,
+    s/image, resident and peak memory, latents against phase 6's; then the
+    layers' ``act_quant`` off and weight-only int8 timed the same way;
+22. int8-QK^T attention kernel (K7) vs plain: against
+    ``flash_attention_int8_ref`` at the FLUX shape, masked, with a keyless
+    batch row (the mean of v), at the JAX test's shape, ragged, and on the
+    q, k, v of one joint and one single block captured from phase 21's
+    w8a8 image (cosine against K1 above 0.999); two planted faults must
+    break the limits; K7, its plain version, K1 and bf16 SDPA timed at the
+    FLUX shape.
 
 ``python3 chip_smoke.py --ranks 4`` (four cards) instead spawns 4 NCCL
 ranks and serves FLUX-12B through ``pipe.shard({'sp': 4})`` in ring and in
@@ -119,6 +139,8 @@ from arcflow_tpu_torch.models import layers
 from arcflow_tpu_torch.models.layers import LoRADense
 from arcflow_tpu_torch.ops import _build
 from arcflow_tpu_torch.ops import attention as attn
+from arcflow_tpu_torch.ops import flash_int8 as fi8
+from arcflow_tpu_torch.ops import int8_matmul as i8
 from arcflow_tpu_torch.ops import quant_matmul as qmm
 from arcflow_tpu_torch.ops import ring_hop as hop
 from arcflow_tpu_torch.ops.gm import gm_ops
@@ -285,6 +307,8 @@ UPSTREAM_OF_ATTENTION = ('time_text_embed.', 'joint_blocks.')
 # substring in the kernel's name takes it (cuDNN's implicit-GEMM convs
 # before cuBLAS's GEMMs)
 KERNEL_FAMILIES = (('w4a8 kernel', ('w4a8_matmul',)),
+                   ('int8 GEMM (cuBLASLt)', ('s8s8', 'i8i8', 'imma',
+                                             'int8', '_s8_')),
                    ('attention backward kernels', ('attention_bwd',)),
                    ('attention kernel', ('attention_fwd',)),
                    ('optimizer and EMA (foreach)', ('multi_tensor_apply',)),
@@ -313,6 +337,48 @@ K4_ATOL, K4_RTOL, K4_REL_L2 = 2e-3, 2 ** -7, 1e-2
 # 1e-2), so the bound is three times that; phase 18 plants a lost rotation
 # and requires that the bound refuse it
 SP_IMAGE_REL_L2 = 3e-2
+# int8 layers of FLUX-12B under quantize_weights_int8's skip rules: 14 per
+# joint block (2 modulations, 8 attention projections, 4 MLP projections),
+# 6 per single block (modulation, q, k, v, proj_mlp, proj_out), and
+# x_embedder, context_embedder and the six embedder linears (timestep,
+# guidance, pooled text); norm_out and the heads are the adapter surface
+INT8_PER_JOINT, INT8_PER_SINGLE, INT8_OUTSIDE_BLOCKS = 14, 6, 8
+# (M, K, N) of every int8 layer of the FLUX path at batch 1: the image
+# stream (4096 tokens) and the text stream (512) of the joint blocks, the
+# 4608 tokens of the single blocks, the modulations and embedders (M = 1)
+INT8_SHAPES = [(4096, 64, 3072), (4096, 3072, 3072), (4096, 3072, 12288),
+               (4096, 12288, 3072), (512, 4096, 3072), (512, 3072, 3072),
+               (512, 3072, 12288), (512, 12288, 3072), (4608, 3072, 3072),
+               (4608, 3072, 12288), (4608, 15360, 3072), (1, 256, 3072),
+               (1, 768, 3072), (1, 3072, 3072), (1, 3072, 18432),
+               (1, 3072, 9216)]
+INT8_TIMED = [(4608, 15360, 3072), (4608, 3072, 12288)]
+# relative L2 of ``means`` after 1 + 1 full-width blocks under w8a8, the
+# card against the plain attention and plain int8 product. The int8
+# product is exact on both sides (phase 20 also requires the card's
+# layers with the plain product to equal the card bit for bit), so the
+# whole difference is the attention's bf16 rounding of P (phase 5: about
+# 5e-3), which w8a8 amplifies: an activation moved by it may round to a
+# neighbouring int8 step, and a moved token maximum re-rounds the whole
+# token. A sound run read 1.98e-2 (NVIDIA H100 80GB HBM3, 700 W), so the
+# bound is 5e-2; an attention fault moves ``means`` by O(1). The bound is
+# not meant to tell w8a8 from bf16 (their own distance is 4.5e-2): the
+# launch counts and the bitwise check of the int8 product do that.
+W8A8_SLICE_REL_L2 = 5e-2
+# FLUX-12B latents under w8a8 (or weight-only int8) against the bf16 image
+# of phase 6, relative L2: the quantization's own error, 4.5e-2 after 2
+# blocks in phase 20 and about as much after 57 at random weights (4.4e-2
+# and 3.2e-2 read on NVIDIA H100 80GB HBM3, 700 W); the bound is three
+# times that. A broken layout or scale moves them by O(1).
+INT8_IMAGE_REL_L2 = 0.15
+# K7 against its fp32 plain version (bf16 O): every element within
+# K7_ATOL + K7_RTOL |ref| and the whole within K7_REL_L2 by relative L2.
+# Both compute the same exact int8 scores; the kernel rounds P to bf16
+# (2^-9 relative) before P.V, as K1 and K4 do, so the limits are K4's.
+# Planted faults (k scales dropped, key rows swapped in one tile) must
+# break both. On real q, k, v, K7 against K1 by cosine, the property
+# tests/test_flash_int8.py:test_close_to_full_precision_attention pins.
+K7_ATOL, K7_RTOL, K7_REL_L2, K7_COSINE = 2e-3, 2 ** -7, 1e-2, 0.999
 # ``--ranks``: Qwen w4a8 at full width and this depth, its text mask sharded
 # with the text tokens and rotated with the K/V blocks
 RANKS_QWEN_LAYERS = 2
@@ -387,13 +453,10 @@ def phase_facts():
     smi = smi_line()
     nvcc = subprocess.run([_build.find_nvcc(), '--version'],
                           capture_output=True, text=True, check=True)
-    bounds = unported_bounds()
     log(f'phase 1 facts: ok | nvidia-smi: {smi} | torch {torch.__version__} '
         f'cuda {torch.version.cuda} | devices {torch.cuda.device_count()} | '
-        f'nvcc: {nvcc.stdout.strip().splitlines()[-1]} | bounds of the TPU '
-        f'kernels still to port: ' + ' ; '.join(
-            f'{k} {b["bound_ms"]:.4f} ms ({b["bound_by"]}, {b["ops"]:.3e} '
-            f'operations, {b["bytes"]} bytes)' for k, b in bounds.items()))
+        f'nvcc: {nvcc.stdout.strip().splitlines()[-1]} | TPU kernels still '
+        f'to port: none')
     return smi
 
 
@@ -1099,19 +1162,20 @@ def phase_train_full():
     return dict(forward=launches[0], backward=launches[1])
 
 
-def unported_bounds():
-    """Bound (ms) of the TPU kernel still to port, from its shape: K7, the
-    int8-QK^T attention at B1 S4608 H24 D128 (int8 q and k with fp32 row
-    scales, bf16 v and o, QK^T at the int8 peak and P.V at the bf16
-    peak)."""
-    h, d, s = 24, 128, 4608
-    half = 2 * h * s * s * d
-    k7_ms = (half / H100_INT8 + half / H100_BF16) * 1e3
-    k7_bytes = 2 * (s * h * d + s * h * 4) + 2 * s * h * d * 2 + s * 4
-    k7 = (k7_ms, 'operations') if k7_ms >= k7_bytes / H100_BYTES * 1e3 \
-        else (k7_bytes / H100_BYTES * 1e3, 'bytes')
-    return dict(K7=dict(bound_ms=k7[0], bound_by=k7[1], ops=2 * half,
-                        bytes=k7_bytes))
+def k7_bound(b, s, h, valid_keys=None):
+    """Roofline of K7 at (B, S, H, 128) over ``valid_keys`` keys (all by
+    default): QK^T, 2 S Sk D H operations at the int8 peak, plus P.V as
+    many at the bf16 peak, against reading the int8 q, the valid keys' int8
+    k rows, the fp32 row scales and bf16 v rows, and writing bf16 o."""
+    d = 128
+    kv = s if valid_keys is None else valid_keys
+    half = 2 * b * h * s * kv * d
+    ms_ops = (half / H100_INT8 + half / H100_BF16) * 1e3
+    nbytes = (b * h * (s + kv) * (d + 4) + b * kv * h * d * 2
+              + b * s * h * d * 2 + (0 if valid_keys is None else b * s))
+    ms_bytes = nbytes / H100_BYTES * 1e3
+    return (ms_ops, 'operations') if ms_ops >= ms_bytes else \
+        (ms_bytes, 'bytes')
 
 
 def k4_bound(b, sq, skv, h, valid_keys=None, first=False, last=False):
@@ -1576,16 +1640,16 @@ def counted_forward(model, x, kw):
     return means, (hop.LAUNCHES - before[0], attn.LAUNCHES - before[1])
 
 
-def local_ring_slice(name, model, x, kw, n_blocks, bound):
-    """One forward on the attention kernel, one on ``LocalRing(SP)``;
+def local_ring_slice(name, model, x, kw, n_blocks, bound, size=SP):
+    """One forward on the attention kernel, one on ``LocalRing(size)``;
     raises past ``bound`` (relative L2 of ``means``) or on wrong counts."""
     k1, n_k1 = counted_forward(model, x, kw)
-    set_sequence_parallel(model, LocalRing(SP))
+    set_sequence_parallel(model, LocalRing(size))
     try:
         ring, n_ring = counted_forward(model, x, kw)
     finally:
         set_sequence_parallel(model, None)
-    if n_k1 != (0, n_blocks) or n_ring != (SP * SP * n_blocks, 0):
+    if n_k1 != (0, n_blocks) or n_ring != (size * size * n_blocks, 0):
         raise AssertionError(f'{name}: launches (hop, attention) {n_k1} on '
                              f'the kernel and {n_ring} on the ring')
     if not torch.isfinite(ring).all():
@@ -1608,6 +1672,11 @@ def phase_local_ring_slices():
               guidance=torch.full((1,), 3.5, device='cuda'))
     flux = local_ring_slice('FLUX 1+1 blocks bf16', model, x, kw, 2,
                             SLICE_REL_L2)
+    # sp = 3 divides neither the 512 text nor the 4096 image tokens: both
+    # streams are padded and every hop is masked
+    padded = local_ring_slice('FLUX 1+1 blocks bf16 on LocalRing(3), both '
+                              'streams padded', model, x, kw, 2,
+                              SLICE_REL_L2, size=3)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1616,7 +1685,7 @@ def phase_local_ring_slices():
     qwen = local_ring_slice('Qwen 1 block w4a8', pipe.transformer, x, kw, 1,
                             QWEN_SLICE_REL_L2)
     log(f'phase 17 reduced slices under LocalRing({SP}) (full width): ok | '
-        f'{flux} ; {qwen}')
+        f'{flux} ; {padded} ; {qwen}')
 
 
 def phase_full_local_ring(pipe, embeds, latents, lat_single, t_single):
@@ -1655,6 +1724,339 @@ def phase_full_local_ring(pipe, embeds, latents, lat_single, t_single):
         f'{t_e2e:.4f} s (phase 6: {t_single:.4f} s) | peak memory '
         f'{peak_gib:.2f} GiB')
     return launches['ring_hop']
+
+
+def int8_case(g, m, k, n):
+    """Random int8 activations (M, K) and an int8 kernel (K, N) stored as
+    the layers store it: column-major, the bytes of (N, K)."""
+    xq = torch.randint(-127, 128, (m, k), generator=g, device='cuda',
+                       dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device='cuda',
+                      dtype=torch.int8).t()
+    return xq, w
+
+
+def int_mm_takes(m):
+    """Whether ``torch._int_mm`` itself takes an M-row product (the limit
+    the wrapper's zero rows are for), or its error message."""
+    xq, w = int8_case(torch.Generator(device='cuda'), m, 64, 64)
+    try:
+        torch._int_mm(xq, w)
+        return 'takes it'
+    except RuntimeError as e:
+        return f'refuses it ({str(e).splitlines()[0][:80]})'
+
+
+def phase_int8_vs_plain():
+    g = torch.Generator(device='cuda').manual_seed(SEED + 20)
+    for m, k, n in INT8_SHAPES:
+        xq, w = int8_case(g, m, k, n)
+        out = i8.int8_matmul(xq, w)
+        torch.cuda.synchronize()
+        if not torch.equal(out, i8.int8_matmul_ref(xq, w)):
+            raise AssertionError(f'int8 product at ({m}, {k}, {n}) is not '
+                                 f'exact')
+    timed = []
+    for m, k, n in INT8_TIMED:
+        xq, w = int8_case(g, m, k, n)
+        ms = cuda_ms(lambda: i8.int8_matmul(xq, w), 20)
+        plain_ms = cuda_ms(lambda: i8.int8_matmul_ref(xq, w), 3)
+        bound_ms, bound_by = roofline(2 * m * k * n, m * k + k * n + m * n * 4,
+                                      H100_INT8)
+        timed.append(dict(shape=[m, k, n], ms=ms, plain_ms=plain_ms,
+                          tops=2 * m * k * n / (ms * 1e-3) / 1e12,
+                          bound_ms=bound_ms, bound_by=bound_by))
+    limits = {m: int_mm_takes(m) for m in (1, 16, 17)}
+    log(f'phase 19 int8 product (torch._int_mm) vs plain: ok | '
+        f'{len(INT8_SHAPES)} FLUX-12B layer shapes bitwise exact (M 4096, '
+        f'512, 4608 and 1, the last zero-padded to {i8.MIN_ROWS} rows) | '
+        f'torch._int_mm alone at M=1 {limits[1]}, M=16 {limits[16]}, M=17 '
+        f'{limits[17]} | ' + ' ; '.join(
+            f'M{t["shape"][0]} K{t["shape"][1]} N{t["shape"][2]}: '
+            f'{t["ms"]:.4f} ms ({t["tops"]:.1f} TOP/s), plain fp64 '
+            f'{t["plain_ms"]:.4f} ms, bound {t["bound_ms"]:.4f} ms '
+            f'({t["bound_by"]}, {100 * t["bound_ms"] / t["ms"]:.1f}% of it)'
+            for t in timed))
+    return timed
+
+
+def int8_layers(model, act_quant):
+    """The int8 layers of ``model``, each set to ``act_quant``."""
+    found = [m for m in model.modules()
+             if isinstance(m, LoRADense) and m.is_int8]
+    for m in found:
+        m.act_quant = act_quant
+    return len(found)
+
+
+def phase_w8a8_reduced():
+    g = torch.Generator(device='cuda').manual_seed(SEED + 21)
+    cfg = dict(FLUX_12B, num_layers=1, num_single_layers=1)
+    with torch.device('cuda'):
+        model = ArcFluxTransformer2DModel(dtype=torch.bfloat16, **cfg)
+    randomize_(model, g)
+    x = torch.randn(1, 128, 128, 16, generator=g, device='cuda')
+    kw = dict(flux_inputs(g), t=torch.full((1,), 0.7, device='cuda'),
+              guidance=torch.full((1,), 3.5, device='cuda'))
+    want_layers = INT8_OUTSIDE_BLOCKS + INT8_PER_JOINT + INT8_PER_SINGLE
+    with torch.inference_mode():
+        bf16 = model(x, **kw)['means'].float()
+        n_int8 = ArcFluxPipeline(model).quantize_int8(act_quant=True)
+        before = (attn.LAUNCHES, i8.LAUNCHES)
+        fast = model(x, **kw)['means'].float()
+        torch.cuda.synchronize()
+        launches = (attn.LAUNCHES - before[0], i8.LAUNCHES - before[1])
+
+        def plain(q, k, v, kv_valid=None, return_lse=False):
+            return attn.attention_ref(q, k, v, kv_valid, return_lse)
+
+        with mock.patch.object(i8, 'int8_matmul', i8.int8_matmul_ref):
+            plain_product = model(x, **kw)['means'].float()
+            with mock.patch.object(attn, 'flash_attention_fwd', plain):
+                slow = model(x, **kw)['means'].float()
+        int8_layers(model, act_quant=False)
+        weight_only = model(x, **kw)['means'].float()
+        torch.cuda.synchronize()
+    if n_int8 != want_layers or launches != (2, want_layers):
+        raise AssertionError(f'{n_int8} int8 layers (want {want_layers}), '
+                             f'launches (attention, int8) {launches}')
+    if not all(torch.isfinite(t).all() for t in (fast, slow, weight_only)):
+        raise AssertionError('non-finite means')
+    if not torch.equal(fast, plain_product):
+        raise AssertionError('the plain int8 product changes the means')
+    rel = rel_l2(fast, slow)
+    if rel > W8A8_SLICE_REL_L2:
+        raise AssertionError(f'means rel L2 {rel:.3e} > {W8A8_SLICE_REL_L2}')
+    quant_rel, wo_rel = rel_l2(fast, bf16), rel_l2(weight_only, bf16)
+    log(f'phase 20 FLUX reduced slice (1+1 blocks, full width) w8a8: ok | '
+        f'{n_int8} int8 layers | means with the plain int8 product bitwise '
+        f'equal | means rel L2 card vs plain attention and plain int8 '
+        f'product {rel:.3e} (bound {W8A8_SLICE_REL_L2}) | launches '
+        f'(attention, int8) {launches} | quantization against bf16: w8a8 '
+        f'{quant_rel:.3e}, weight-only int8 {wo_rel:.3e}')
+    return quant_rel
+
+
+def int8_image(pipe, embeds, latents, lat_bf16, want):
+    """A cold then a counted warm image of the quantized ``pipe`` (counts
+    set to 0 just before), checked against ``want`` launches; then the
+    latents alone and a decode. Returns the numbers of one mode."""
+    attn.LAUNCHES = i8.LAUNCHES = 0
+    first, t_cold = timed_call(pipe, embeds, latents, output_type='pt')
+    torch.cuda.reset_peak_memory_stats()
+    attn.LAUNCHES = i8.LAUNCHES = 0        # the main path's counted run
+    out, t_e2e = timed_call(pipe, embeds, latents, output_type='pt')
+    launches = dict(attention=attn.LAUNCHES, int8=i8.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches != want:
+        raise AssertionError(f'launches {launches}, want {want}')
+    img = out['images']
+    check_image(img)
+    rerun = (first['images'] - img).abs().max().item()
+    if rerun != 0.0:
+        raise AssertionError(f'two runs differ by {rerun:.3e}')
+    lat, t_dit = timed_call(pipe, embeds, latents, output_type='latent')
+    lat = lat['latents']
+    rel = rel_l2(lat, lat_bf16)
+    if not rel <= INT8_IMAGE_REL_L2:
+        raise AssertionError(f'latents rel L2 against bf16 {rel:.3e} > '
+                             f'{INT8_IMAGE_REL_L2}')
+    return dict(launches=launches, cold_s=t_cold, warm_s=t_e2e, dit_s=t_dit,
+                decode_s=timed_decode(pipe.vae, lat), peak_gib=peak_gib,
+                rel_l2=rel, range=(img.min().item(), img.max().item()))
+
+
+def captured_attention(pipe, embeds, latents, calls):
+    """q, k, v of the attention calls numbered ``calls`` (in order) of the
+    first DiT call of one image, copied by a spy on ``layers.attention``."""
+    seen, kept = itertools.count(), []
+
+    def spy(q, k, v, mask=None, sp=None):
+        if next(seen) in calls:
+            kept.append(tuple(t.clone() for t in (q, k, v)))
+        return attention(q, k, v, mask=mask, sp=sp)
+    attention = layers.attention
+    with mock.patch.object(layers, 'attention', spy):
+        pipe(prompt_embeds=embeds, latents=latents, output_type='latent')
+    return kept
+
+
+def phase_w8a8_full(pipe, embeds, latents, lat_bf16, t_bf16):
+    resident_bf16 = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    n_int8 = pipe.quantize_int8(act_quant=True)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident_gib = torch.cuda.memory_allocated() / 2 ** 30
+    n_joint = FLUX_12B['num_layers']
+    n_single = FLUX_12B['num_single_layers']
+    want_layers = (INT8_OUTSIDE_BLOCKS + INT8_PER_JOINT * n_joint
+                   + INT8_PER_SINGLE * n_single)
+    if n_int8 != want_layers or int8_layers(pipe.transformer,
+                                            True) != want_layers:
+        raise AssertionError(f'{n_int8} int8 layers, want {want_layers}')
+    n_attn = 2 * (n_joint + n_single)
+    w8a8 = int8_image(pipe, embeds, latents, lat_bf16,
+                      dict(attention=n_attn, int8=2 * n_int8))
+    # the first joint and the first single block of the first DiT call
+    captured = captured_attention(pipe, embeds, latents, (0, n_joint))
+    wall, busy, by_name = profile_split(
+        lambda: pipe(prompt_embeds=embeds, latents=latents, output_type='pt'))
+    total = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    int8_layers(pipe.transformer, act_quant=False)
+    weight_only = int8_image(pipe, embeds, latents, lat_bf16,
+                             dict(attention=n_attn, int8=0))
+    log(f'phase 21 FLUX-12B int8 (phase 6 model quantized in place with '
+        f'quantize_int8(act_quant=True)): ok | {n_int8} int8 layers in '
+        f'{t_quant:.1f} s, resident {resident_gib:.2f} GiB (bf16 '
+        f'{resident_bf16:.2f} GiB) | ' + ' ; '.join(
+            f'{name}: image finite, range [{r["range"][0]:.3f}, '
+            f'{r["range"][1]:.3f}], two runs bitwise equal, launches '
+            f'{r["launches"]}, cold run {r["cold_s"]:.3f} s, warm per image '
+            f'{r["warm_s"]:.4f} s: transformer + integration '
+            f'{r["dit_s"]:.4f} s, decode {r["decode_s"]:.4f} s (bf16 phase 6: '
+            f'{t_bf16:.4f} s), peak memory {r["peak_gib"]:.2f} GiB, latents '
+            f'rel L2 against bf16 {r["rel_l2"]:.3e} (bound '
+            f'{INT8_IMAGE_REL_L2})'
+            for name, r in (('w8a8', w8a8), ('weight-only int8',
+                                               weight_only))))
+    log(f'phase 21 profile (one warm w8a8 image): wall {wall:.4f} s, device '
+        f'busy {busy:.4f} s, idle share {1 - busy / wall:.4f} | by family: '
+        + ' ; '.join(f'{f} {ms:.2f} ms {100 * ms / total:.1f}% x{calls}'
+                     for f, (ms, calls, _) in sorted(
+                         split_families(by_name).items(),
+                         key=lambda kv: -kv[1][0]))
+        + ' | by name: ' + ' ; '.join(
+            f'{ms:.2f} ms x{calls} {name[:70]}' for name, (ms, calls) in top))
+    return captured
+
+
+def k7_readings(got, want):
+    """max |d| of ``got`` against the plain version ``want``, how far the
+    worst element lies past K7_ATOL + K7_RTOL |want| (> 0: refused), and
+    the relative L2."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    over = (d - K7_ATOL - K7_RTOL * want.abs()).max().item()
+    return d.max().item(), over, rel_l2(got, want)
+
+
+def k7_check(name, q, k, v, kv_valid=None):
+    """K7 against its plain version on one case (and a bitwise repeat);
+    raises past a limit; returns (max |d|, rel L2, O)."""
+    out = fi8.flash_attention_int8(q, k, v, kv_valid)
+    again = fi8.flash_attention_int8(q, k, v, kv_valid)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(out).all() and torch.equal(out, again)):
+        raise AssertionError(f'K7 {name}: non-finite or not repeatable')
+    err, over, rel = k7_readings(
+        out, fi8.flash_attention_int8_ref(q, k, v, kv_valid))
+    if over > 0 or not rel <= K7_REL_L2:
+        raise AssertionError(f'K7 {name}: max|d| {err:.3e} ({over:+.2e} past '
+                             f'{K7_ATOL} + {K7_RTOL:.4g} |ref|), rel L2 '
+                             f'{rel:.3e} (bound {K7_REL_L2})')
+    return err, rel, out
+
+
+def planted_k7_faults(q, k, v):
+    """Two faults the kernel could make, on sound inputs: the k scales
+    dropped, and int8 key rows 0-7 and 8-15 swapped in the first tile (what
+    rescaling an accumulator by another column's scale does). Each must
+    break both limits. Returns their readings."""
+    qq, qs, kq, ks = fi8.quantize_qk(q, k)
+    ref = fi8.flash_attention_int8_ref(q, k, v)
+    swap = torch.cat([torch.arange(8, 16), torch.arange(8)]).to(q.device)
+    kq_bad = kq.clone()
+    kq_bad[:, :16] = kq[:, swap]
+    parts = []
+    for name, (k_i8, k_scale) in {
+            'k scales dropped': (kq, torch.ones_like(ks)),
+            'int8 key rows swapped in one tile': (kq_bad, ks)}.items():
+        bad = fi8.launch(qq, qs, k_i8, k_scale, v, None, q.shape[-1] ** -0.5,
+                         q.dtype)
+        err, over, rel = k7_readings(bad, ref)
+        if not (over > 0 and rel > K7_REL_L2):
+            raise AssertionError(f'K7 planted fault "{name}" passes a limit: '
+                                 f'max|d| {err:.3e} ({over:+.2e}), rel L2 '
+                                 f'{rel:.3e}')
+        parts.append(f'{name}: max|d| {err:.3e}, rel L2 {rel:.3e}')
+    return parts
+
+
+def cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm())).item()
+
+
+def phase_k7_vs_plain(captured):
+    g = torch.Generator(device='cuda').manual_seed(SEED + 22)
+    b, s, h, _ = FLUX_SHAPE
+
+    def qkv(shape):
+        return [torch.randn(shape, generator=g, device='cuda',
+                            dtype=torch.bfloat16) for _ in range(3)]
+
+    def valid(n, lengths):
+        return torch.arange(n, device='cuda')[None, :] < torch.tensor(
+            lengths, device='cuda')[:, None]
+    flux = qkv(FLUX_SHAPE)
+    jax_shape = qkv((2, 512, 3, 128))
+    cases = [('flux', flux, None),
+             ('masked', flux, valid(s, (QWEN_VALID_KEYS,))),
+             ('keyless row', jax_shape, valid(512, (0, 512))),
+             ('jax test shape', jax_shape, None),
+             ('jax test shape masked', jax_shape, valid(512, (256, 448))),
+             ('ragged', qkv((2, 1000, 4, 128)), valid(1000, (900, 1000)))]
+    worst, parts = 0.0, []
+    for name, (q, k, v), kv_valid in cases:
+        err, rel, out = k7_check(name, q, k, v, kv_valid)
+        if name == 'keyless row':
+            mean = v[0].float().mean(0).expand_as(v[0]).to(v.dtype)
+            if (out[0].float() - mean.float()).abs().max() > K7_ATOL:
+                raise AssertionError('K7: a keyless row is not the mean of v')
+        worst = max(worst, err)
+        parts.append(f'{name} max|d| {err:.3e} rel L2 {rel:.3e}')
+    fi8.LAUNCHES = 0                        # the probe of the w8a8 image
+    probe = []
+    for name, (q, k, v) in zip(('joint block 0', 'single block 0'),
+                               captured):
+        err, rel, out = k7_check(name, q, k, v)
+        cos = cosine(out, attn.flash_attention_fwd(q, k, v))
+        if not cos > K7_COSINE:
+            raise AssertionError(f'K7 {name}: cosine against K1 {cos:.6f}')
+        worst = max(worst, err)
+        probe.append(f'{name} max|d| {err:.3e} rel L2 {rel:.3e}, cosine '
+                     f'against K1 {cos:.6f}')
+    launches = fi8.LAUNCHES // 2            # each case runs twice
+    faults = planted_k7_faults(*flux) + planted_k7_faults(*jax_shape)
+    q, k, v = flux
+    qq, qs, kq, ks = fi8.quantize_qk(q, k)
+    sm = q.shape[-1] ** -0.5
+    ms = cuda_ms(lambda: fi8.launch(qq, qs, kq, ks, v, None, sm, q.dtype), 20)
+    wrapper_ms = cuda_ms(lambda: fi8.flash_attention_int8(q, k, v), 20)
+    plain_ms = cuda_ms(lambda: fi8.flash_attention_int8_ref(q, k, v), 3)
+    k1_ms = cuda_ms(lambda: attn.flash_attention_fwd(q, k, v), 20)
+    with torch.inference_mode():
+        sdpa_ms = cuda_ms(lambda: sdpa(q, k, v), 20)
+    bound_ms, bound_by = k7_bound(b, s, h)
+    log(f'phase 22 int8-QK^T attention kernel (K7) vs plain: ok | '
+        f'{" ; ".join(parts)} | on the w8a8 image ({launches} probe '
+        f'launches): {" ; ".join(probe)} | limits |d| <= {K7_ATOL} + '
+        f'{K7_RTOL:.4g} |ref|, rel L2 {K7_REL_L2}, cosine {K7_COSINE}; two '
+        f'runs bitwise equal, the keyless row the mean of v | planted faults '
+        f'refused by both limits (FLUX shape, then B2 S512 H3): '
+        f'{" ; ".join(faults)} | FLUX shape B{b} S{s} H{h} D128: kernel '
+        f'{ms:.4f} ms (with the quantization pass {wrapper_ms:.4f} ms), '
+        f'plain {plain_ms:.4f} ms, K1 {k1_ms:.4f} ms, SDPA bf16 '
+        f'{sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, '
+        f'{100 * bound_ms / ms:.1f}% of it)')
+    return worst, launches, dict(ms=ms, wrapper_ms=wrapper_ms,
+                                 plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, k1_ms=k1_ms,
+                                 sdpa_ms=sdpa_ms)
 
 
 def spied_call(pipe, embeds, latents, output_type):
@@ -1853,13 +2255,19 @@ def main():
     phase_build()
     attn_err, attn_timed = phase_kernel_vs_plain()
     w4a8_err, w4a8_timed = phase_w4a8_vs_plain()
+    phase_int8_vs_plain()
     phase_reduced_slice()
+    phase_w8a8_reduced()
+    gc.collect()
     torch.cuda.empty_cache()
     flux_launches, flux_run = phase_full_slice()
     ring_launches = phase_full_local_ring(*flux_run)
+    captured = phase_w8a8_full(*flux_run)
     del flux_run
     gc.collect()                            # the FLUX model goes first
     torch.cuda.empty_cache()
+    k7_err, k7_launches, k7_timed = phase_k7_vs_plain(captured)
+    del captured
     phase_qwen_reduced()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1939,7 +2347,19 @@ def main():
          'plain_ms': k4_timed['plain_ms'], 'bound_ms': k4_timed['bound_ms'],
          'bound_by': k4_timed['bound_by'],
          'library_ms': k4_timed['library_ms'],
-         'shape': k4_timed['shape']}]}))
+         'shape': k4_timed['shape']},
+        {'name': 'flash_int8', 'route': 'cuda',
+         'source': 'arcflow_tpu_torch/csrc/flash_int8.cu',
+         'replaces': 'arcflow_tpu/ops/flash_int8.py:93',
+         'launches': k7_launches,
+         'launches_by_path': {'w8a8_flux_probe': k7_launches},
+         'max_abs_err': k7_err, 'ms': k7_timed['ms'],
+         'plain_ms': k7_timed['plain_ms'], 'bound_ms': k7_timed['bound_ms'],
+         'bound_by': k7_timed['bound_by'], 'library_ms': None,
+         'wrapper_ms': k7_timed['wrapper_ms'],
+         'reference_ms': {'attention_fwd': k7_timed['k1_ms'],
+                          'sdpa_bf16': k7_timed['sdpa_ms']},
+         'shape': list(FLUX_SHAPE)}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

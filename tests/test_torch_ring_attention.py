@@ -13,6 +13,7 @@ same sums, over fewer keys).
 """
 
 import importlib
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -224,26 +225,40 @@ def test_autograd_is_refused():
         ring_attention(q, k, v, None, LocalRing(2))
 
 
-def test_arcflux_under_local_ring_matches_jax():
-    """The tiny ArcFlux of tests/test_ring_attention.py (guidance embeds on,
-    as the port's FLUX always has them) with every attention on
-    ``LocalRing(4)`` against the unsharded JAX forward, at the JAX ring
+def _local_ring_model_case(family, size, n_txt):
+    """The tiny model of ``family`` with every attention on
+    ``LocalRing(size)`` and ``n_txt`` text tokens (Qwen's first sample
+    masks all but 3) against the unsharded JAX forward, at the JAX ring
     test's tolerance (rtol 2e-3, atol 2e-4)."""
     from arcflow_tpu.models import ArcFluxTransformer2DModel as JArcFlux
-    cfg = dict(in_channels=16, num_layers=2, num_single_layers=2,
-               attention_head_dim=16, num_attention_heads=4,
-               joint_attention_dim=32, pooled_projection_dim=16,
+    from arcflow_tpu.models import ArcQwenImageTransformer2DModel as JArcQwen
+    from arcflow_tpu_torch.models import \
+        ArcQwenImageTransformer2DModel as TArcQwen
+    cfg = dict(in_channels=16, num_layers=2, attention_head_dim=16,
+               num_attention_heads=4, joint_attention_dim=32,
                axes_dims_rope=(4, 6, 6), num_gaussians=4)
     rng = np.random.default_rng(5)
     inputs = dict(
         hidden_states=rng.standard_normal((2, 8, 8, 4)).astype(np.float32),
         t=np.full((2,), 0.7, np.float32),
-        encoder_hidden_states=rng.standard_normal((2, 8, 32)).astype(
-            np.float32),
-        pooled_projections=rng.standard_normal((2, 16)).astype(np.float32),
-        guidance=np.full((2,), 3.5, np.float32))
-    jm = JArcFlux(guidance_embeds=True, patch_size=2, checkpointing=False,
-                  dtype=jnp.float32, **cfg)
+        encoder_hidden_states=rng.standard_normal((2, n_txt, 32)).astype(
+            np.float32))
+    if family == 'flux':
+        cfg.update(num_single_layers=2, pooled_projection_dim=16)
+        inputs.update(
+            pooled_projections=rng.standard_normal((2, 16)).astype(
+                np.float32), guidance=np.full((2,), 3.5, np.float32))
+        jm = JArcFlux(guidance_embeds=True, patch_size=2,
+                      checkpointing=False, dtype=jnp.float32, **cfg)
+        tm = TArcFlux(dtype=torch.float32, **cfg)
+    else:
+        cfg.update(max_text_len=16, lora_rank=4)
+        mask = np.ones((2, n_txt), np.int32)
+        mask[0, 3:] = 0
+        inputs.update(encoder_hidden_states_mask=mask)
+        jm = JArcQwen(patch_size=2, checkpointing=False, dtype=jnp.float32,
+                      **cfg)
+        tm = TArcQwen(dtype=torch.float32, **cfg)
     j_in = {n: jnp.asarray(x) for n, x in inputs.items()}
     params = jax.tree.map(
         lambda x: np.asarray(x) + 0.05 * rng.standard_normal(
@@ -251,13 +266,44 @@ def test_arcflux_under_local_ring_matches_jax():
         jax.device_get(jax.jit(jm.init)(jax.random.PRNGKey(0),
                                         **j_in)['params']))
     want = jax.jit(jm.apply)({'params': params}, **j_in)
-    tm = TArcFlux(dtype=torch.float32, **cfg)
     tm.load_state_dict(jax_params_to_torch(params), strict=True)
-    set_sequence_parallel(tm, LocalRing(4))
+    set_sequence_parallel(tm, LocalRing(size))
     before = t_hop.LAUNCHES
-    with torch.no_grad():
+    calls = []
+
+    def spy(q, k, v, kv_valid, ring, **kw):
+        calls.append(kv_valid)
+        return ring_attention(q, k, v, kv_valid, ring, **kw)
+    with torch.no_grad(), mock.patch.object(t_layers, 'ring_attention', spy):
         got = tm(**{n: torch.from_numpy(x) for n, x in inputs.items()})
     assert t_hop.LAUNCHES == before         # CPU: the plain version
     for key in ('means', 'logweights', 'loggammas'):
+        assert got[key].shape == want[key].shape
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    rtol=2e-3, atol=2e-4, err_msg=key)
+    return calls
+
+
+def test_arcflux_under_local_ring_matches_jax():
+    """The tiny ArcFlux of tests/test_ring_attention.py (guidance embeds on,
+    as the port's FLUX always has them) with every attention on
+    ``LocalRing(4)`` against the unsharded JAX forward; 8 text and 16 image
+    tokens split evenly, so nothing is padded and no attention is
+    masked."""
+    calls = _local_ring_model_case('flux', 4, 8)
+    assert calls and all(m is None for m in calls)
+
+
+@pytest.mark.parametrize('family', ['flux', 'qwen'])
+@pytest.mark.parametrize('size,n_txt', [(3, 8), (4, 7)])
+def test_streams_that_sp_does_not_divide_match_jax(family, size, n_txt):
+    """sp = 3 divides neither the 8 text nor the 16 image tokens, sp = 4
+    not 7 text tokens: the trunk pads each such stream with tokens that are
+    masked as keys and dropped before the heads, and the output is the
+    unsharded JAX forward's."""
+    calls = _local_ring_model_case(family, size, n_txt)
+    n_img = 16
+    padded = -n_txt % size + n_txt + -n_img % size + n_img
+    assert calls and all(m is not None and m.shape == (2, padded)
+                         for m in calls)
+    assert all(int(m[1].sum()) == n_txt + n_img for m in calls)

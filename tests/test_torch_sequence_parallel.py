@@ -5,7 +5,10 @@ against the JAX package's unsharded model and pipeline.
 The tiny ArcFlux of tests/test_ring_attention.py (guidance embeds on, as
 the port's FLUX always has them) and a tiny ArcQwen whose first sample's
 text mask pads 5 of 8 tokens (so under ring whole text shards of that row
-are padded blocks) get jittered JAX params, carried over to the port. JAX
+are padded blocks) get jittered JAX params, carried over to the port. The
+``_t7`` families give the same models 7 text tokens, which 4 ranks do not
+divide: the trunks pad the stream with masked tokens (as the 990-token Qwen
+prompt at sp = 4 needs), and the result is still the unsharded one. JAX
 runs only in this process: the weights and the inputs go to the ranks as
 files in a temporary directory, and the ranks write their outputs back.
 The rank function lives here at module level and the module imports JAX
@@ -51,6 +54,8 @@ QWEN_CFG = dict(in_channels=16, num_layers=2, attention_head_dim=16,
                 lora_rank=4)
 FAMILIES = {'flux': (TArcFlux, ArcFluxPipeline, FLUX_CFG),
             'qwen': (TArcQwen, ArcQwenImagePipeline, QWEN_CFG)}
+FAMILIES.update({f'{f}_t7': v for f, v in FAMILIES.items()})
+TEXT_LEN = {f: 7 if f.endswith('_t7') else 8 for f in FAMILIES}
 PIPE_CFG = dict(flux=dict(shift=3.2, nfe=2, temperature=0.7,
                           guidance_scale=3.5),
                 qwen=dict(shift=3.1, nfe=2, temperature=0.7))
@@ -67,10 +72,11 @@ def _rank_main(tmp):
     inputs = torch.load(os.path.join(tmp, 'inputs.pt'))
     results = {}
     for family, (cls, pipe_cls, cfg) in FAMILIES.items():
+        kind = family.split('_')[0]
         model = cls(dtype=torch.float32, **cfg)
-        model.load_state_dict(torch.load(os.path.join(tmp, f'{family}.pt')),
+        model.load_state_dict(torch.load(os.path.join(tmp, f'{kind}.pt')),
                               strict=True)
-        pipe = pipe_cls(model, **PIPE_CFG[family])
+        pipe = pipe_cls(model, **PIPE_CFG[kind])
         fwd_in, embeds, latents = (inputs[family][n] for n in
                                    ('forward', 'embeds', 'latents'))
         for mode in MODES:
@@ -119,34 +125,38 @@ def sp_run(tmp_path_factory):
     rng = np.random.default_rng(5)
     f32 = np.float32
     latents = rng.standard_normal((2, 8, 8, 4)).astype(f32)
-    mask = np.ones((2, 8), np.int32)
-    mask[0, 3:] = 0
-    embeds = dict(
-        flux=dict(encoder_hidden_states=rng.standard_normal(
-            (2, 8, 32)).astype(f32),
-            pooled_projections=rng.standard_normal((2, 16)).astype(f32)),
-        qwen=dict(encoder_hidden_states=rng.standard_normal(
-            (2, 8, 32)).astype(f32), encoder_hidden_states_mask=mask))
-    forward = dict(
-        flux=dict(hidden_states=latents, t=np.full((2,), 0.7, f32),
-                  guidance=np.full((2,), 3.5, f32), **embeds['flux']),
-        qwen=dict(hidden_states=latents, t=np.full((2,), 0.7, f32),
-                  **embeds['qwen']))
+    embeds, forward = {}, {}
+    for family, n_txt in TEXT_LEN.items():
+        mask = np.ones((2, n_txt), np.int32)
+        mask[0, 3:] = 0
+        txt = rng.standard_normal((2, n_txt, 32)).astype(f32)
+        embeds[family] = dict(
+            encoder_hidden_states=txt,
+            pooled_projections=rng.standard_normal((2, 16)).astype(f32)) \
+            if family.startswith('flux') else \
+            dict(encoder_hidden_states=txt, encoder_hidden_states_mask=mask)
+        forward[family] = dict(hidden_states=latents,
+                               t=np.full((2,), 0.7, f32), **embeds[family])
+        if family.startswith('flux'):
+            forward[family]['guidance'] = np.full((2,), 3.5, f32)
     j_models = dict(
         flux=(JArcFlux(guidance_embeds=True, patch_size=2,
                        checkpointing=False, dtype=jnp.float32,
                        **FLUX_CFG), jpipe.ArcFluxPipeline),
         qwen=(JArcQwen(patch_size=2, checkpointing=False, dtype=jnp.float32,
                        **QWEN_CFG), jpipe.ArcQwenImagePipeline))
-    want = {}
-    for family, (jm, jpipe_cls) in j_models.items():
+    want, params = {}, {}
+    for family in FAMILIES:
+        kind = family.split('_')[0]
+        jm, jpipe_cls = j_models[kind]
         j_fwd = {n: jnp.asarray(x) for n, x in forward[family].items()}
-        params = _jitter(jax.jit(jm.init)(jax.random.PRNGKey(0),
-                                          **j_fwd)['params'], rng)
-        torch.save(jax_params_to_torch(params),
-                   os.path.join(tmp, f'{family}.pt'))
-        out = jax.jit(jm.apply)({'params': params}, **j_fwd)
-        jp = jpipe_cls(jm, params, **PIPE_CFG[family])
+        if kind not in params:
+            params[kind] = _jitter(jax.jit(jm.init)(
+                jax.random.PRNGKey(0), **j_fwd)['params'], rng)
+            torch.save(jax_params_to_torch(params[kind]),
+                       os.path.join(tmp, f'{kind}.pt'))
+        out = jax.jit(jm.apply)({'params': params[kind]}, **j_fwd)
+        jp = jpipe_cls(jm, params[kind], **PIPE_CFG[kind])
         lat = jp(prompt_embeds={n: jnp.asarray(x) for n, x in
                                 embeds[family].items()},
                  latents=jnp.asarray(latents),
@@ -208,6 +218,7 @@ def test_real_ring_shard_equals_local_ring_shard(sp_run, family):
     q, k, v = (torch.cat([c[i] for c in calls], dim=1) for i in range(3))
     mask = None if calls[0][3] is None else \
         torch.cat([c[3] for c in calls], dim=1)
+    # FLUX runs unmasked unless its text stream was padded
     assert (mask is None) == (family == 'flux')
     local = ring_attention(q, k, v, mask, LocalRing(RANKS))
     for r, c in enumerate(calls):
