@@ -1,12 +1,16 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 The sources under ``arcflow_tpu_torch/csrc/*.cu`` expose plain C entry
-points. Each is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all
-started together, and the objects are linked into one shared library under
-``build/arcflow_tpu_torch/`` at the repository root, named by a hash of the
-sources and flags, so a changed source builds anew and an unchanged one is
-loaded as it is. Importing this module needs no
-``nvcc``; only a CUDA launch builds.
+points; ``csrc/*.cuh`` are headers they share (``hopper.cuh``: mbarriers,
+TMA, wgmma). Each source is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects are linked into one
+shared library under ``build/arcflow_tpu_torch/`` at the repository root,
+named by a hash of the sources, headers and flags, so a changed source or
+header builds anew and an unchanged tree is loaded as it is. The TMA tensor
+maps come from libcuda's ``cuTensorMapEncodeTiled``, looked up through
+the runtime's ``cudaGetDriverEntryPointByVersion``, so the link needs no
+``-lcuda``. Importing this module needs no ``nvcc``; only a CUDA launch
+builds.
 """
 
 from __future__ import annotations
@@ -44,9 +48,10 @@ def find_nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob('*.cu')):
+    for src in sorted([*CSRC_DIR.glob('*.cu'), *CSRC_DIR.glob('*.cuh')]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f'libarcflow_kernels-{h.hexdigest()[:16]}.so'
@@ -104,6 +109,8 @@ def load_library() -> ctypes.CDLL:
     lib.arcflow_attention_bwd.argtypes = [_P] * 11 + [_I32] * 3 + [
         ctypes.POINTER(_I64), _I64, _P]
     lib.arcflow_attention_bwd.restype = _I32
+    lib.arcflow_attention_bwd_workspace_bytes.argtypes = [_I32] * 3
+    lib.arcflow_attention_bwd_workspace_bytes.restype = _I64
     lib.arcflow_w4a8_matmul.argtypes = [_P] * 4 + [_I32] * 4 + [_P]
     lib.arcflow_w4a8_matmul.restype = _I32
     lib.arcflow_gm_inverse_cdf.argtypes = [_P] * 7 + [_I32] * 2 + [_I64, _I32] \

@@ -21,7 +21,7 @@ import torch
 # Kernel launches since the count was last set to 0; each wrapper adds one
 # per launch and nothing else touches them except a caller resetting them.
 LAUNCHES = 0            # forward kernel
-BWD_LAUNCHES = 0        # backward (preprocess + dK/dV + dQ kernels)
+BWD_LAUNCHES = 0        # backward (preprocess + main kernel)
 
 HEAD_DIM = 128          # the only D the kernel is compiled for
 
@@ -65,7 +65,7 @@ def _check_cuda_args(q, k, v, kv_valid, dtypes=(torch.bfloat16,), **more):
                              f'{tuple(q.shape)}')
         if t.stride(-1) != 1:
             raise ValueError(f'{name} needs a contiguous last dim')
-        # 16-byte cp.async rows: base and every stride 8-element aligned
+        # TMA rows: base and every stride 16-byte (8-element) aligned
         if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1]):
             raise ValueError(f'{name} needs 16-byte aligned rows, got '
                              f'strides {t.stride()}')
@@ -87,21 +87,66 @@ def _check_cuda_args(q, k, v, kv_valid, dtypes=(torch.bfloat16,), **more):
                              'contiguous last dim')
 
 
+def _broadcast(t: torch.Tensor) -> bool:
+    """Whether ``t`` has a zero stride on a dimension of more than one
+    element (a broadcast view)."""
+    return any(st == 0 and n > 1 for st, n in zip(t.stride(), t.shape))
+
+
+def _check_no_broadcast(**tensors):
+    """Refuse broadcast views: the kernels' TMA maps step through memory by
+    the strides, and the driver may refuse a zero one."""
+    for name, t in tensors.items():
+        if _broadcast(t):
+            raise ValueError(f'{name} is a broadcast view (strides '
+                             f'{t.stride()}); make it contiguous')
+
+
+def _kernel_dout(do: torch.Tensor) -> torch.Tensor:
+    """dO as the backward kernels read it: as it lies where its TMA map can
+    read it (a contiguous last dim, 16-byte aligned base and strides, no
+    broadcast), else a contiguous copy. Autograd hands over dO in whatever
+    layout the graph gives it, so the wrapper adapts it where it refuses
+    q, k, v and o."""
+    if (do.stride(-1) == 1 and do.data_ptr() % 16 == 0
+            and not any(st % 8 for st in do.stride()[:-1])
+            and not _broadcast(do)):
+        return do
+    return do.contiguous()
+
+
+# An entry point's code for a TMA map that the driver refused
+# (csrc/hopper.cuh:kTmaRefused): this base + (pointer argument << 12) + the
+# CUresult; smaller codes are CUDA's own.
+_TMA_REFUSED = 1 << 20
+
+
+def _launch_error(lib, err: int, args) -> str:
+    """The message of an entry point's error code ``err``; ``args`` names
+    its pointer arguments in order."""
+    if err >= _TMA_REFUSED:
+        arg, code = divmod(err - _TMA_REFUSED, 1 << 12)
+        return (f'the driver refused the TMA map of {args[arg]} '
+                f'(CUresult {code})')
+    return lib.arcflow_cuda_error_string(err).decode()
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_valid: Optional[torch.Tensor] = None,
                         return_lse: bool = False):
     """Attention forward on (B, S, H, D): the Hopper kernel on CUDA tensors.
 
-    CUDA tensors must be bf16 with D = 128, a contiguous last dim and
-    16-byte aligned rows; anything else raises. CPU tensors go to
-    ``attention_ref``. Returns O (B, S, H, D) in q's dtype and, with
-    ``return_lse``, the LSE (B, H, S) fp32.
+    CUDA tensors must be bf16 with D = 128, a contiguous last dim, 16-byte
+    aligned rows and no broadcast dimension; anything else raises. CPU
+    tensors go to ``attention_ref``. Returns O (B, S, H, D) in q's dtype
+    and, with ``return_lse``, the LSE (B, H, S) fp32.
     """
     if q.device.type == 'cpu':
         return attention_ref(q, k, v, kv_valid, return_lse)
     if q.device.type != 'cuda':
         raise ValueError(f'no attention kernel for device {q.device}')
     _check_cuda_args(q, k, v, kv_valid)
+    _check_no_broadcast(q=q, k=k, v=v)
     from ._build import load_library
     lib = load_library()
     b, s, h, d = q.shape
@@ -120,7 +165,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask_sb, stream)
     if err != 0:
         raise RuntimeError('attention kernel launch failed: '
-                           + lib.arcflow_cuda_error_string(err).decode())
+                           + _launch_error(lib, err, ('q', 'k', 'v')))
     global LAUNCHES
     LAUNCHES += 1
     return (out, lse) if return_lse else out
@@ -160,10 +205,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                         kv_valid: Optional[torch.Tensor] = None):
     """Attention backward on (B, S, H, D): the Hopper kernels on CUDA
-    tensors (preprocess, dK/dV, dQ; one count in ``BWD_LAUNCHES``).
+    tensors (preprocess and main kernel; one count in ``BWD_LAUNCHES``).
 
     q, k, v and o are read through their strides and held to the forward's
-    rules; ``do`` is made contiguous first (autograd may hand over a view).
+    rules; so is ``do``, which is copied only where the kernel cannot read
+    it as it lies (``_kernel_dout``).
     ``lse`` is the forward's (B, H, S) fp32 output. CPU tensors go to
     ``attention_bwd_ref``. Returns (dq, dk, dv), contiguous, bf16.
     """
@@ -171,8 +217,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_bwd_ref(q, k, v, o, do, lse, kv_valid)
     if q.device.type != 'cuda':
         raise ValueError(f'no attention kernel for device {q.device}')
-    do = do.contiguous()
+    do = _kernel_dout(do)
     _check_cuda_args(q, k, v, kv_valid, o=o, dout=do)
+    _check_no_broadcast(q=q, k=k, v=v, o=o)
     b, s, h, d = q.shape
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s)
             or not lse.is_contiguous() or lse.device != q.device):
@@ -183,7 +230,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = load_library()
     dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    # fp32 workspace: padded LSE and delta rows, dQ tile counters, dQ scratch
+    work = torch.empty(lib.arcflow_attention_bwd_workspace_bytes(b, s, h) // 4,
+                       dtype=torch.float32, device=q.device)
     mask_ptr, mask_sb = None, 0
     if kv_valid is not None:
         mask = kv_valid.view(torch.uint8) if kv_valid.dtype == torch.bool \
@@ -194,11 +243,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.arcflow_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), mask_ptr, delta.data_ptr(), dq.data_ptr(),
+        lse.data_ptr(), mask_ptr, work.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, s, h, strides, mask_sb, stream)
     if err != 0:
         raise RuntimeError('attention backward kernel launch failed: '
-                           + lib.arcflow_cuda_error_string(err).decode())
+                           + _launch_error(lib, err, ('q', 'k', 'v', 'o',
+                                                      'dout')))
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
     return dq, dk, dv

@@ -11,7 +11,8 @@ line each, and any failure exits non-zero:
    int8-QK^T attention), one ``nvcc`` per source, all in parallel;
 3. attention kernel vs plain: against ``attention_ref`` at the FLUX shape
    (B1 S4608 H24 D128), a ragged S and key-padded cases, and both timed at
-   the FLUX shape;
+   the FLUX shape beside the kernel's registers and spills; a planted fault
+   (one K tile's rows swapped) must break the limit;
 4. w4a8 kernel vs plain: against ``w4a8_matmul_ref`` at every (M, K, N) of
    the Qwen-Image int4 layers, a ragged M, groups of 32 and 64 and weights
    of -8; both timed at the two largest shapes;
@@ -39,7 +40,8 @@ line each, and any failure exits non-zero:
    ``attention_bwd_ref`` at the FLUX shape, S = 777 and 1000, key-padded
    cases and a batch row with no valid key; kernel, plain version and the
    backward of one ``scaled_dot_product_attention`` call timed at the FLUX
-   shape;
+   shape beside the kernel's registers and spills; a planted fault (the dQ
+   partial of one key tile dropped) must break the limit;
 10. FLUX training at reduced depth (1 joint + 1 single block) and full
     width, bf16: one ``LatentDiffusionTextImage.loss`` + backward through
     both attention kernels, then the same weights and draws through the
@@ -447,6 +449,21 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def ptxas_usage(kernel):
+    """Registers and spills that ``-Xptxas -v`` reported for the kernel
+    whose mangled name holds ``kernel``, from the build log."""
+    log = _build.library_path().with_suffix('.log').read_text().splitlines()
+    usage, current = [], None
+    for line in log:
+        if 'Compiling entry function' in line:
+            current = line
+        elif current and kernel in current and (
+                'spill' in line or 'registers' in line):
+            usage.append(line.split(':')[-1].strip() if 'registers' in line
+                         else line.strip())
+    return '; '.join(usage) or 'not in the build log'
+
+
 def phase_facts():
     if not torch.cuda.is_available():
         raise SystemExit('FAIL facts: torch.cuda.is_available() is false')
@@ -468,6 +485,24 @@ def phase_build():
              .splitlines() if 'registers' in ln or 'spill' in ln]
     log(f'phase 2 build: ok in {time.perf_counter() - t0:.1f} s -> '
         f'{lib.name} | ptxas: {" / ".join(ptxas)}')
+
+
+def planted_k1_fault(q, k, v, ref):
+    """Planted fault: key rows 128-191 and 192-255 of K swapped, what a K
+    tile landing out of place in the ring does. The kernel on it must break
+    phase 3's limit against the sound plain O ``ref``. Returns the
+    reading."""
+    swap = torch.cat([torch.arange(192, 256), torch.arange(128, 192)]).to(
+        k.device)
+    k_bad = k.clone()
+    k_bad[:, 128:256] = k[:, swap]
+    bad = attn.flash_attention_fwd(q, k_bad, v).float()
+    err = (bad - ref.float()).abs()
+    if not bool((err > O_TOL + O_TOL * ref.float().abs()).any()):
+        raise AssertionError(f'K1 planted fault (K tile rows swapped) passes '
+                             f'the O limit: max|dO| {err.max().item():.3e}')
+    return (f'planted fault, K rows 128-191 and 192-255 swapped: max|dO| '
+            f'{err.max().item():.3e}, refused')
 
 
 def phase_kernel_vs_plain():
@@ -503,6 +538,8 @@ def phase_kernel_vs_plain():
                      f'max|dLSE| {lse_err:.3e}')
         if name == 'flux':
             flux_qkv = (q, k, v)
+        if name == 'ragged':
+            fault = planted_k1_fault(q, k, v, ref)
     q, k, v = flux_qkv
     b, s, h, d = FLUX_SHAPE
     masked = torch.arange(s, device='cuda')[None, :] < QWEN_VALID_KEYS
@@ -522,7 +559,8 @@ def phase_kernel_vs_plain():
             f' kernel {t["ms"]:.4f} ms, plain fp32 {t["plain_ms"]:.4f} ms, '
             f'SDPA {t["library_ms"]:.4f} ms, bound {t["bound_ms"]:.4f} ms '
             f'({t["bound_by"]}, {100 * t["bound_ms"] / t["ms"]:.1f}% of it)'
-            for name, t in timed.items()))
+            for name, t in timed.items())
+        + f' | ptxas: {ptxas_usage("attention_fwd_kernel")} | {fault}')
     return worst, timed
 
 
@@ -888,6 +926,23 @@ def rel_l2(a, b):
     return ((a.float() - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
+def planted_k3_fault(q, k, v, o, do, lse, dq_ref):
+    """Planted fault: the dQ partial of key tile 1 (keys 128-255) dropped,
+    by running the kernels with those keys masked against the sound
+    forward's O and LSE. The resulting dq must break phase 9's limit
+    against the plain ``dq_ref``. Returns the reading."""
+    s = q.shape[1]
+    keep = (torch.arange(s, device=q.device) // 128 != 1)[None].expand(
+        q.shape[0], s)
+    dq = attn.flash_attention_bwd(q, k, v, o, do, lse, keep)[0]
+    rel = rel_l2(dq, dq_ref)
+    if rel <= BWD_REL_L2:
+        raise AssertionError(f'K3 planted fault (a dQ partial dropped) passes '
+                             f'the limit: rel L2 {rel:.3e}')
+    return (f'planted fault, the dQ partial of key tile 1 dropped: dq rel L2 '
+            f'{rel:.3e}, refused')
+
+
 def phase_bwd_vs_plain():
     g = torch.Generator(device='cuda').manual_seed(SEED + 6)
     cases = [('flux', FLUX_SHAPE, None), ('s777', (2, 777, 3, 128), None),
@@ -923,6 +978,8 @@ def phase_bwd_vs_plain():
                      + '/'.join(f'{r:.2e}' for r in rels))
         if name == 'flux':
             flux = (q, k, v, o, do, lse)
+        if name == 's1000':
+            fault = planted_k3_fault(q, k, v, o, do, lse, want[0])
         del q, k, v, do, o, lse, got, want
     q, k, v, o, do, lse = flux
     ms = cuda_ms(lambda: attn.flash_attention_bwd(q, k, v, o, do, lse), 10)
@@ -939,7 +996,8 @@ def phase_bwd_vs_plain():
         f'FLUX shape: kernels {ms:.4f} ms ({tflops:.1f} TFLOP/s of the 5 '
         f'needed products), plain fp32 {plain_ms:.4f} ms, SDPA backward '
         f'{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, '
-        f'{100 * bound_ms / ms:.1f}% of it)')
+        f'{100 * bound_ms / ms:.1f}% of it) | ptxas: '
+        f'{ptxas_usage("attention_bwd_kernel")} | {fault}')
     return dict(max_abs_err=worst_abs, max_rel_l2=worst_rel, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by)

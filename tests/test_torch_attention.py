@@ -159,3 +159,30 @@ def test_kernel_argument_checks(bad, match):
     with pytest.raises(ValueError, match=match):
         t_attn._check_cuda_args(args['q'], args['k'], args['v'],
                                 args['kv_valid'])
+
+
+@pytest.mark.parametrize('name', ['q', 'k', 'v'])
+def test_broadcast_views_are_refused(name):
+    """A zero stride on a dimension of more than one element (k shared over
+    heads by ``expand``, say) is refused before any launch: the kernels'
+    TMA maps step through memory by the strides. A dimension of one
+    element may have any stride."""
+    t_attn._check_no_broadcast(**{name: _bf16((1, 64, 1, 128)).expand(
+        1, 64, 1, 128)})
+    with pytest.raises(ValueError, match='broadcast view'):
+        t_attn._check_no_broadcast(**{name: _bf16((1, 64, 1, 128)).expand(
+            1, 64, 2, 128)})
+
+
+def test_launch_error_names_a_refused_tensor_map():
+    """An entry point's code for a TMA map the driver refused names the
+    tensor and the CUresult; any other code is CUDA's own error string."""
+    class Lib:
+        @staticmethod
+        def arcflow_cuda_error_string(code):
+            return f'cuda error {code}'.encode()
+
+    err = t_attn._TMA_REFUSED + (4 << 12) + 1
+    assert t_attn._launch_error(Lib, err, ('q', 'k', 'v', 'o', 'dout')) == \
+        'the driver refused the TMA map of dout (CUresult 1)'
+    assert t_attn._launch_error(Lib, 700, ('q',)) == 'cuda error 700'

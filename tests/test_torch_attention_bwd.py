@@ -182,3 +182,22 @@ def test_backward_argument_checks(bad, match):
     q = _bf16((1, 64, 2, 128))
     with pytest.raises(ValueError, match=match):
         t_attn._check_cuda_args(q, q, q, None, **args)
+
+
+@pytest.mark.parametrize('make,copied', [
+    (lambda: _bf16((1, 2, 64, 128)).transpose(1, 2), False),
+    (lambda: _bf16((1, 64, 2, 256))[..., :128], False),
+    (lambda: _bf16((1, 1, 1, 1)).expand(1, 64, 2, 128), True),
+    (lambda: _bf16((1, 64, 2, 256))[..., ::2], True),
+    (lambda: _bf16((1, 64, 2, 132))[..., :128], True),
+])
+def test_kernel_dout_copies_only_what_the_kernel_cannot_read(make, copied):
+    """The backward wrapper hands dO to the kernel as it lies where its TMA
+    map reads it (a transposed view, a head stride of 2 D) and copies it
+    only where not (the broadcast a sum's backward gives, a strided last
+    dim, rows off 16 bytes); the values stay the same."""
+    do = make()
+    got = t_attn._kernel_dout(do)
+    assert (got is not do) == copied
+    assert torch.equal(got, do)
+    t_attn._check_cuda_args(got, got, got, None, dout=got)

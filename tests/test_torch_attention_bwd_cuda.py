@@ -35,7 +35,7 @@ def _rel(a, b):
     return ((a.float() - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
-def _check(g, b, s, h, lengths=None, strided=False):
+def _check(g, b, s, h, lengths=None, strided=False, strided_do=False):
     if strided:        # q, k, v as views with a head stride of 2 * D
         wide = torch.randn(3, b, s, h, 256, generator=g, device='cuda',
                            dtype=torch.bfloat16)
@@ -50,6 +50,9 @@ def _check(g, b, s, h, lengths=None, strided=False):
     o, lse = t_attn.flash_attention_fwd(q, k, v, kv_valid, return_lse=True)
     do = torch.randn(b, s, h, 128, generator=g, device='cuda',
                      dtype=torch.bfloat16)
+    if strided_do:     # dO as a view with a head stride of 2 * D
+        do = torch.cat([do, torch.zeros_like(do)], dim=-1)[..., :128]
+        assert t_attn._kernel_dout(do) is do     # the kernel reads the view
     before = t_attn.BWD_LAUNCHES
     got = t_attn.flash_attention_bwd(q, k, v, o, do, lse, kv_valid)
     torch.cuda.synchronize()
@@ -119,3 +122,67 @@ def test_autograd_function_launches_both_kernels(cuda):
     want = torch.autograd.grad(ref, (q, k, v), do.float())
     for x, y in zip(got, want):
         assert _rel(x, y) <= REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,s,h,lengths', [(1, 127, 2, None),
+                                           (1, 128, 2, None),
+                                           (1, 129, 2, None),
+                                           (1, 4609, 2, None),
+                                           (3, 200, 48, None),
+                                           (1, 300, 1, None),
+                                           (2, 300, 3, (195, 300)),
+                                           (1, 1000, 2, (900,)),
+                                           (1, 8320, 1, None)])
+def test_backward_tile_edges(cuda, b, s, h, lengths):
+    """The 128-key and 64-query tiles and the ordered dQ sum: S one short
+    of, at and one past a key tile and past 36 key tiles; more (batch, head)
+    pairs than the card has SMs and a single one; a key mask that ends
+    inside a tile; 65 key tiles, walked from staggered starts."""
+    _check(cuda, b, s, h, lengths)
+
+
+@pytest.mark.cuda
+def test_backward_reads_strided_inputs_and_grad(cuda):
+    """q, k, v and dO all as views with a head stride of 2 * D."""
+    _check(cuda, 2, 300, 3, lengths=(250, 300), strided=True,
+           strided_do=True)
+
+
+@pytest.mark.cuda
+def test_backward_past_the_cards_resident_ctas(cuda):
+    """One key tile more per (batch, head) than the card holds backward
+    CTAs at once (one per SM: 231 KB of shared memory each): no staggered
+    starts, the dQ partials summed in key-tile order."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _check(cuda, 1, (sms + 1) * 128 - 5, 1)
+
+@pytest.mark.cuda
+def test_backward_takes_the_broadcast_grad_of_a_sum(cuda):
+    """``out.sum()``'s backward hands the Function a broadcast dO (zero
+    strides), which the wrapper copies; the gradients match autograd
+    through the plain forward."""
+    q, k, v = (torch.randn(1, 300, 2, 128, generator=cuda, device='cuda',
+                           dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    got = torch.autograd.grad(t_attn.flash_attention(q, k, v).sum(),
+                              (q, k, v))
+    ref = t_attn.attention_ref(*(t.float() for t in (q, k, v)))
+    want = torch.autograd.grad(ref.float().sum(), (q, k, v))
+    for x, y in zip(got, want):
+        assert torch.isfinite(x).all() and _rel(x, y) <= REL_L2
+
+
+@pytest.mark.cuda
+def test_broadcast_inputs_are_refused(cuda):
+    """k shared over heads by ``expand`` (a zero head stride) is refused
+    with a clear error by both wrappers, before any launch."""
+    q, v, do = (torch.randn(1, 200, 2, 128, generator=cuda, device='cuda',
+                            dtype=torch.bfloat16) for _ in range(3))
+    k = torch.randn(1, 200, 1, 128, generator=cuda, device='cuda',
+                    dtype=torch.bfloat16).expand(1, 200, 2, 128)
+    o, lse = t_attn.flash_attention_fwd(q, q, v, return_lse=True)
+    with pytest.raises(ValueError, match='broadcast view'):
+        t_attn.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match='broadcast view'):
+        t_attn.flash_attention_bwd(q, k, v, o, do, lse)

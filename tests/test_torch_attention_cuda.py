@@ -79,3 +79,35 @@ def test_kernel_row_without_valid_key_is_zero(cuda):
     kv_valid[0] = False
     out, lse = _check(q, k, v, kv_valid)
     assert torch.all(out[0] == 0) and torch.all(torch.isneginf(lse[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,s,h,lengths', [(1, 127, 2, None),
+                                           (1, 128, 2, None),
+                                           (1, 129, 2, None),
+                                           (1, 4609, 2, None),
+                                           (3, 200, 48, None),
+                                           (1, 300, 1, None),
+                                           (2, 300, 3, (195, 300)),
+                                           (1, 1000, 2, (900,))])
+def test_kernel_tile_edges(cuda, b, s, h, lengths):
+    """The 128-row query and key tiles: S one short of, at and one past a
+    tile and past 36 tiles; more (batch, head) pairs than the card has SMs
+    and a single one; a key mask that ends inside a tile."""
+    q, k, v = _qkv(cuda, b, s, h)
+    kv_valid = None
+    if lengths is not None:
+        kv_valid = torch.arange(s, device='cuda')[None, :] < torch.tensor(
+            lengths, device='cuda')[:, None]
+    _check(q, k, v, kv_valid)
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic(cuda):
+    """No split over keys: two launches on the same inputs give the same
+    bits."""
+    q, k, v = _qkv(cuda, 1, 1000, 4)
+    kv_valid = torch.arange(1000, device='cuda')[None, :] < 900
+    a = t_attn.flash_attention_fwd(q, k, v, kv_valid, return_lse=True)
+    b = t_attn.flash_attention_fwd(q, k, v, kv_valid, return_lse=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
