@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels
-// (attention_fwd.cu, attention_bwd.cu): mbarriers, TMA tensor maps and
-// loads, warpgroup MMA (wgmma) on shared-memory descriptors, and the fences
-// and register hand-over of warp specialisation.
+// Hopper (sm_90a) building blocks shared by the warp-specialised kernels
+// (attention_fwd.cu, attention_bwd.cu, ring_hop.cu, w4a8_matmul.cu):
+// mbarriers, TMA tensor maps and loads, warpgroup MMA (wgmma, bf16 and s8)
+// on shared-memory descriptors, and the fences and register hand-over of
+// warp specialisation.
 //
 // Every tile a kernel brings in with TMA is a box of 64 bf16 columns (128
 // bytes) by R rows, written with the 128-byte swizzle: the 16-byte unit u
@@ -10,7 +11,10 @@
 // start on 1024-byte boundaries, so the swizzle phase of a row is r % 8 and
 // the wgmma descriptors below read them with base offset 0. A tile that
 // threads write themselves for wgmma to read uses the same layout
-// (swizzle128_offset) and then fence_proxy_async.
+// (swizzle128_offset) and then fence_proxy_async. An int8 tile is the same
+// bytes: a 128-byte row holds 128 int8 values, and a k32 step of an s8
+// wgmma advances 32 bytes along it, as a k16 step of a bf16 one does. An
+// fp32 box is 32 columns (128 bytes) wide.
 
 #pragma once
 
@@ -95,6 +99,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Box (c0, c1) of a 2-D tensor map into shared memory, as tma_load_4d.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
 // shared memory, reported to `bar` like a TMA box.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -164,6 +179,12 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// Arrives on named barrier `id` without waiting: the other side of a
+// named_bar_sync over `count` threads.
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---- wgmma ----------------------------------------------------------------
 
 // Shared-memory matrix descriptor for a 128-byte-swizzled tile: start
@@ -199,6 +220,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 template <int N>
@@ -316,6 +343,66 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 }
 
 
+// s8 wgmma: an int32 accumulator has the fp32 layout above. The register A
+// operand of a k32 step holds four int8 values per register: a[0] row
+// 16w + lane/4, k 4 (lane % 4) .. + 3; a[1] the same k of row + 8; a[2]
+// and a[3] the same rows at k + 16. 8-bit B operands are read K-major
+// only.
+
+// d (64 x 8 int32) (+)= A (64 x 32 int8, registers) * B (32 x 8 int8,
+// smem, K-major)
+__device__ __forceinline__ void wgmma_rs_s8(int32_t (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// d (64 x 128 int32) (+)= A (64 x 32 int8, registers) * B (32 x 128 int8,
+// smem, K-major)
+__device__ __forceinline__ void wgmma_rs_s8(int32_t (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -374,16 +461,18 @@ inline int encode_tiled(EncodeTiledFn* fn) {
 // among its entry point's pointer arguments. CUDA's own codes stay below.
 constexpr int kTmaRefused = 1 << 20;
 
-// A (B, S, H, 128) bf16 tensor with element strides (sb, ss, sh) and a
-// contiguous last dim, as a 4-D map over (d, s, h, b) whose box is 64
-// columns by `rows` rows of one (b, h), 128-byte swizzled. Rows at or past
-// S read as zeros. Returns 0, a CUDA error code, or kTmaRefused + ... above.
-// Needs a current context: a thread that has only allocated through
-// PyTorch's cache (autograd's worker, say) may have none until its first
-// runtime call that needs one (CUresult 201 otherwise).
-inline int make_bshd_map(CUtensorMap* map, const void* ptr, int B, int S,
-                         int H, long long sb, long long ss, long long sh,
-                         int rows, int arg) {
+// A (B, S, H, 128) tensor of `elem` bytes per value (bf16 or fp32) with
+// element strides (sb, ss, sh) and a contiguous last dim, as a 4-D map over
+// (d, s, h, b) whose box is 128 bytes of columns (64 bf16, 32 fp32) by
+// `rows` rows of one (b, h), 128-byte swizzled. Rows at or past S read as
+// zeros. Returns 0, a CUDA error code, or kTmaRefused + ... above. Needs a
+// current context: a thread that has only allocated through PyTorch's
+// cache (autograd's worker, say) may have none until its first runtime call
+// that needs one (CUresult 201 otherwise).
+inline int make_bshd_map_of(CUtensorMap* map, CUtensorMapDataType type,
+                            int elem, const void* ptr, int B, int S, int H,
+                            long long sb, long long ss, long long sh,
+                            int rows, int arg) {
   EncodeTiledFn encode = nullptr;
   const int err = encode_tiled(&encode);
   if (err != 0) return err;
@@ -393,13 +482,43 @@ inline int make_bshd_map(CUtensorMap* map, const void* ptr, int B, int S,
   if (B == 1) sb = 128;
   const cuuint64_t dims[4] = {128, (cuuint64_t)S, (cuuint64_t)H,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * elem, (cuuint64_t)sh * elem,
+                                 (cuuint64_t)sb * elem};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / elem), (cuuint32_t)rows, 1,
+                             1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map, type, 4, const_cast<void*>(ptr), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTmaRefused + (arg << 12) + (int)r;
+}
+
+// The bf16 (B, S, H, 128) map: boxes of 64 columns.
+inline int make_bshd_map(CUtensorMap* map, const void* ptr, int B, int S,
+                         int H, long long sb, long long ss, long long sh,
+                         int rows, int arg) {
+  return make_bshd_map_of(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, B, S,
+                          H, sb, ss, sh, rows, arg);
+}
+
+// A (rows, cols) int8 matrix with rows `pitch` bytes apart (a multiple of
+// 16), as a 2-D map whose box is 128 columns (bytes) by `box_rows` rows,
+// 128-byte swizzled. Columns and rows past the matrix read as zeros.
+// Returns as make_bshd_map_of.
+inline int make_int8_map(CUtensorMap* map, const void* ptr, long long rows,
+                         long long cols, long long pitch, int box_rows,
+                         int arg) {
+  EncodeTiledFn encode = nullptr;
+  const int err = encode_tiled(&encode);
+  if (err != 0) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
+  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTmaRefused + (arg << 12) + (int)r;

@@ -6,8 +6,10 @@
 // with xq (M, K) int8, w4 nibble-packed (K/2, N) int8 in the group-local
 // half-split layout (utils/quantize.py:pack_int4: packed row j of group g
 // holds input row g*group + j in its low nibble and g*group + group/2 + j in
-// its high nibble), scale (G, N) fp32 and out (M, N) fp32. The per-token
-// activation scale is applied by the caller.
+// its high nibble) and scale (G, N) fp32. The output is (M, N) fp32 or bf16;
+// with a per-row scale r (the per-token activation scale) it is
+// (out[m, n] * r[m]) rounded once to the output type, the same fp32 product
+// and rounding as scaling the fp32 output afterwards.
 //
 // What bounds it on the card: at the Qwen-Image serving shapes (M = 4096
 // image tokens, K and N of 3072 or 12288) one call does 2*M*K*N = 103-309
@@ -15,319 +17,370 @@
 // M = 1 (the AdaLN modulations) it reads K*N/2 bytes of weights for 2*K*N
 // operations and is bound by the weight read.
 //
-// Design (a simple, correct first version):
-//   * one block of 8 warps per 128 x 128 output tile; warps are laid out
-//     2 (M) x 4 (N), each owning 64 x 32 outputs;
-//   * K advances in tiles of 128 through two shared-memory stages: the
-//     activation tile is copied with cp.async; the packed weight tile (64
-//     packed rows x 128 columns) is read into registers during the previous
-//     tile's products, then unpacked and transposed into shared memory as
-//     [n][k] bytes, because mma.sync's B operand wants K contiguous per
-//     column while the packing keeps N contiguous (ldmatrix.trans moves only
-//     16-bit elements, so the transpose happens in the unpack);
-//   * mma.sync m16n8k32 s8 x s8 -> s32 with operands loaded by ldmatrix;
-//     the int32 accumulator covers one scale group (a partial sum below
-//     2^24, exact) and is scaled into an fp32 accumulator in registers at
-//     each group's end, so K tiles may span several groups of 32 or 64;
-//   * any M and N % 8 == 0: ragged rows and columns are zero-filled on load
-//     and not stored.
-// What it leaves on the table: wgmma (Hopper's warpgroup MMA, about twice
-// mma.sync's int8 rate), TMA loads with mbarriers, a deeper pipeline, and a
-// smaller tile for M = 1; those are later work.
+// Design (warp specialised on hopper.cuh; one CTA of three warpgroups per
+// 128 weight columns x TOK tokens, TOK = 128, or 8 for M <= 8):
+//   * the operands are swapped, out^T = w^T xq^T, so that the unpacked
+//     weight is the register A operand of an m64nTOKk32 s8 wgmma and the
+//     activations the shared-memory B operand, read K-major as they lie in
+//     memory. 8-bit wgmma reads shared-memory operands K-major only, and the
+//     packed weight keeps N contiguous, so whichever operand the weight is,
+//     the k values of one column have to be gathered; in registers that
+//     needs no shared-memory write, no proxy fence and no transpose pass;
+//   * the producer warpgroup gives up its registers and one thread issues
+//     the TMA loads of each 128-deep K step into an mbarrier ring of
+//     kStages stages: the activation tile (TOK rows x 128 bytes) and the
+//     packed weight tile (64 packed rows x 128 columns), both 128-byte
+//     swizzled;
+//   * each of two consumer warpgroups owns 64 weight columns. A thread's
+//     two accumulator rows are the adjacent columns 2q and 2q + 1, so one
+//     16-bit shared-memory load gives both of their bytes of a packed row;
+//     four rows make the four k values of a register, the low nibbles one
+//     k32 step's register and the high nibbles another's, sign-extended by
+//     byte permutes;
+//   * the int32 accumulator covers one scale group (a partial sum below
+//     2^24, exact in fp32), then is folded into fp32 registers with
+//     scale[g, n], one I2F and one FFMA per element. The two consumers
+//     take turns to issue their products (named barriers), so that one
+//     folds while the other's run on the tensor cores, and each unpacks its
+//     next tile's A operands while its own products run;
+//   * the epilogue writes pairs of adjacent columns straight from the
+//     registers, scaled by the row scale and rounded to the output type.
+// The fold is in group order and each output is summed by one thread, so
+// the result is bitwise repeatable. What bounds it now is not the tensor
+// cores: per 128 x 128 x 128 tile a consumer thread issues about 128 fold
+// and 80 unpack instructions, with two warps a scheduler to hide their
+// latencies, against 245 cycles of tensor work per warpgroup, and the CTA
+// loads 24 KB; builds with the fold, the unpack or the products taken out
+// each ran faster, so all three weigh, and larger tiles would need more
+// registers than the two accumulators leave.
+// M = 1 fills 144 CTAs at N = 18432, one wave and 12 CTAs, and 24 at
+// N = 3072; a fixed-order split over groups would fill the card there.
+//
+// Shapes: any M, K a multiple of the group (32, 64 or 128), N a multiple of
+// 8. The packed weight's and the scale's rows are `Ns` elements apart, a
+// multiple of 16 (TMA steps rows in 16-byte units: the wrapper pads N to
+// it); columns at or past N are neither read from the scale nor written.
 
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBM = 128;                 // output rows per block
-constexpr int kBN = 128;                 // output columns per block
-constexpr int kBK = 128;                 // K per shared-memory stage
-constexpr int kThreads = 256;            // 8 warps: 2 (M) x 4 (N)
-constexpr int kWarpM = 64;
-constexpr int kWarpN = 32;
-constexpr int kMTiles = kWarpM / 16;     // m16 tiles per warp
-constexpr int kNTiles = kWarpN / 8;      // n8 tiles per warp
-constexpr int kLd = kBK + 16;            // smem row stride in bytes: +16, so
-                                         // ldmatrix rows hit distinct banks
-constexpr int kTileA = kBM * kLd;        // [m][k] activation bytes
-constexpr int kTileB = kBN * kLd;        // [n][k] weight bytes, unpacked
-constexpr int kStage = kTileA + kTileB;
-constexpr int kSmemBytes = 2 * kStage;
+using namespace hopper;
+
+constexpr int kBN = 128;                     // weight columns per CTA
+constexpr int kBK = 128;                     // K per stage
+constexpr int kThreads = 384;                // 2 consumer + 1 producer WG
+constexpr int kStages = 6;                   // ring depth
+constexpr int kPackedBytes = kBK / 2 * kBN;  // 64 packed rows x 128 columns
+
+enum OutKind { kOutF32 = 0, kOutBF16 = 1 };
+
+// one stage: the activation tile (TOK rows x 128 bytes), then the packed
+// weight tile
+template <int TOK>
+constexpr int kStageBytes = TOK * kBK + kPackedBytes;
+
+template <int TOK>
+constexpr int kSmemBytes =
+    kStages * kStageBytes<TOK> + 2 * kStages * 8 + 1024;
 
 struct Params {
-  const int8_t* x;
-  const int8_t* w;
-  const float* s;
-  float* out;
-  int M, N, K, group;
+  const float* scale;                        // (G, Ns)
+  const float* row_scale;                    // (M) or null
+  void* out;                                 // (M, N)
+  int M, N, Ns, K;
+  int out_kind;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
 }
 
-// 16-byte async copy; with ok == false it writes 16 zero bytes instead.
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
-                                            bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16x8 s32) += a (16x32 s8, row-major) * b (32x8 s8, col-major)
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The low / high nibble of each byte of w, sign-extended to a byte:
-// (n ^ 8) - 8 maps 0..7 to 0..7 and 8..15 to -8..-1, byte by byte.
+// The low / high nibble of each byte of w, sign-extended to a byte. prmt's
+// selector 0x8-0xB replicates the sign bit of byte 0-3 over its byte.
 __device__ __forceinline__ uint32_t sext_lo(uint32_t w) {
-  return __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+  const uint32_t sign = prmt(w << 4, 0u, 0xBA98u);
+  return (w & 0x0F0F0F0Fu) | (sign & 0xF0F0F0F0u);
 }
 __device__ __forceinline__ uint32_t sext_hi(uint32_t w) {
-  return __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+  const uint32_t sign = prmt(w, 0u, 0xBA98u);
+  return ((w >> 4) & 0x0F0F0F0Fu) | (sign & 0xF0F0F0F0u);
 }
 
-// 4 x 4 byte transpose: in[r] holds byte c of row r at byte c; out[c]
-// holds byte r of column c at byte r.
-__device__ __forceinline__ void transpose4(const uint32_t* in, uint32_t* out) {
-  const uint32_t t0 = __byte_perm(in[0], in[1], 0x5140);
-  const uint32_t t1 = __byte_perm(in[2], in[3], 0x5140);
-  const uint32_t t2 = __byte_perm(in[0], in[1], 0x7362);
-  const uint32_t t3 = __byte_perm(in[2], in[3], 0x7362);
-  out[0] = __byte_perm(t0, t1, 0x5410);
-  out[1] = __byte_perm(t0, t1, 0x7632);
-  out[2] = __byte_perm(t2, t3, 0x5410);
-  out[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-// Activation tile: rows [m0, m0 + 128) x bytes [k0, k0 + 128) into sA.
-__device__ __forceinline__ void load_a(uint8_t* sA, const Params& p, int m0,
-                                       int k0, int tid) {
-#pragma unroll
-  for (int i = 0; i < kBM * kBK / 16 / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int r = c / (kBK / 16);
-    const int col = (c % (kBK / 16)) * 16;
-    const bool ok = m0 + r < p.M && k0 + col < p.K;
-    const int8_t* g =
-        ok ? p.x + (long long)(m0 + r) * p.K + k0 + col : p.x;
-    cp_async_16(sA + r * kLd + col, g, ok);
-  }
-}
-
-// Packed weight tile for K [k0, k0 + 128): packed rows k0/2 + [0, 64), this
-// thread's 4 consecutive rows x 8 consecutive columns, into registers.
-__device__ __forceinline__ void load_b(uint2* r, const Params& p, int n0,
-                                       int k0, int tid) {
-  const int rq = tid & 15;
-  const int n = n0 + (tid >> 4) * 8;
+// Byte offsets, in a packed tile (64 rows x 128 bytes, 128-byte swizzled),
+// of this thread's columns `col` and `col + 1` in rows 4c + i (c = lane % 4,
+// i = 0..3); row 16u + 4c + i lies u * 2048 bytes further (16u leaves the
+// swizzle phase, row % 8, as it is).
+__device__ __forceinline__ void packed_offsets(int (&off)[4], int col,
+                                               int c) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int prow = (k0 >> 1) + rq * 4 + i;
-    r[i] = (n < p.N && prow < (p.K >> 1))
-               ? __ldg(reinterpret_cast<const uint2*>(
-                     p.w + (long long)prow * p.N + n))
-               : make_uint2(0u, 0u);
+    const int j = 4 * c + i;
+    off[i] = j * 128 + ((((col >> 4) ^ j) & 7) << 4) + (col & 15);
   }
 }
 
-// Unpack the registers of load_b and store them transposed: packed row j
-// of the tile's group gl gives K offsets gl*group + j (low nibble) and
-// gl*group + group/2 + j (high nibble); 4 consecutive rows stay inside one
-// group (group/2 is a multiple of 16), so each column gets two 4-byte words.
-__device__ __forceinline__ void store_b(uint8_t* sB, const uint2* r,
-                                        int group, int tid) {
-  const int ph = group >> 1;
-  const int j0 = (tid & 15) * 4;
-  const int klo = (j0 / ph) * group + j0 % ph;
-  const int khi = klo + ph;
+// The A operands of the four k32 steps of one 128-deep K tile from the
+// packed tile `sw`, at this thread's `off` (packed_offsets). Register r of
+// step s holds four consecutive k; in the half-split layout those are four
+// consecutive packed rows J..J+3, J = 16u + 4c, whose low nibbles feed one
+// step and high nibbles another:
+//   group 128: low -> step u / 2, high -> step u / 2 + 2, registers h;
+//   group 64:  low -> step 2 (u / 2), high -> step 2 (u / 2) + 1,
+//              registers h;
+//   group 32:  low -> step u (k 0-15), high -> step u (k 16-31);
+// with h = u % 2 the register pair (k 0-15 or 16-31 of a step).
+template <int GROUP>
+__device__ __forceinline__ void unpack_a(uint32_t (&a)[4][4],
+                                         const unsigned char* sw,
+                                         const int (&off)[4]) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    uint32_t lo[4], hi[4], lo_t[4], hi_t[4];
+  for (int u = 0; u < 4; ++u) {
+    int s_lo, s_hi, r_lo, r_hi;
+    if (GROUP == 128) {
+      s_lo = u >> 1;
+      s_hi = s_lo + 2;
+      r_lo = r_hi = 2 * (u & 1);
+    } else if (GROUP == 64) {
+      s_lo = 2 * (u >> 1);
+      s_hi = s_lo + 1;
+      r_lo = r_hi = 2 * (u & 1);
+    } else {
+      s_lo = s_hi = u;
+      r_lo = 0;
+      r_hi = 2;
+    }
+    uint32_t hw[4];                          // rows J + i, columns col, col+1
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const uint32_t w = h ? r[i].y : r[i].x;
-      lo[i] = sext_lo(w);
-      hi[i] = sext_hi(w);
+      hw[i] = *reinterpret_cast<const uint16_t*>(sw + u * 2048 + off[i]);
     }
-    transpose4(lo, lo_t);
-    transpose4(hi, hi_t);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      uint8_t* col = sB + ((tid >> 4) * 8 + h * 4 + c) * kLd;
-      *reinterpret_cast<uint32_t*>(col + klo) = lo_t[c];
-      *reinterpret_cast<uint32_t*>(col + khi) = hi_t[c];
-    }
+    const uint32_t t01 = __byte_perm(hw[0], hw[1], 0x5140);
+    const uint32_t t23 = __byte_perm(hw[2], hw[3], 0x5140);
+    const uint32_t w0 = __byte_perm(t01, t23, 0x5410);   // column col
+    const uint32_t w1 = __byte_perm(t01, t23, 0x7632);   // column col + 1
+    a[s_lo][r_lo] = sext_lo(w0);
+    a[s_lo][r_lo + 1] = sext_lo(w1);
+    a[s_hi][r_hi] = sext_hi(w0);
+    a[s_hi][r_hi + 1] = sext_hi(w1);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    w4a8_matmul_kernel(const Params p) {
-  extern __shared__ __align__(16) uint8_t smem[];
+template <int TOK, int GROUP>
+__global__ void __launch_bounds__(kThreads, 1)
+    w4a8_matmul_kernel(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_w,
+                       const Params p) {
+  constexpr int kXBytes = TOK * kBK;
+  constexpr int kStage = kStageBytes<TOK>;
+  constexpr int kSteps = GROUP / 32;         // k32 steps per scale group
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStage);
+  uint64_t* empty = full + kStages;
+
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int warp_m = warp >> 2;              // 0..1
-  const int warp_n = warp & 3;               // 0..3
-  const int m0 = blockIdx.y * kBM;
+  const int wg = tid / 128;
   const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * TOK;
   const int n_tiles = (p.K + kBK - 1) / kBK;
 
-  int iacc[kMTiles][kNTiles][4];             // this scale group, exact
-  float facc[kMTiles][kNTiles][4];           // scaled, over groups
-#pragma unroll
-  for (int mi = 0; mi < kMTiles; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < kNTiles; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        iacc[mi][nj][e] = 0;
-        facc[mi][nj][e] = 0.f;
-      }
-
-  uint2 breg[4];
-  load_a(smem, p, m0, 0, tid);
-  cp_async_commit();
-  load_b(breg, p, n0, 0, tid);
-  store_b(smem + kTileA, breg, p.group, tid);
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const uint8_t* sA = smem + (t & 1) * kStage;
-    const uint8_t* sB = sA + kTileA;
-    uint8_t* next = smem + ((t + 1) & 1) * kStage;
-    const bool more = t + 1 < n_tiles;
-    if (more) {
-      load_a(next, p, m0, (t + 1) * kBK, tid);
-      cp_async_commit();
-      load_b(breg, p, n0, (t + 1) * kBK, tid);   // in flight during the mma
-      cp_async_wait<1>();                        // tile t's activations
-    } else {
-      cp_async_wait<0>();
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 8);              // one arrival per consumer warp
     }
-    __syncthreads();
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-#pragma unroll
-    for (int s = 0; s < kBK / 32; ++s) {
-      const int kg = t * kBK + s * 32;           // K of this k32 step
-      if (kg >= p.K) break;                      // uniform over the block
-      uint32_t af[kMTiles][4];
-#pragma unroll
-      for (int mi = 0; mi < kMTiles; ++mi) {
-        // matrices: rows 0-7 / 8-15 x bytes 0-15, then x bytes 16-31
-        const int row = warp_m * kWarpM + mi * 16 + (lane & 7) +
-                        ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(af[mi], sA + row * kLd + s * 32 + (lane >> 4) * 16);
+  if (wg == 2) {
+    // ---- producer ----
+    setmaxnreg_dec<24>();
+    if (tid == 256) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) - 1) & 1);
+        unsigned char* dst = smem + st * kStage;
+        mbar_expect_tx(&full[st], kStage);
+        tma_load_2d(dst, &map_x, &full[st], t * kBK, m0);
+        tma_load_2d(dst + kXBytes, &map_w, &full[st], n0, t * (kBK / 2));
       }
-      uint32_t bf[kNTiles][2];
-#pragma unroll
-      for (int pp = 0; pp < kNTiles / 2; ++pp) {
-        // matrices: columns 0-7 x bytes 0-15, 0-7 x 16-31, 8-15 x 0-15,
-        // 8-15 x 16-31 -> (b0, b1) of n tiles 2pp and 2pp + 1
-        const int n = warp_n * kWarpN + pp * 16 + (lane & 7) +
-                      (lane >> 4) * 8;
-        uint32_t r[4];
-        ldmatrix_x4(r, sB + n * kLd + s * 32 + ((lane >> 3) & 1) * 16);
-        bf[2 * pp][0] = r[0];
-        bf[2 * pp][1] = r[1];
-        bf[2 * pp + 1][0] = r[2];
-        bf[2 * pp + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < kMTiles; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < kNTiles; ++nj)
-          mma_s8(iacc[mi][nj], af[mi], bf[nj][0], bf[nj][1]);
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns weight columns 64 wg .. 64 wg + 63
+    setmaxnreg_inc<240>();
+    const int lane = tid & 31;
+    const int warp = (tid & 127) >> 5;
+    const int c = lane & 3;
+    // accumulator rows 16 warp + lane/4 and + 8 are columns col and col + 1
+    const int col = wg * 64 + warp * 16 + 2 * (lane >> 2);
+    const int n = n0 + col;
+    int off[4];
+    packed_offsets(off, col, c);
 
-      if ((kg + 32) % p.group == 0) {            // end of a scale group
-        const float* srow = p.s + (long long)(kg / p.group) * p.N;
+    float acc[TOK / 2];                      // fp32, over the groups so far
+    int32_t part[TOK / 2];                   // int32, this scale group
 #pragma unroll
-        for (int nj = 0; nj < kNTiles; ++nj) {
-          const int col = n0 + warp_n * kWarpN + nj * 8 + (lane & 3) * 2;
-          const float2 sc =
-              col < p.N ? __ldg(reinterpret_cast<const float2*>(srow + col))
-                        : make_float2(0.f, 0.f);
+    for (int i = 0; i < TOK / 2; ++i) acc[i] = 0.f;
+
+    // The consumers take turns to issue their products, on named barriers
+    // 1 (consumer 0's turn) and 2 (consumer 1's), so that one folds while
+    // the other's wgmmas run; consumer 0 goes first. Each unpacks the next
+    // tile's A operands (double-buffered, a[t % 2]) while its own products
+    // run.
+    if (wg == 1) named_bar_arrive(1, 256);
+    uint32_t a[2][4][4];
+    mbar_wait(&full[0], 0);
+    unpack_a<GROUP>(a[0], smem + kXBytes, off);
+#pragma unroll 1
+    for (int t0 = 0; t0 < n_tiles; t0 += 2) {
 #pragma unroll
-          for (int mi = 0; mi < kMTiles; ++mi) {
-            facc[mi][nj][0] += (float)iacc[mi][nj][0] * sc.x;
-            facc[mi][nj][1] += (float)iacc[mi][nj][1] * sc.y;
-            facc[mi][nj][2] += (float)iacc[mi][nj][2] * sc.x;
-            facc[mi][nj][3] += (float)iacc[mi][nj][3] * sc.y;
+      for (int h = 0; h < 2; ++h) {
+        const int t = t0 + h;
+        if (t < n_tiles) {
+          const int st = t % kStages;
+          const int k0 = t * kBK;
+          const unsigned char* sx = smem + st * kStage;
+          const int groups = min(4, (p.K - k0) / 32) / kSteps;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) iacc[mi][nj][e] = 0;
+          for (int gb = 0; gb < 4 / kSteps; ++gb) {
+            if (gb < groups) {
+              const int g = k0 / GROUP + gb;
+              const float2 sc =
+                  n < p.Ns ? __ldg(reinterpret_cast<const float2*>(
+                                 p.scale + (long long)g * p.Ns + n))
+                           : make_float2(0.f, 0.f);
+              named_bar_sync(1 + wg, 256);
+              fence_regs(a[h]);
+              wgmma_fence();
+#pragma unroll
+              for (int ss = 0; ss < kSteps; ++ss) {
+                const int s = gb * kSteps + ss;
+                wgmma_rs_s8(part, a[h][s], make_desc(sx + s * 32, 16, 1024),
+                            ss);
+              }
+              wgmma_commit();
+              // hand the turn over; consumer 1's last turn has no taker
+              if (wg == 0 || t + 1 < n_tiles || gb + 1 < groups) {
+                named_bar_arrive(2 - wg, 256);
+              }
+              if (gb == 0 && t + 1 < n_tiles) {
+                const int st1 = (t + 1) % kStages;
+                mbar_wait(&full[st1], ((t + 1) / kStages) & 1);
+                unpack_a<GROUP>(a[h ^ 1], smem + st1 * kStage + kXBytes, off);
+              }
+              wgmma_wait<0>();
+              fence_regs(part);
+#pragma unroll
+              for (int i = 0; i < TOK / 2; ++i) {
+                acc[i] = fmaf(__int2float_rn(part[i]), (i & 2) ? sc.y : sc.x,
+                              acc[i]);
+              }
+            }
           }
+          if (lane == 0) mbar_arrive(&empty[st]);
         }
       }
     }
 
-    if (more) store_b(next + kTileA, breg, p.group, tid);
-    __syncthreads();
-  }
-
-  // epilogue: rows lane/4 and lane/4 + 8, columns 2*(lane%4) + {0, 1}
+    // epilogue: acc[4 jt + 2 i + e] is column n + i of token 8 jt + 2c + e
+    if (n < p.N) {                           // N % 8 == 0: so is n + 1
+      if (p.row_scale != nullptr) {
+        // every row scale is read before the first store: for all the
+        // compiler knows a store to `out` may alias them, so a load issued
+        // after one would wait for it
+        float r[TOK / 4];
 #pragma unroll
-  for (int mi = 0; mi < kMTiles; ++mi) {
-    const int row = m0 + warp_m * kWarpM + mi * 16 + (lane >> 2);
+        for (int i = 0; i < TOK / 4; ++i) {
+          const int m = m0 + 8 * (i / 2) + 2 * c + (i & 1);
+          r[i] = m < p.M ? __ldg(p.row_scale + m) : 0.f;
+        }
 #pragma unroll
-    for (int nj = 0; nj < kNTiles; ++nj) {
-      const int col = n0 + warp_n * kWarpN + nj * 8 + (lane & 3) * 2;
-      if (col >= p.N) continue;
-      if (row < p.M)
-        *reinterpret_cast<float2*>(p.out + (long long)row * p.N + col) =
-            make_float2(facc[mi][nj][0], facc[mi][nj][1]);
-      if (row + 8 < p.M)
-        *reinterpret_cast<float2*>(p.out + (long long)(row + 8) * p.N + col) =
-            make_float2(facc[mi][nj][2], facc[mi][nj][3]);
+        for (int i = 0; i < TOK / 2; ++i) {
+          acc[i] = __fmul_rn(acc[i], r[2 * (i / 4) + (i & 1)]);
+        }
+      }
+#pragma unroll
+      for (int jt = 0; jt < TOK / 8; ++jt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + 8 * jt + 2 * c + e;
+          if (m >= p.M) continue;
+          const float v0 = acc[4 * jt + e], v1 = acc[4 * jt + 2 + e];
+          const long long off = (long long)m * p.N + n;
+          if (p.out_kind == kOutF32) {
+            *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) =
+                make_float2(v0, v1);
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(
+                static_cast<__nv_bfloat16*>(p.out) + off) =
+                __floats2bfloat162_rn(v0, v1);
+          }
+        }
+      }
     }
   }
 }
 
+template <int TOK, int GROUP>
+int launch(const void* xq, const void* packed, const Params& p,
+           cudaStream_t stream) {
+  constexpr int smem = kSmemBytes<TOK>;
+  // a runtime call first: it makes the device's context current on this
+  // thread, which libcuda's map encoder needs (make_int8_map)
+  const cudaError_t e = cudaFuncSetAttribute(
+      w4a8_matmul_kernel<TOK, GROUP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap map_x, map_w;
+  int err = make_int8_map(&map_x, xq, p.M, p.K, p.K, TOK, 0);
+  if (err == 0) {
+    err = make_int8_map(&map_w, packed, p.K / 2, p.Ns, p.Ns, kBK / 2, 1);
+  }
+  if (err != 0) return err;
+  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + TOK - 1) / TOK);
+  w4a8_matmul_kernel<TOK, GROUP><<<grid, kThreads, smem, stream>>>(
+      map_x, map_w, p);
+  return (int)cudaGetLastError();
+}
+
+template <int TOK>
+int launch_group(const void* xq, const void* packed, const Params& p,
+                 int group, cudaStream_t stream) {
+  if (group == 32) return launch<TOK, 32>(xq, packed, p, stream);
+  if (group == 64) return launch<TOK, 64>(xq, packed, p, stream);
+  return launch<TOK, 128>(xq, packed, p, stream);
+}
+
 }  // namespace
 
-// Plain C entry point, bound with ctypes. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); the caller checks that the tensors are
-// contiguous and 16-byte aligned, group in {32, 64, 128}, K % group == 0,
-// N % 8 == 0 and ceil(M / 128) <= 65535 before calling.
+// Plain C entry point, bound with ctypes. Builds the TMA maps of xq and the
+// packed weight, launches on `stream` and returns 0, a CUDA error code, or
+// hopper::kTmaRefused + ... for a map libcuda refused (xq 0, packed 1).
+// The caller checks that the tensors are contiguous and 16-byte aligned,
+// group in {32, 64, 128}, K % group == 0, N % 8 == 0, Ns >= N a multiple of
+// 16 (the row pitch of packed and scale), out_kind 0 (fp32) or 1 (bf16),
+// row_scale (M) fp32 or null, and the grid's size, before calling.
 extern "C" int arcflow_w4a8_matmul(const void* xq, const void* packed,
-                                   const void* scale, void* out, int M, int N,
-                                   int K, int group, void* stream) {
+                                   const void* scale, const void* row_scale,
+                                   void* out, int M, int N, int Ns, int K,
+                                   int group, int out_kind, void* stream) {
   Params p;
-  p.x = static_cast<const int8_t*>(xq);
-  p.w = static_cast<const int8_t*>(packed);
-  p.s = static_cast<const float*>(scale);
-  p.out = static_cast<float*>(out);
+  p.scale = static_cast<const float*>(scale);
+  p.row_scale = static_cast<const float*>(row_scale);
+  p.out = out;
   p.M = M;
   p.N = N;
+  p.Ns = Ns;
   p.K = K;
-  p.group = group;
-  cudaError_t err = cudaFuncSetAttribute(
-      w4a8_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  w4a8_matmul_kernel<<<grid, kThreads, kSmemBytes,
-                       static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  p.out_kind = out_kind;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return M <= 8 ? launch_group<8>(xq, packed, p, group, s)
+                : launch_group<128>(xq, packed, p, group, s);
 }

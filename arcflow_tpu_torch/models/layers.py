@@ -98,7 +98,8 @@ def _int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     * w4a8: per-token symmetric int8 activations (absmax / 127, round half
       to even), the grouped matmul (``ops/quant_matmul.py:w4a8_matmul``:
       the Hopper kernel on a CUDA tensor, whatever the token count), then
-      ``(y * x_scale)`` cast to ``dtype``.
+      ``(y * x_scale)`` cast to ``dtype``, which the kernel does in its
+      epilogue (``row_scale``, ``out_dtype``).
     """
     g = scale.shape[-3]
     ph = packed.shape[-2] // g                 # packed rows per group
@@ -109,8 +110,9 @@ def _int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         xs = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
         xq = torch.round(x32 / xs).clamp_(-127, 127).to(torch.int8)
         y = qmm_ops.w4a8_matmul(xq.reshape(-1, x.shape[-1]).contiguous(),
-                                packed, scale[:, 0, :])
-        return (y.reshape(*lead, out) * xs).to(dtype)
+                                packed, scale[:, 0, :],
+                                row_scale=xs.reshape(-1, 1), out_dtype=dtype)
+        return y.reshape(*lead, out)
     lo, hi = unpack_nibbles(packed)
     sc = scale.to(dtype).expand(g, ph, out).reshape(g * ph, out)
     xr = x.to(dtype).reshape(*lead, g, 2, ph)

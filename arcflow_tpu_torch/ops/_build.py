@@ -10,7 +10,8 @@ header builds anew and an unchanged tree is loaded as it is. The TMA tensor
 maps come from libcuda's ``cuTensorMapEncodeTiled``, looked up through
 the runtime's ``cudaGetDriverEntryPointByVersion``, so the link needs no
 ``-lcuda``. Importing this module needs no ``nvcc``; only a CUDA launch
-builds.
+builds. The wrappers also take from here what every TMA entry point shares:
+the refusal of broadcast views and the message of an error code.
 """
 
 from __future__ import annotations
@@ -111,7 +112,7 @@ def load_library() -> ctypes.CDLL:
     lib.arcflow_attention_bwd.restype = _I32
     lib.arcflow_attention_bwd_workspace_bytes.argtypes = [_I32] * 3
     lib.arcflow_attention_bwd_workspace_bytes.restype = _I64
-    lib.arcflow_w4a8_matmul.argtypes = [_P] * 4 + [_I32] * 4 + [_P]
+    lib.arcflow_w4a8_matmul.argtypes = [_P] * 5 + [_I32] * 6 + [_P]
     lib.arcflow_w4a8_matmul.restype = _I32
     lib.arcflow_gm_inverse_cdf.argtypes = [_P] * 7 + [_I32] * 2 + [_I64, _I32] \
         + [ctypes.c_float] * 2 + [_P]
@@ -125,3 +126,34 @@ def load_library() -> ctypes.CDLL:
     lib.arcflow_cuda_error_string.argtypes = [_I32]
     lib.arcflow_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# An entry point's code for a TMA map that the driver refused
+# (csrc/hopper.cuh:kTmaRefused): this base + (pointer argument << 12) + the
+# CUresult; smaller codes are CUDA's own.
+_TMA_REFUSED = 1 << 20
+
+
+def launch_error(lib, err: int, args) -> str:
+    """The message of an entry point's error code ``err``; ``args`` names
+    its pointer arguments in order."""
+    if err >= _TMA_REFUSED:
+        arg, code = divmod(err - _TMA_REFUSED, 1 << 12)
+        return (f'the driver refused the TMA map of {args[arg]} '
+                f'(CUresult {code})')
+    return lib.arcflow_cuda_error_string(err).decode()
+
+
+def is_broadcast(t) -> bool:
+    """Whether the tensor ``t`` has a zero stride on a dimension of more than one
+    element (a broadcast view)."""
+    return any(st == 0 and n > 1 for st, n in zip(t.stride(), t.shape))
+
+
+def check_no_broadcast(**tensors):
+    """Refuse broadcast views: the kernels' TMA maps step through memory by
+    the strides, and the driver may refuse a zero one."""
+    for name, t in tensors.items():
+        if is_broadcast(t):
+            raise ValueError(f'{name} is a broadcast view (strides '
+                             f'{t.stride()}); make it contiguous')

@@ -18,6 +18,8 @@ from typing import Optional
 
 import torch
 
+from ._build import check_no_broadcast, is_broadcast, launch_error
+
 # Kernel launches since the count was last set to 0; each wrapper adds one
 # per launch and nothing else touches them except a caller resetting them.
 LAUNCHES = 0            # forward kernel
@@ -87,21 +89,6 @@ def _check_cuda_args(q, k, v, kv_valid, dtypes=(torch.bfloat16,), **more):
                              'contiguous last dim')
 
 
-def _broadcast(t: torch.Tensor) -> bool:
-    """Whether ``t`` has a zero stride on a dimension of more than one
-    element (a broadcast view)."""
-    return any(st == 0 and n > 1 for st, n in zip(t.stride(), t.shape))
-
-
-def _check_no_broadcast(**tensors):
-    """Refuse broadcast views: the kernels' TMA maps step through memory by
-    the strides, and the driver may refuse a zero one."""
-    for name, t in tensors.items():
-        if _broadcast(t):
-            raise ValueError(f'{name} is a broadcast view (strides '
-                             f'{t.stride()}); make it contiguous')
-
-
 def _kernel_dout(do: torch.Tensor) -> torch.Tensor:
     """dO as the backward kernels read it: as it lies where its TMA map can
     read it (a contiguous last dim, 16-byte aligned base and strides, no
@@ -110,25 +97,9 @@ def _kernel_dout(do: torch.Tensor) -> torch.Tensor:
     q, k, v and o."""
     if (do.stride(-1) == 1 and do.data_ptr() % 16 == 0
             and not any(st % 8 for st in do.stride()[:-1])
-            and not _broadcast(do)):
+            and not is_broadcast(do)):
         return do
     return do.contiguous()
-
-
-# An entry point's code for a TMA map that the driver refused
-# (csrc/hopper.cuh:kTmaRefused): this base + (pointer argument << 12) + the
-# CUresult; smaller codes are CUDA's own.
-_TMA_REFUSED = 1 << 20
-
-
-def _launch_error(lib, err: int, args) -> str:
-    """The message of an entry point's error code ``err``; ``args`` names
-    its pointer arguments in order."""
-    if err >= _TMA_REFUSED:
-        arg, code = divmod(err - _TMA_REFUSED, 1 << 12)
-        return (f'the driver refused the TMA map of {args[arg]} '
-                f'(CUresult {code})')
-    return lib.arcflow_cuda_error_string(err).decode()
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -146,7 +117,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != 'cuda':
         raise ValueError(f'no attention kernel for device {q.device}')
     _check_cuda_args(q, k, v, kv_valid)
-    _check_no_broadcast(q=q, k=k, v=v)
+    check_no_broadcast(q=q, k=k, v=v)
     from ._build import load_library
     lib = load_library()
     b, s, h, d = q.shape
@@ -165,7 +136,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask_sb, stream)
     if err != 0:
         raise RuntimeError('attention kernel launch failed: '
-                           + _launch_error(lib, err, ('q', 'k', 'v')))
+                           + launch_error(lib, err, ('q', 'k', 'v')))
     global LAUNCHES
     LAUNCHES += 1
     return (out, lse) if return_lse else out
@@ -219,7 +190,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f'no attention kernel for device {q.device}')
     do = _kernel_dout(do)
     _check_cuda_args(q, k, v, kv_valid, o=o, dout=do)
-    _check_no_broadcast(q=q, k=k, v=v, o=o)
+    check_no_broadcast(q=q, k=k, v=v, o=o)
     b, s, h, d = q.shape
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s)
             or not lse.is_contiguous() or lse.device != q.device):
@@ -247,7 +218,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dk.data_ptr(), dv.data_ptr(), b, s, h, strides, mask_sb, stream)
     if err != 0:
         raise RuntimeError('attention backward kernel launch failed: '
-                           + _launch_error(lib, err, ('q', 'k', 'v', 'o',
+                           + launch_error(lib, err, ('q', 'k', 'v', 'o',
                                                       'dout')))
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1

@@ -22,6 +22,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ._build import check_no_broadcast, launch_error
+
 # Kernel launches since the count was last set to 0; the wrapper adds one per
 # launch and nothing else touches it except a caller resetting it.
 LAUNCHES = 0
@@ -73,10 +75,11 @@ def _check_bf16(name, t, device):
         raise ValueError(f'the kernel takes {name} as (B, S, H, {HEAD_DIM}) '
                          f'with a contiguous last dim, got {tuple(t.shape)} '
                          f'strides {t.stride()}')
-    # 16-byte cp.async rows: base and every stride 8-element aligned
+    # TMA rows: base and every stride 16-byte (8-element) aligned
     if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1]):
         raise ValueError(f'{name} needs 16-byte aligned rows, got strides '
                          f'{t.stride()}')
+    check_no_broadcast(**{name: t})
 
 
 def _check_cuda_args(q, k, v, kv_valid, carry):
@@ -117,10 +120,10 @@ def ring_hop(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Fold one visiting K/V block into the carry: the Hopper kernel on CUDA
     tensors, ``ring_hop_ref`` on CPU tensors.
 
-    On CUDA, q, k and v must be bf16 with D = 128, a contiguous last dim and
-    16-byte aligned rows; the carry is updated in place (a first hop, with
-    ``carry`` None, allocates it) and returned. Returns (carry, O), with O
-    (B, Sq, H, D) bf16 when ``last``, else None.
+    On CUDA, q, k and v must be bf16 with D = 128, a contiguous last dim,
+    16-byte aligned rows and no broadcast dimension; the carry is updated
+    in place (a first hop, with ``carry`` None, allocates it) and returned.
+    Returns (carry, O), with O (B, Sq, H, D) bf16 when ``last``, else None.
     """
     if q.device.type == 'cpu':
         return ring_hop_ref(q, k, v, kv_valid, carry, last)
@@ -153,8 +156,8 @@ def ring_hop(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o_strides,
         mask_sb, int(first), int(last), stream)
     if err != 0:
-        raise RuntimeError('ring hop kernel launch failed: '
-                           + lib.arcflow_cuda_error_string(err).decode())
+        raise RuntimeError('ring hop kernel launch failed: ' + launch_error(
+            lib, err, ('q', 'k', 'v', 'acc')))
     global LAUNCHES
     LAUNCHES += 1
     return carry, out

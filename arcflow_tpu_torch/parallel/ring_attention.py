@@ -61,15 +61,23 @@ def check_no_autograd(*tensors: torch.Tensor) -> None:
             'sp waits for its backward (ROADMAP A12)')
 
 
-def _hop(q, k, v, kv_valid, state, last):
+def _block_stats(v, kv_valid):
+    """With a key mask, a block's fp32 sum of v over its keys (B, H, D) and
+    whether any of its keys is valid (B,); None without one."""
+    if kv_valid is None:
+        return None
+    return v.sum(dim=1, dtype=torch.float32), kv_valid.bool().any(dim=1)
+
+
+def _hop(q, k, v, kv_valid, stats, state, last):
     """Fold one visiting block into a shard's state: the kernel's carry and,
-    with a key mask, the fp32 sum of v and whether any key was valid."""
+    with a key mask, the running fp32 sum of v and whether any key was
+    valid, from the block's ``stats``."""
     carry, v_sum, has_key = state
     carry, out = ring_hop(q, k, v, kv_valid, carry, last)
-    if kv_valid is not None:
-        blk = v.sum(dim=1, dtype=torch.float32)                # (B, H, D)
+    if stats is not None:
+        blk, any_valid = stats
         v_sum = blk if v_sum is None else v_sum + blk
-        any_valid = kv_valid.bool().any(dim=1)
         has_key = any_valid if has_key is None else has_key | any_valid
     return (carry, v_sum, has_key), out
 
@@ -85,14 +93,15 @@ def _finish(out, state, s_total, return_lse):
 
 
 def _rotation(ring, blocks):
-    """Start passing each shard's K/V block (k, v, mask) to the next shard;
-    returns a function that waits and gives the blocks each shard holds
-    next. ``blocks`` lists every shard's block on a ``LocalRing`` (a
-    re-indexing) and this rank's alone on a real ring (a send to the next
-    rank and a receive from the previous one)."""
+    """Start passing each shard's block (k, v, mask, ``_block_stats``) to
+    the next shard; returns a function that waits and gives the blocks each
+    shard holds next. ``blocks`` lists every shard's block on a
+    ``LocalRing`` (a re-indexing: the stats travel with their block) and
+    this rank's alone on a real ring (k, v and mask sent to the next rank
+    and received from the previous one, the stats taken of what arrived)."""
     if isinstance(ring, LocalRing):
         return lambda: blocks[-1:] + blocks[:-1]
-    (block,) = blocks
+    block = blocks[0][:3]
     dst = dist.get_global_rank(ring.group, (ring.rank + 1) % ring.size)
     src = dist.get_global_rank(ring.group, (ring.rank - 1) % ring.size)
     sends = [t.contiguous() for t in block if t is not None]
@@ -107,7 +116,8 @@ def _rotation(ring, blocks):
         for req in reqs:
             req.wait()
         got = iter(recvs)
-        return [tuple(None if t is None else next(got) for t in block)]
+        k, v, mask = (None if t is None else next(got) for t in block)
+        return [(k, v, mask, _block_stats(v, mask))]
     return wait
 
 
@@ -136,10 +146,12 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       for x in (q, k, v))
         masks = [None] * n if mask is None else \
             [t.contiguous() for t in mask.split(sq, dim=1)]
-        blocks = list(zip(ks, vs, masks))
+        blocks = [(k_b, v_b, m_b, _block_stats(v_b, m_b))
+                  for k_b, v_b, m_b in zip(ks, vs, masks)]
         s_total = k.shape[1]
     else:
-        qs, blocks, s_total = [q], [(k, v, mask)], n * k.shape[1]
+        qs, s_total = [q], n * k.shape[1]
+        blocks = [(k, v, mask, _block_stats(v, mask))]
     states, outs = [(None, None, None)] * len(qs), [None] * len(qs)
     for j in range(n):
         pending = _rotation(ring, blocks) if j + 1 < n else None

@@ -114,6 +114,7 @@ and the time of one PyTorch library call for the same function, where there
 is one), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import contextlib
 import gc
 import importlib
@@ -259,6 +260,10 @@ W4A8_SHAPES = [(4096, 3072, 3072), (4096, 3072, 12288), (4096, 12288, 3072),
                (512, 3584, 3072), (1, 3072, 18432), (1, 256, 3072),
                (1, 3072, 3072)]
 W4A8_TIMED = [(4096, 3072, 12288), (4096, 12288, 3072)]
+# ragged M and N, each at groups 32, 64 and 128 over K = 384: rows and
+# columns off the kernel's 128 x 128 tiles and its 8-token tile, N off the
+# 16 bytes a TMA row steps in
+W4A8_RAGGED_M, W4A8_RAGGED_N = (1, 3, 130, 511, 513, 777, 4097), (136, 264)
 # w4a8 kernel vs plain: each per-group partial sum is an exact integer in
 # both (int32 in the kernel, fp32 below 2^24 in the plain version, TF32
 # off), so they differ only in how the fp32 sum over groups rounds; each
@@ -449,6 +454,37 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms(fn, name, iters):
+    """Mean device time per launch of the kernel whose name holds ``name``
+    (per call, of every kernel the call runs, with ``name`` None), over
+    ``iters`` calls of ``fn`` under ``torch.profiler`` after two warm-up
+    calls: the device's own time where a call is too short for CUDA events
+    around it to see past the host's launch cost. The profiler now and then
+    drops a kernel record of such short calls: the window runs again, up to
+    three times, and then a named kernel's mean is taken over the launches
+    it recorded, if they are at least half."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and (name is None or name in e.name)]
+        if name is None and len(us) >= iters and len(us) % iters == 0:
+            return sum(us) / iters / 1e3
+        if name is not None and (len(us) == iters or (
+                attempt == 2 and 2 * len(us) >= iters)):
+            return sum(us) / len(us) / 1e3
+    raise AssertionError(f'the profiler saw {len(us)} kernel records of '
+                         f'{name or "the call"} in {iters} calls')
+
+
 def ptxas_usage(kernel):
     """Registers and spills that ``-Xptxas -v`` reported for the kernel
     whose mangled name holds ``kernel``, from the build log."""
@@ -593,13 +629,64 @@ def w4a8_check(xq, q, packed, scale):
     return err.max().item(), (err / mag.clamp_min(1e-30)).max().item()
 
 
+def w4a8_epilogue_check(g, xq, packed, scale):
+    """The kernel's fused epilogue (row scale, bf16 out) bitwise equal to
+    the two-step path (fp32 out, then ``(y * xs).to(bf16)``, what
+    ``models/layers.py:_int4_matmul`` computed before), and a second call
+    bitwise equal to the first; raises otherwise."""
+    xs = 0.001 + 0.01 * torch.rand(xq.shape[0], 1, generator=g,
+                                   device='cuda')
+    y = qmm.w4a8_matmul(xq, packed, scale)
+    fused = qmm.w4a8_matmul(xq, packed, scale, row_scale=xs,
+                            out_dtype=torch.bfloat16)
+    if not torch.equal(fused, (y * xs).to(torch.bfloat16)):
+        raise AssertionError(f'w4a8 {tuple(xq.shape)} x {tuple(packed.shape)}'
+                             f': the fused epilogue differs from the '
+                             f'two-step path')
+    if not torch.equal(y, qmm.w4a8_matmul(xq, packed, scale)):
+        raise AssertionError(f'w4a8 {tuple(xq.shape)}: two runs differ')
+
+
+def planted_w4a8_faults(g):
+    """Two faults a w4a8 kernel could make, planted in its inputs at (M 256,
+    K 384, N 264, group 128): one group's scale skipped (group 1's scales
+    zeroed) and the low and high nibbles of one packed tile swapped (packed
+    rows 64-127, K 128-255). The kernel on each must break W4A8_TOL against
+    the sound plain output. Returns the readings."""
+    xq, q, packed, scale = w4a8_case(g, 256, 384, 264)
+    ref = qmm.w4a8_matmul_ref(xq, packed, scale)
+    mag = xq.abs().float() @ (q.abs().float()
+                              * scale.repeat_interleave(128, dim=0))
+    no_scale = scale.clone()
+    no_scale[1] = 0
+    swapped = packed.clone()
+    tile = packed[64:128].to(torch.int16) & 0xFF
+    swapped[64:128] = (((tile << 4) | (tile >> 4)) & 0xFF).to(
+        torch.uint8).view(torch.int8)
+    parts = []
+    for name, args in (('group 1 scale skipped', (xq, packed, no_scale)),
+                       ('nibbles swapped in packed rows 64-127',
+                        (xq, swapped, scale))):
+        worst = ((qmm.w4a8_matmul(*args) - ref).abs() / mag.clamp_min(
+            1e-30)).max().item()
+        if not worst > W4A8_TOL:
+            raise AssertionError(f'w4a8 planted fault "{name}" passes: '
+                                 f'{worst:.3e} <= {W4A8_TOL}')
+        parts.append(f'{name}: |d| / sum|x||w|scale {worst:.3e}, refused')
+    return parts
+
+
 def phase_w4a8_vs_plain():
     g = torch.Generator(device='cuda').manual_seed(SEED + 3)
     cases = [(m, k, n, 128) for m, k, n in W4A8_SHAPES] + [
-        (777, 3072, 3072, 128), (130, 512, 264, 32), (3, 320, 136, 64)]
+        (777, 3072, 3072, 128), (130, 512, 264, 32), (3, 320, 136, 64)] + [
+        (m, 384, n, group) for m in W4A8_RAGGED_M for n in W4A8_RAGGED_N
+        for group in qmm.GROUP_SIZES]
     worst, worst_rel = 0.0, 0.0
     for m, k, n, group in cases:
-        err, rel = w4a8_check(*w4a8_case(g, m, k, n, group))
+        xq, q, packed, scale = w4a8_case(g, m, k, n, group)
+        err, rel = w4a8_check(xq, q, packed, scale)
+        w4a8_epilogue_check(g, xq, packed, scale)
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
     # nibble -8 and activation -127 in whole rows and columns, scale 1: the
     # exact integer product
@@ -611,6 +698,30 @@ def phase_w4a8_vs_plain():
     if not torch.equal(qmm.w4a8_matmul(xq, packed, ones).double(),
                        xq.double() @ q.double()):
         raise AssertionError('w4a8: the -8 / -127 case is not exact')
+    faults = planted_w4a8_faults(g)
+    by_class = []
+    for m, k, n in W4A8_SHAPES:
+        xq, q, packed, scale = w4a8_case(g, m, k, n)
+        # the int8 layers' (K, N) weight, column-major, with the same values
+        w8 = q.t().contiguous().t()
+        xs = 0.001 + 0.01 * torch.rand(m, 1, generator=g, device='cuda')
+
+        def fused():     # the form the Qwen path launches (_int4_matmul)
+            return qmm.w4a8_matmul(xq, packed, scale, row_scale=xs,
+                                   out_dtype=torch.bfloat16)
+        # int8 activations, packed int4 weights, fp32 scales and row scales
+        # in; bf16 out
+        bound_ms, bound_by = roofline(
+            2 * m * k * n,
+            m * k + k * n // 2 + scale.numel() * 4 + m * 4 + m * n * 2,
+            H100_INT8)
+        dev_ms = kernel_ms(fused, 'w4a8_matmul', 10)
+        by_class.append(dict(
+            shape=[m, k, n], form='row_scale, bf16 out', ms=dev_ms,
+            call_ms=cuda_ms(fused, 20),
+            tops=2 * m * k * n / (dev_ms * 1e-3) / 1e12, bound_ms=bound_ms,
+            bound_by=bound_by,
+            reference_ms=kernel_ms(lambda: i8.int8_matmul(xq, w8), None, 10)))
     timed = []
     for m, k, n in W4A8_TIMED:
         xq, _, packed, scale = w4a8_case(g, m, k, n)
@@ -622,16 +733,31 @@ def phase_w4a8_vs_plain():
             H100_INT8)
         timed.append(dict(shape=[m, k, n], ms=ms, plain_ms=plain_ms,
                           tops=2 * m * k * n / (ms * 1e-3) / 1e12,
-                          bound_ms=bound_ms, bound_by=bound_by))
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          reference_ms=next(
+                              c['reference_ms'] for c in by_class
+                              if c['shape'] == [m, k, n])))
     log(f'phase 4 w4a8 kernel vs plain: ok | {len(cases) + 1} cases (path '
-        f'shapes, M 777, groups 32/64, -8 nibbles) max|d| {worst:.3e}, max '
-        f'|d| / sum|x||w|scale {worst_rel:.3e} (bound {W4A8_TOL}) | '
+        f'shapes, M {W4A8_RAGGED_M} x N {W4A8_RAGGED_N} x groups '
+        f'{qmm.GROUP_SIZES}, -8 nibbles) max|d| {worst:.3e}, max '
+        f'|d| / sum|x||w|scale {worst_rel:.3e} (bound {W4A8_TOL}), fused '
+        f'epilogue bitwise equal to the two-step path, two runs bitwise '
+        f'equal | planted faults: {" ; ".join(faults)} | ptxas: '
+        f'{ptxas_usage("w4a8_matmul_kernel")} | '
         + ' ; '.join(f'M{t["shape"][0]} K{t["shape"][1]} N{t["shape"][2]}: '
                      f'kernel {t["ms"]:.4f} ms ({t["tops"]:.1f} TOP/s), '
                      f'plain fp32 {t["plain_ms"]:.4f} ms, bound '
-                     f'{t["bound_ms"]:.4f} ms ({t["bound_by"]})'
-                     for t in timed))
-    return worst, timed
+                     f'{t["bound_ms"]:.4f} ms ({t["bound_by"]}), '
+                     f'torch._int_mm on the int8 weight '
+                     f'{t["reference_ms"]:.4f} ms'
+                     for t in timed)
+        + ' | by shape class, as the Qwen path calls it (row scale, bf16 '
+        'out; device ms by the profiler): ' + ' ; '.join(
+            f'M{c["shape"][0]} K{c["shape"][1]} N{c["shape"][2]} '
+            f'{c["ms"]:.4f} ms (call {c["call_ms"]:.4f}) {c["tops"]:.1f} '
+            f'TOP/s, bound {c["bound_ms"]:.4f} ({c["bound_by"]}), '
+            f'torch._int_mm {c["reference_ms"]:.4f}' for c in by_class))
+    return worst, timed, by_class
 
 
 def randomize_(module, generator):
@@ -858,7 +984,24 @@ def split_families(by_name):
     return families
 
 
-def phase_qwen_full():
+@contextlib.contextmanager
+def w4a8_shape_tally():
+    """Count the w4a8 wrapper's calls by (M, K, N) while the block runs: a
+    pass-through around ``qmm.w4a8_matmul``, which the layers look up on the
+    module at each call. Yields the Counter."""
+    tally, real = collections.Counter(), qmm.w4a8_matmul
+
+    def counted(xq, packed, *args, **kw):
+        tally[(xq.shape[0], xq.shape[1], packed.shape[1])] += 1
+        return real(xq, packed, *args, **kw)
+    with mock.patch.object(qmm, 'w4a8_matmul', counted):
+        yield tally
+
+
+def phase_qwen_full(w4a8_classes):
+    """The Qwen-Image 20B w4a8 image. Fills each of phase 4's shape classes
+    with its launches in the counted run (``launches_per_image``) and those
+    times its phase-4 device time (``ms_per_image``)."""
     g = torch.Generator(device='cuda').manual_seed(SEED + 5)
     t0 = time.perf_counter()
     pipe, n_params, n_int4 = qwen_w4a8(g, vae=True)
@@ -880,11 +1023,19 @@ def phase_qwen_full():
         raise AssertionError(f'cold run: launches {counts()}, want {want}')
     torch.cuda.reset_peak_memory_stats()
     attn.LAUNCHES = qmm.LAUNCHES = 0        # the main path's counted run
-    out, t_e2e = timed_call(pipe, embeds, latents, output_type='pt')
+    with w4a8_shape_tally() as by_shape:
+        out, t_e2e = timed_call(pipe, embeds, latents, output_type='pt')
     launches = counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     if launches != want:
         raise AssertionError(f'launches {launches}, want {want}')
+    if (sum(by_shape.values()) != launches['w4a8']
+            or set(by_shape) != set(W4A8_SHAPES)):
+        raise AssertionError(f'w4a8 calls by shape {dict(by_shape)} (phase 4 '
+                             f'timed {W4A8_SHAPES}), launches {launches}')
+    for c in w4a8_classes:
+        c['launches_per_image'] = by_shape[tuple(c['shape'])]
+        c['ms_per_image'] = c['launches_per_image'] * c['ms']
     img = out['images']
     check_image(img)
     rerun = (first['images'] - img).abs().max().item()
@@ -907,7 +1058,12 @@ def phase_qwen_full():
         f'{launches} | build + quantize {t_build:.1f} s, resident after '
         f'quantize {resident_gib:.2f} GiB, cold run {t_cold:.3f} s | warm per '
         f'image {t_e2e:.4f} s: transformer + integration {t_dit:.4f} s, '
-        f'decode {t_dec:.4f} s | peak memory {peak_gib:.2f} GiB')
+        f'decode {t_dec:.4f} s | peak memory {peak_gib:.2f} GiB | w4a8 '
+        f'launches by shape in the counted run x phase 4 device ms: '
+        + ' ; '.join(f'M{c["shape"][0]} K{c["shape"][1]} N{c["shape"][2]} '
+                     f'x{c["launches_per_image"]} = {c["ms_per_image"]:.2f} '
+                     f'ms' for c in w4a8_classes)
+        + f' | sum {sum(c["ms_per_image"] for c in w4a8_classes):.2f} ms')
     log(f'phase 8 profile (one warm image): wall {wall:.4f} s, device busy '
         f'{busy:.4f} s, idle share {1 - busy / wall:.4f}, {len(by_name)} '
         f'kernel names | by family: ' + ' ; '.join(
@@ -1608,25 +1764,31 @@ def phase_k4_vs_plain():
     k, v, _ = hop_case(g, 1, sq, h)
     carry, _ = hop.ring_hop(q, k, v)
     carry_r, _ = hop.ring_hop_ref(q, k, v)
-    ms = cuda_ms(lambda: hop.ring_hop(q, k, v, None, carry), 50)
+    # device time by the profiler: a hop is short enough for the host's
+    # launch cost to show through CUDA events around it (call_ms)
+    ms = kernel_ms(lambda: hop.ring_hop(q, k, v, None, carry), 'ring_hop',
+                   50)
+    call_ms = cuda_ms(lambda: hop.ring_hop(q, k, v, None, carry), 50)
     plain_ms = cuda_ms(lambda: hop.ring_hop_ref(q, k, v, None, carry_r), 5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     with torch.inference_mode():
-        library_ms = cuda_ms(
+        library_ms = kernel_ms(
             lambda: torch.ops.aten._scaled_dot_product_flash_attention(
-                qt, kt, vt), 50)
+                qt, kt, vt), 'flash', 50)
     bound_ms, bound_by = k4_bound(1, sq, sq, h)
     log(f'phase 15 ring-hop kernel vs plain: ok | {" ; ".join(parts)} '
         f'(limits on O and acc / l: |d| <= {K4_ATOL} + {K4_RTOL:.4g} |ref|, '
         f'rel L2 {K4_REL_L2}; m + log l {LSE_TOL}), keyless rows exact, two '
         f'runs bitwise equal | planted faults refused by both limits: '
         f'{" ; ".join(faults)} | one middle hop at B1 Sq {sq} Skv {sq} H{h} '
-        f'D128: kernel {ms:.4f} ms, plain fp32 {plain_ms:.4f} ms, flash SDPA '
-        f'(O + LSE) {library_ms:.4f} ms, bound {bound_ms:.4f} ms '
-        f'({bound_by}, {100 * bound_ms / ms:.1f}% of it)')
-    return worst, dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by,
-                       shape=[1, sq, sq, h, 128])
+        f'D128: kernel {ms:.4f} ms of device time (a call by CUDA events '
+        f'{call_ms:.4f} ms), plain fp32 {plain_ms:.4f} ms, flash SDPA (O + '
+        f'LSE) {library_ms:.4f} ms of device time, bound {bound_ms:.4f} ms '
+        f'({bound_by}, {100 * bound_ms / ms:.1f}% of it) | ptxas: '
+        f'{ptxas_usage("ring_hop_kernel")}')
+    return worst, dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, shape=[1, sq, sq, h, 128])
 
 
 @contextlib.contextmanager
@@ -1746,6 +1908,37 @@ def phase_local_ring_slices():
         f'{flux} ; {padded} ; {qwen}')
 
 
+def hop_host_ms(fn):
+    """One call of ``fn`` with the ring-hop wrapper and its C entry point
+    (TMA maps encoded, kernel launched) timed on the host clock around each
+    call: (hop calls, wrapper ms per hop, entry point ms per hop). The
+    kernels run asynchronously, so this is what the host spends to issue a
+    hop, not the hop's device time."""
+    lib = _build.load_library()
+    real_hop, real_entry = ring_mod.ring_hop, lib.arcflow_ring_hop
+    spent = dict(wrapper=0.0, entry=0.0, calls=0)
+
+    def timed_hop(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return real_hop(*args, **kw)
+        finally:
+            spent['wrapper'] += time.perf_counter() - t
+            spent['calls'] += 1
+
+    def timed_entry(*args):
+        t = time.perf_counter()
+        try:
+            return real_entry(*args)
+        finally:
+            spent['entry'] += time.perf_counter() - t
+    with mock.patch.object(ring_mod, 'ring_hop', timed_hop), \
+            mock.patch.object(lib, 'arcflow_ring_hop', timed_entry):
+        fn()
+    n = spent['calls']
+    return n, 1e3 * spent['wrapper'] / n, 1e3 * spent['entry'] / n
+
+
 def phase_full_local_ring(pipe, embeds, latents, lat_single, t_single):
     set_sequence_parallel(pipe.transformer, LocalRing(SP))
     try:
@@ -1757,6 +1950,11 @@ def phase_full_local_ring(pipe, embeds, latents, lat_single, t_single):
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         lat = timed_call(pipe, embeds, latents,
                          output_type='latent')[0]['latents']
+        n_host, host_ms, entry_ms = hop_host_ms(
+            lambda: timed_call(pipe, embeds, latents, output_type='pt'))
+        wall, busy, by_name = profile_split(
+            lambda: pipe(prompt_embeds=embeds, latents=latents,
+                         output_type='pt'))
         with lost_rotation():
             lost = pipe(prompt_embeds=embeds, latents=latents,
                         output_type='latent')['latents']
@@ -1771,6 +1969,8 @@ def phase_full_local_ring(pipe, embeds, latents, lat_single, t_single):
     if not rel <= SP_IMAGE_REL_L2:
         raise AssertionError(f'latents rel L2 {rel:.3e} against one device '
                              f'> {SP_IMAGE_REL_L2}')
+    hop_dev, hop_calls = (sum(v[i] for name, v in by_name.items()
+                              if 'ring_hop' in name) for i in (0, 1))
     rel_lost = rel_l2(lost, lat_single)
     if not rel_lost > SP_IMAGE_REL_L2:
         raise AssertionError(f'a lost rotation passes: latents rel L2 '
@@ -1780,8 +1980,16 @@ def phase_full_local_ring(pipe, embeds, latents, lat_single, t_single):
         f'phase 6 {rel:.3e} (bound {SP_IMAGE_REL_L2}; planted lost rotation '
         f'{rel_lost:.3e}, refused) | cold run {t_cold:.3f} s, warm per image '
         f'{t_e2e:.4f} s (phase 6: {t_single:.4f} s) | peak memory '
-        f'{peak_gib:.2f} GiB')
-    return launches['ring_hop']
+        f'{peak_gib:.2f} GiB | host per hop (one image, {n_host} hops, host '
+        f'clock around each call): wrapper {host_ms:.4f} ms, of it the C '
+        f'entry point (TMA maps, launch) {entry_ms:.4f} ms; {n_host} x '
+        f'wrapper = {n_host * host_ms / 1e3:.4f} s | profile (one image): '
+        f'wall {wall:.4f} s, device busy {busy:.4f} s, idle share '
+        f'{1 - busy / wall:.4f}, ring_hop device {hop_dev:.2f} ms x'
+        f'{hop_calls}')
+    return launches['ring_hop'], dict(
+        host_ms_per_hop=host_ms, entry_ms_per_hop=entry_ms,
+        idle_share=1 - busy / wall, image_s=t_e2e)
 
 
 def int8_case(g, m, k, n):
@@ -2312,14 +2520,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     attn_err, attn_timed = phase_kernel_vs_plain()
-    w4a8_err, w4a8_timed = phase_w4a8_vs_plain()
+    w4a8_err, w4a8_timed, w4a8_classes = phase_w4a8_vs_plain()
     phase_int8_vs_plain()
     phase_reduced_slice()
     phase_w8a8_reduced()
     gc.collect()
     torch.cuda.empty_cache()
     flux_launches, flux_run = phase_full_slice()
-    ring_launches = phase_full_local_ring(*flux_run)
+    ring_launches, ring_host = phase_full_local_ring(*flux_run)
     captured = phase_w8a8_full(*flux_run)
     del flux_run
     gc.collect()                            # the FLUX model goes first
@@ -2329,7 +2537,7 @@ def main():
     phase_qwen_reduced()
     gc.collect()
     torch.cuda.empty_cache()
-    qwen_launches = phase_qwen_full()
+    qwen_launches = phase_qwen_full(w4a8_classes)
     gc.collect()
     torch.cuda.empty_cache()
     bwd = phase_bwd_vs_plain()
@@ -2374,7 +2582,9 @@ def main():
          'max_abs_err': w4a8_err, 'ms': ff_in['ms'],
          'plain_ms': ff_in['plain_ms'], 'bound_ms': ff_in['bound_ms'],
          'bound_by': ff_in['bound_by'], 'library_ms': None,
-         'shape': ff_in['shape'], 'timed': w4a8_timed},
+         'reference_ms': ff_in['reference_ms'],
+         'shape': ff_in['shape'], 'timed': w4a8_timed,
+         'by_class': w4a8_classes},
         {'name': 'attention_bwd', 'route': 'cuda',
          'source': 'arcflow_tpu_torch/csrc/attention_bwd.cu',
          'replaces': 'arcflow_tpu/models/layers.py:542',
@@ -2405,7 +2615,8 @@ def main():
          'plain_ms': k4_timed['plain_ms'], 'bound_ms': k4_timed['bound_ms'],
          'bound_by': k4_timed['bound_by'],
          'library_ms': k4_timed['library_ms'],
-         'shape': k4_timed['shape']},
+         'call_ms': k4_timed['call_ms'], 'shape': k4_timed['shape'],
+         'flux_local_ring': ring_host},
         {'name': 'flash_int8', 'route': 'cuda',
          'source': 'arcflow_tpu_torch/csrc/flash_int8.cu',
          'replaces': 'arcflow_tpu/ops/flash_int8.py:93',

@@ -20,6 +20,7 @@ from jax.experimental.pallas import tpu as pltpu
 from arcflow_tpu.models.layers import _flash_call
 from arcflow_tpu.models.layers import attention as j_attention
 from arcflow_tpu_torch.models import layers as t_layers
+from arcflow_tpu_torch.ops import _build
 from arcflow_tpu_torch.ops import attention as t_attn
 
 torch.set_num_threads(1)
@@ -167,10 +168,10 @@ def test_broadcast_views_are_refused(name):
     heads by ``expand``, say) is refused before any launch: the kernels'
     TMA maps step through memory by the strides. A dimension of one
     element may have any stride."""
-    t_attn._check_no_broadcast(**{name: _bf16((1, 64, 1, 128)).expand(
+    _build.check_no_broadcast(**{name: _bf16((1, 64, 1, 128)).expand(
         1, 64, 1, 128)})
     with pytest.raises(ValueError, match='broadcast view'):
-        t_attn._check_no_broadcast(**{name: _bf16((1, 64, 1, 128)).expand(
+        _build.check_no_broadcast(**{name: _bf16((1, 64, 1, 128)).expand(
             1, 64, 2, 128)})
 
 
@@ -182,7 +183,7 @@ def test_launch_error_names_a_refused_tensor_map():
         def arcflow_cuda_error_string(code):
             return f'cuda error {code}'.encode()
 
-    err = t_attn._TMA_REFUSED + (4 << 12) + 1
-    assert t_attn._launch_error(Lib, err, ('q', 'k', 'v', 'o', 'dout')) == \
+    err = _build._TMA_REFUSED + (4 << 12) + 1
+    assert _build.launch_error(Lib, err, ('q', 'k', 'v', 'o', 'dout')) == \
         'the driver refused the TMA map of dout (CUresult 1)'
-    assert t_attn._launch_error(Lib, 700, ('q',)) == 'cuda error 700'
+    assert _build.launch_error(Lib, 700, ('q',)) == 'cuda error 700'

@@ -151,6 +151,35 @@ def test_w4a8_ref_matches_pallas_interpret():
     assert tqmm.LAUNCHES == before          # a CPU tensor launches nothing
 
 
+def test_w4a8_ref_with_row_scale_matches_pallas_interpret():
+    """The fused form, ``w4a8_matmul_ref(..., row_scale=xs,
+    out_dtype=bf16)``, against the JAX package's two steps, ``(Pallas
+    interpret * xs).astype(bf16)``. The fp32 products agree to rtol 1e-6
+    (above), so after the one rounding to bf16 the two differ by at most
+    one bf16 ulp where a value lies near a rounding boundary, and one ulp
+    is at most 2^-7 of |value|: rtol 2^-7. The CPU wrapper takes the plain
+    version, bit for bit."""
+    xq, packed, scale = _w4a8_case()
+    xs = (0.001 + 0.01 * jax.random.uniform(jax.random.PRNGKey(8),
+                                            (xq.shape[0], 1)))
+    want = _np((w4a8_matmul_pallas(xq, packed, scale, block_m=512,
+                                   block_n=512, k_groups=2, interpret=True)
+                * xs).astype(jnp.bfloat16).astype(jnp.float32))
+    args = [torch.from_numpy(_np(a)) for a in (xq, packed, scale)]
+    row_scale = torch.from_numpy(_np(xs))
+    got = tqmm.w4a8_matmul_ref(*args, row_scale=row_scale,
+                               out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (512, 512)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=0)
+    before = tqmm.LAUNCHES
+    assert torch.equal(tqmm.w4a8_matmul(*args, row_scale=row_scale,
+                                        out_dtype=torch.bfloat16), got)
+    assert tqmm.LAUNCHES == before
+    assert torch.equal(got, (tqmm.w4a8_matmul_ref(*args) * row_scale).to(
+        torch.bfloat16))
+
+
 def test_w4a8_ref_is_exact_on_integer_inputs():
     """Scale 1 and small integers: the plain version is the exact integer
     product, nibble value -8 included."""

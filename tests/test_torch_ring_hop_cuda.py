@@ -190,3 +190,76 @@ def test_planted_faults_break_both_limits(cuda, monkeypatch):
     over, rel = _past_limits(ring_attention(q, k, v, None, LocalRing(4)),
                              want)
     assert over and rel > REL_L2
+
+
+def _hop_pair(g, b, sq, skv, h, lengths):
+    """q (B, Sq, H, 128) and two visiting blocks of Skv keys, the second
+    masked to ``lengths`` (None: unmasked)."""
+    q = torch.randn(b, sq, h, 128, generator=g, device='cuda',
+                    dtype=torch.bfloat16)
+    return q, [_block(g, b, skv, h), _block(g, b, skv, h, lengths)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('sq,skv', [(127, 127), (128, 128), (129, 129),
+                                    (193, 193), (1152, 1152), (127, 129),
+                                    (129, 193), (1152, 127)])
+def test_tile_edges_match_and_repeat_bitwise(cuda, sq, skv):
+    """Query and key counts on both sides of the 128-row tiles, two hops
+    (the second's key mask ends inside a tile for row 0), and a second run
+    bitwise equal to the first."""
+    q, blocks = _hop_pair(cuda, 2, sq, skv, 3, (max(1, skv - 70), skv))
+    before = t_hop.LAUNCHES
+    carry, out = _chain(q, blocks, t_hop.ring_hop)
+    again, out2 = _chain(q, blocks, t_hop.ring_hop)
+    torch.cuda.synchronize()
+    assert t_hop.LAUNCHES == before + 4
+    ref, out_r = _chain(q, blocks, t_hop.ring_hop_ref)
+    _check_carry(carry, ref)
+    _close(out, out_r)
+    assert torch.equal(out, out2)
+    assert all(torch.equal(x, y) for x, y in zip(carry, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,h', [(2, 70), (1, 1)])
+def test_batch_heads_past_the_card_and_one(cuda, b, h):
+    """B * H = 140 (more (batch, head) slices than the 132 SMs of an H100)
+    and B * H = 1."""
+    q, blocks = _hop_pair(cuda, b, 129, 300, h, (200,) * b)
+    carry, out = _chain(q, blocks, t_hop.ring_hop)
+    torch.cuda.synchronize()
+    ref, out_r = _chain(q, blocks, t_hop.ring_hop_ref)
+    _check_carry(carry, ref)
+    _close(out, out_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('first,last', [(True, False), (False, True),
+                                        (True, True), (False, False)])
+def test_first_and_last_alone_and_together(cuda, first, last):
+    """One hop with each combination of the flags: ``first`` starts the
+    carry instead of reading it, ``last`` also writes O (None otherwise);
+    the carry read is the plain version's, and two runs from the same carry
+    give the same bits. The key mask ends inside the second tile."""
+    q, blocks = _hop_pair(cuda, 2, 193, 300, 3, (200, 300))
+    start = None
+    if not first:
+        (acc, m, l), _ = t_hop.ring_hop_ref(q, *blocks[0])
+        start = tuple(x.contiguous() for x in (acc, m, l))
+    k, v, valid = blocks[1]
+
+    def run():
+        carry = None if start is None else tuple(x.clone() for x in start)
+        return t_hop.ring_hop(q, k, v, valid, carry, last=last)
+    carry, out = run()
+    again, out2 = run()
+    torch.cuda.synchronize()
+    ref, out_r = t_hop.ring_hop_ref(q, k, v, valid, start, last=last)
+    _check_carry(carry, ref)
+    assert all(torch.equal(x, y) for x, y in zip(carry, again))
+    if last:
+        _close(out, out_r)
+        assert torch.equal(out, out2)
+    else:
+        assert out is None and out2 is None

@@ -10,7 +10,9 @@ Tolerance: every per-group partial sum is an integer below 2^24, exact in
 int32 in the kernel and in fp32 in the plain version (TF32 off), so the two
 differ only in how the fp32 sum over scale groups rounds. Each output is
 held within 1e-6 of its own ``sum_k |xq[m, k]| |w[k, n]| scale[k // group,
-n]``, a few fp32 ulps of that sum.
+n]``, a few fp32 ulps of that sum. The fused epilogue (``row_scale``,
+``out_dtype``) is the same fp32 product and rounding as scaling and casting
+the fp32 output afterwards, so it is held to that bit for bit.
 """
 
 import pytest
@@ -117,3 +119,70 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         qmm.w4a8_matmul(xq.t().contiguous().t(), packed, scale)
     with pytest.raises(ValueError, match='int8'):
         qmm.w4a8_matmul(xq.float(), packed, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('group', [32, 64, 128])
+@pytest.mark.parametrize('n', [136, 264])
+@pytest.mark.parametrize('m', [1, 3, 130, 511, 513, 777, 4097])
+def test_kernel_ragged_m_and_n_at_every_group(cuda, m, n, group):
+    """M off the 128-token and the 8-token tiles, N off the 128-column tile
+    and off the 16 bytes a TMA row steps in (the wrapper pads N = 136 to
+    144), at K = 384 for every group size."""
+    _check(*_case(cuda, m, 384, n, group), group)
+
+
+def _fused_case(g, m, k, n, group):
+    xq, q, scale = _case(g, m, k, n, group)
+    xs = 0.001 + 0.01 * torch.rand(m, 1, generator=g, device='cuda')
+    return xq, pack_int4(q, group), scale, xs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('m,k,n,group', [
+    (m, k, n, 128) for m, k, n in PATH_SHAPES] + [
+    (3, 384, 136, 32), (513, 384, 264, 64), (4097, 384, 136, 128)])
+def test_fused_epilogue_equals_the_two_step_path_bitwise(cuda, m, k, n,
+                                                         group, dtype):
+    """``row_scale`` and ``out_dtype`` make the kernel write
+    ``(acc * row_scale).to(out_dtype)`` itself: the same fp32 product and
+    rounding as the fp32 output scaled and cast afterwards
+    (``models/layers.py:_int4_matmul`` before the fusion), bit for bit."""
+    xq, packed, scale, xs = _fused_case(cuda, m, k, n, group)
+    before = qmm.LAUNCHES
+    fused = qmm.w4a8_matmul(xq, packed, scale, row_scale=xs, out_dtype=dtype)
+    y = qmm.w4a8_matmul(xq, packed, scale)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES == before + 2
+    assert fused.dtype == dtype and fused.shape == (m, n)
+    assert torch.equal(fused, (y * xs).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m,k,n,group', [(4096, 3072, 3072, 128),
+                                         (512, 3072, 12288, 128),
+                                         (1, 3072, 18432, 128),
+                                         (130, 512, 264, 32)])
+def test_two_runs_are_bitwise_equal(cuda, m, k, n, group):
+    """No split over groups and no atomics: every output is summed by one
+    thread in group order, so a second run gives the same bits."""
+    xq, packed, scale, xs = _fused_case(cuda, m, k, n, group)
+    assert torch.equal(qmm.w4a8_matmul(xq, packed, scale),
+                       qmm.w4a8_matmul(xq, packed, scale))
+    assert torch.equal(
+        qmm.w4a8_matmul(xq, packed, scale, xs, torch.bfloat16),
+        qmm.w4a8_matmul(xq, packed, scale, xs, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_wrapper_raises_on_a_bad_row_scale_or_out_dtype(cuda):
+    xq, packed, scale, xs = _fused_case(cuda, 4, 256, 16, 128)
+    with pytest.raises(ValueError, match='row_scale'):
+        qmm.w4a8_matmul(xq, packed, scale, row_scale=xs.double())
+    with pytest.raises(ValueError, match='row_scale'):
+        qmm.w4a8_matmul(xq, packed, scale, row_scale=xs[:3])
+    with pytest.raises(ValueError, match='out_dtype'):
+        qmm.w4a8_matmul(xq, packed, scale, out_dtype=torch.int32)
+    with pytest.raises(ValueError, match='out_dtype'):
+        qmm.w4a8_matmul(xq, packed, scale, out_dtype=torch.float16)
