@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels
-// (attention_fwd.cu, attention_bwd.cu, ring_hop.cu, w4a8_matmul.cu):
+// (attention_fwd.cu, attention_bwd.cu, ring_hop.cu, w4a8_matmul.cu,
+// flash_int8.cu):
 // mbarriers, TMA tensor maps and loads, warpgroup MMA (wgmma, bf16 and s8)
 // on shared-memory descriptors, and the fences and register hand-over of
 // warp specialisation.
@@ -346,8 +347,8 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 // s8 wgmma: an int32 accumulator has the fp32 layout above. The register A
 // operand of a k32 step holds four int8 values per register: a[0] row
 // 16w + lane/4, k 4 (lane % 4) .. + 3; a[1] the same k of row + 8; a[2]
-// and a[3] the same rows at k + 16. 8-bit B operands are read K-major
-// only.
+// and a[3] the same rows at k + 16. 8-bit operands in shared memory (A or
+// B) are read K-major only.
 
 // d (64 x 8 int32) (+)= A (64 x 32 int8, registers) * B (32 x 8 int8,
 // smem, K-major)
@@ -401,6 +402,42 @@ __device__ __forceinline__ void wgmma_rs_s8(int32_t (&d)[64],
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
+}
+
+// d (64 x 128 int32) (+)= A (64 x 32 int8, smem, K-major) * B (32 x 128
+// int8, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_s8(int32_t (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -520,6 +557,28 @@ inline int make_int8_map(CUtensorMap* map, const void* ptr, long long rows,
       map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
       strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTmaRefused + (arg << 12) + (int)r;
+}
+
+// A (rows, cols) fp32 matrix with rows `pitch` values apart (a multiple
+// of 4: TMA steps rows in 16-byte units) as a 2-D map whose box is
+// `box_cols` values (a multiple of 4, at most 256) of one row, unswizzled.
+// Columns past cols read as zeros. Returns as make_bshd_map_of.
+inline int make_f32_rows_map(CUtensorMap* map, const void* ptr,
+                             long long rows, long long cols, long long pitch,
+                             int box_cols, int arg) {
+  EncodeTiledFn encode = nullptr;
+  const int err = encode_tiled(&encode);
+  if (err != 0) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, 1};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTmaRefused + (arg << 12) + (int)r;
 }

@@ -114,15 +114,19 @@ def load_library() -> ctypes.CDLL:
     lib.arcflow_attention_bwd_workspace_bytes.restype = _I64
     lib.arcflow_w4a8_matmul.argtypes = [_P] * 5 + [_I32] * 6 + [_P]
     lib.arcflow_w4a8_matmul.restype = _I32
-    lib.arcflow_gm_inverse_cdf.argtypes = [_P] * 7 + [_I32] * 2 + [_I64, _I32] \
-        + [ctypes.c_float] * 2 + [_P]
+    lib.arcflow_gm_inverse_cdf.argtypes = [_P] * 7 + [
+        ctypes.POINTER(_I64), _I32, _I32, _I64, _I32] \
+        + [ctypes.c_float] * 2 + [_I32] * 2 + [_P]
     lib.arcflow_gm_inverse_cdf.restype = _I32
     lib.arcflow_ring_hop.argtypes = [_P] * 8 + [_I32] * 4 + [_I64] * 13 \
         + [_I32] * 2 + [_P]
     lib.arcflow_ring_hop.restype = _I32
-    lib.arcflow_flash_int8.argtypes = [_P] * 7 + [_I32] * 4 + [_I64] * 13 \
+    lib.arcflow_flash_int8.argtypes = [_P] * 7 + [_I32] * 4 + [_I64] * 14 \
         + [ctypes.c_float, _P]
     lib.arcflow_flash_int8.restype = _I32
+    lib.arcflow_quantize_rows_int8.argtypes = [_P] * 2 + [_I32] * 4 \
+        + [_I64] * 6 + [_P] * 5
+    lib.arcflow_quantize_rows_int8.restype = _I32
     lib.arcflow_cuda_error_string.argtypes = [_I32]
     lib.arcflow_cuda_error_string.restype = ctypes.c_char_p
     return lib

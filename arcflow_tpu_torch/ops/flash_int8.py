@@ -1,5 +1,6 @@
-"""Forward flash attention with an int8 QK^T: the Hopper kernel, its wrapper
-and its plain PyTorch version.
+"""Forward flash attention with an int8 QK^T: the Hopper kernels (the row
+quantization and the attention), their wrappers and their plain PyTorch
+versions.
 
 Counterpart of ``arcflow_tpu/ops/flash_int8.py``. q and k are quantized per
 (batch, token, head) row to symmetric int8 (absmax / 127 with a 1e-6
@@ -10,13 +11,14 @@ the softmax runs in fp32 and P.V in bf16. A padded key scores -1e30 (not
 the mean of v in bf16, as the JAX kernel gives it (and as
 ``models/layers.py:attention`` does), not the O = 0 of the other kernels.
 
-The kernel (``csrc/flash_int8.cu``) replaces the TPU kernel
+The kernels (``csrc/flash_int8.cu``) replace the TPU kernel
 ``arcflow_tpu/ops/flash_int8.py:flash_attention_int8``. As in the JAX
-package, nothing in serving calls it. The quantization runs before the
-kernel in plain PyTorch ops (the JAX package quantizes outside its Pallas
-call too, fused by XLA) and hands it int8 (B, S, H, D) rows and fp32
-(B, H, S) scales. A CUDA tensor always launches the kernel (or the wrapper
-raises); only a CPU tensor takes ``flash_attention_int8_ref``.
+package, nothing in serving calls them. The quantization is a kernel of
+its own, one launch for q and k (``quantize_qk``; the JAX function
+quantizes outside its Pallas call, fused by XLA), and hands the attention
+int8 (B, S, H, D) rows and fp32 (B, H, S) scales. A CUDA tensor always
+launches the kernels (or the wrapper raises); only a CPU tensor takes the
+plain versions, ``quantize_qk_ref`` and ``flash_attention_int8_ref``.
 """
 
 from __future__ import annotations
@@ -26,11 +28,14 @@ from typing import Optional
 
 import torch
 
+from ._build import launch_error
 from .attention import HEAD_DIM, _check_cuda_args
 
-# Kernel launches since the count was last set to 0; the wrapper adds one
-# per launch and nothing else touches it except a caller resetting it.
+# Kernel launches since the count was last set to 0, of the attention
+# (LAUNCHES) and of the quantization (QUANT_LAUNCHES); each wrapper adds one
+# per launch and nothing else touches them except a caller resetting them.
 LAUNCHES = 0
+QUANT_LAUNCHES = 0
 
 MASKED_SCORE = -1e30       # a padded key's score, as in the JAX kernel
 LOG2E = 1.4426950408889634
@@ -41,16 +46,51 @@ def rowwise_int8(x: torch.Tensor):
     int8, (..., 1) fp32 scales), absmax / 127 with a 1e-6 floor, round half
     to even, clip to [-127, 127], in fp32 as in the JAX package."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
+    amax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
+    # by a tensor, not a Python number: PyTorch divides a CUDA tensor by a
+    # number as a product with its reciprocal, off the IEEE quotient by an
+    # ulp at times, where JAX (and PyTorch on the CPU) divides
+    scale = amax / amax.new_full((), 127.0)
     return torch.round(xf / scale).clamp_(-127, 127).to(torch.int8), scale
 
 
-def quantize_qk(q: torch.Tensor, k: torch.Tensor):
-    """The kernel's operands from (B, S, H, D) q and k: int8 rows
-    (B, S, H, D), contiguous, and fp32 scales (B, H, S), contiguous."""
+def quantize_qk_ref(q: torch.Tensor, k: torch.Tensor):
+    """The plain version of ``quantize_qk``: ``rowwise_int8`` of q and k,
+    laid out as the attention kernel reads them."""
     (qq, qs), (kq, ks) = rowwise_int8(q), rowwise_int8(k)
     return (qq.contiguous(), qs[..., 0].transpose(1, 2).contiguous(),
             kq.contiguous(), ks[..., 0].transpose(1, 2).contiguous())
+
+
+def quantize_qk(q: torch.Tensor, k: torch.Tensor):
+    """The attention kernel's operands from (B, S, H, D) q and k: int8 rows
+    (B, S, H, D), contiguous, and fp32 scales (B, H, S), contiguous,
+    bitwise ``rowwise_int8``'s. CUDA tensors (bf16 or fp32, D = 128, rows
+    as ``ops/attention.py`` checks them) launch the quantization kernel
+    once for both; CPU tensors take ``quantize_qk_ref``."""
+    if q.device.type == 'cpu':
+        return quantize_qk_ref(q, k)
+    if q.device.type != 'cuda':
+        raise ValueError(f'no int8 quantization kernel for device {q.device}')
+    _check_cuda_args(q, k, k, None, dtypes=(torch.bfloat16, torch.float32))
+    from ._build import load_library
+    lib = load_library()
+    b, s, h, d = q.shape
+    qq, kq = (torch.empty((b, s, h, d), dtype=torch.int8, device=q.device)
+              for _ in range(2))
+    qs, ks = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+              for _ in range(2))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.arcflow_quantize_rows_int8(
+        q.data_ptr(), k.data_ptr(), int(q.dtype == torch.float32), b, s, h,
+        *q.stride()[:3], *k.stride()[:3], qq.data_ptr(), qs.data_ptr(),
+        kq.data_ptr(), ks.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError('int8 quantization kernel launch failed: '
+                           + launch_error(lib, err, ()))
+    global QUANT_LAUNCHES
+    QUANT_LAUNCHES += 1
+    return qq, qs, kq, ks
 
 
 def scores_ref(qq, qs, kq, ks, sm_scale: float) -> torch.Tensor:
@@ -72,12 +112,24 @@ def flash_attention_int8_ref(q: torch.Tensor, k: torch.Tensor,
     dtype."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    s = scores_ref(*quantize_qk(q, k), sm_scale)
+    s = scores_ref(*quantize_qk_ref(q, k), sm_scale)
     if kv_valid is not None:
         s = s.masked_fill(~kv_valid.bool()[:, None, None, :], MASKED_SCORE)
     p = torch.softmax(s, dim=-1)
     vb = v.to(torch.bfloat16).float()
     return torch.einsum('bhqk,bkhd->bqhd', p, vb).to(q.dtype)
+
+
+def key_scale_rows(ks: torch.Tensor):
+    """The key scales as the attention kernel's TMA map reads them: (B H,
+    pitch) fp32 rows with pitch = S rounded up to a multiple of 4, since TMA
+    steps rows in 16-byte units; ``ks`` itself when S is a multiple of 4,
+    else a zero-padded copy. Returns (rows, pitch)."""
+    b, h, s = ks.shape
+    pitch = -(-s // 4) * 4
+    if pitch != s:
+        ks = torch.nn.functional.pad(ks, (0, pitch - s))
+    return ks.reshape(b * h, pitch), pitch
 
 
 def launch(qq, qs, kq, ks, v, kv_valid, sm_scale: float,
@@ -103,6 +155,10 @@ def launch(qq, qs, kq, ks, v, kv_valid, sm_scale: float,
                 or not t.is_contiguous() or t.device != qq.device):
             raise ValueError(f'{name} must be contiguous fp32 (B, H, S) = '
                              f'{(b, h, s)} on {qq.device}')
+    ks_rows, ks_pitch = key_scale_rows(ks)
+    if ks_rows.data_ptr() % 16:
+        raise ValueError('ks needs a 16-byte aligned base (a TMA map reads '
+                         'it)')
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f'no int8 attention output in {out_dtype}')
     from ._build import load_library
@@ -116,13 +172,14 @@ def launch(qq, qs, kq, ks, v, kv_valid, sm_scale: float,
     stream = torch.cuda.current_stream(qq.device).cuda_stream
     err = lib.arcflow_flash_int8(
         qq.data_ptr(), kq.data_ptr(), v.data_ptr(), qs.data_ptr(),
-        ks.data_ptr(), mask_ptr, out.data_ptr(), b, s, h,
+        ks_rows.data_ptr(), mask_ptr, out.data_ptr(), b, s, h,
         int(out_dtype == torch.float32), *qq.stride()[:3], *kq.stride()[:3],
-        *v.stride()[:3], *out.stride()[:3], mask_sb, sm_scale * LOG2E,
-        stream)
+        *v.stride()[:3], *out.stride()[:3], mask_sb, ks_pitch,
+        sm_scale * LOG2E, stream)
     if err != 0:
         raise RuntimeError('int8 attention kernel launch failed: '
-                           + lib.arcflow_cuda_error_string(err).decode())
+                           + launch_error(lib, err, ('qq', 'kq', 'v', 'qs',
+                                                     'ks')))
     global LAUNCHES
     LAUNCHES += 1
     return out

@@ -6,18 +6,23 @@ kernel ``arcflow_tpu/ops/gm/inverse_cdf.py:gm1d_inverse_cdf_pallas``: each
 element runs ``n_steps`` clamped NR steps on the mixture CDF scaled to
 [-1, 1]. Shapes follow ``gm_ops.gm1d_*``: means, log-weights and weights
 (..., G, H, W) broadcastable against targets and initial samples
-(..., N, H, W); the wrapper broadcasts the leading axes and lays everything
-out as (rows, M) with M = prod(batch, H, W) contiguous, as the JAX
-``to_gm_layout`` does. A CUDA tensor always launches the kernel (or the
-wrapper raises); only a CPU tensor takes ``gm1d_inverse_cdf_ref``.
+(..., N, H, W). The kernel reads every input in place, as a broadcast view
+over the element axes (lead..., N, H, W) with the axes merged where all
+tensors allow (``kernel_geometry``), and writes the (lead..., N, H, W)
+result; it runs L lanes per element (``lanes_for``). The plain version
+lays everything out as (rows, M) with M = prod(batch, H, W), as the JAX
+``to_gm_layout`` does (``kernel_layout``). A CUDA tensor always launches
+the kernel (or the wrapper raises); only a CPU tensor takes
+``gm1d_inverse_cdf_ref``.
 
-The kernel's erf is CUDA's ``erff``; the TPU kernel's is Abramowitz-Stegun
-7.1.26 (|err| < 1.5e-7), so the two cdfs differ by up to 1.5e-7 per
-component weight and the roots by that over 2 pdf.
+The kernel's erf is the TPU kernel's Abramowitz-Stegun 7.1.26 (|err| <
+1.5e-7) and the plain version's is ``torch.erf``, so the two cdfs differ
+by up to 1.5e-7 and the roots by that over 2 pdf.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -26,15 +31,38 @@ import torch
 # per launch and nothing else touches it except a caller resetting it.
 LAUNCHES = 0
 
+# The kernel's limits (csrc/gm_inverse_cdf.cu): element dimensions after
+# merging, lanes per element and component slots per lane (powers of two).
+MAX_DIMS = 6
+MAX_LANES = 16
+MAX_PER_LANE = 16
+# lanes double while the grid holds fewer threads than this: about four
+# warps for each of the 4 x 132 warp schedulers of an H100. More lanes only
+# add shuffles: at the KR axis (16,384 elements, G 16) the kernel ran
+# fastest at 4 lanes, 65,536 threads (attention_ab.py, PERF.md)
+FILL_THREADS = 65536
+
 INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
 
+def _broadcast(a, b):
+    """The broadcast of two shapes (``torch.broadcast_shapes`` without its
+    cost on the host)."""
+    n = max(len(a), len(b))
+    a, b = (1,) * (n - len(a)) + tuple(a), (1,) * (n - len(b)) + tuple(b)
+    out = []
+    for x, y in zip(a, b):
+        if x != y and 1 not in (x, y):
+            raise ValueError(f'shapes {a} and {b} do not broadcast')
+        out.append(y if x == 1 else x)
+    return tuple(out)
+
+
 def _layout(means, scaled_cdfs):
     """(lead, H, W, M) of the broadcast element axis."""
-    batch_hw = torch.broadcast_shapes(
-        means.shape[:-3] + means.shape[-2:],
-        scaled_cdfs.shape[:-3] + scaled_cdfs.shape[-2:])
+    batch_hw = _broadcast(means.shape[:-3] + means.shape[-2:],
+                          scaled_cdfs.shape[:-3] + scaled_cdfs.shape[-2:])
     lead, (h, w) = tuple(batch_hw[:-2]), batch_hw[-2:]
     return lead, h, w, math.prod(lead) * h * w
 
@@ -90,30 +118,121 @@ def gm1d_inverse_cdf_ref(means, logweights, weights, logstds, scaled_cdfs,
     return _from_rows(out, lead, h, w).to(scaled_cdfs.dtype)
 
 
-def launch(rows, n_steps: int, eps: float, max_step_size: float
-           ) -> torch.Tensor:
-    """One kernel launch on the (rows, M) layout of ``kernel_layout``
-    (means, logw, w (G, M), logstd (1, M), target, init (N, M), contiguous
-    fp32 on one card): returns the fresh (N, M) result and counts the
-    launch."""
-    means, _, _, _, target, _ = rows
-    dev = target.device
-    for t in rows:
-        if (t.device != dev or t.dtype != torch.float32
-                or not t.is_contiguous() or t.dim() != 2
-                or t.shape[1] != means.shape[1]):
-            raise ValueError('the kernel takes contiguous fp32 (rows, M) '
-                             'tensors on one card')
-    g, n, m = means.shape[0], target.shape[0], means.shape[1]
-    if g == 0 or m == 0 or not 1 <= n <= 65535:
-        raise ValueError(f'unsupported inverse-CDF problem G={g} N={n} M={m}')
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(x - 1, 0).bit_length()
+
+
+def lanes_for(g: int, elements: int) -> int:
+    """Lanes per element: doubled from 1 while the grid (elements x lanes
+    threads) holds fewer than ``FILL_THREADS`` and the lanes have
+    components to share, up to 16; then at least enough that a lane holds
+    no more than ``MAX_PER_LANE`` components."""
+    lanes = 1
+    while (lanes < MAX_LANES and lanes < g
+           and elements * lanes < FILL_THREADS):
+        lanes *= 2
+    while lanes < MAX_LANES and -(-g // lanes) > MAX_PER_LANE:
+        lanes *= 2
+    return lanes
+
+
+def merge_dims(sizes, strides):
+    """Drop the size-1 axes of an element space and merge each axis into
+    the next inner one where every tensor's strides allow it (outer stride
+    = inner stride x inner size). ``strides`` holds one stride tuple per
+    tensor; returns (sizes, strides) of the merged axes, outer first, at
+    least one axis."""
+    axes = [(n, [st[i] for st in strides]) for i, n in enumerate(sizes)
+            if n != 1]
+    merged = []
+    for n, st in axes:
+        if merged and all(o == i * n for o, i in zip(merged[-1][1], st)):
+            merged[-1] = (merged[-1][0] * n, st)
+        else:
+            merged.append((n, st))
+    if not merged:
+        merged = [(1, [0] * len(strides))]
+    return [n for n, _ in merged], [[st[k] for _, st in merged]
+                                    for k in range(len(strides))]
+
+
+def _aligned_strides(sizes, strides, shape):
+    """The strides of a tensor of ``sizes`` and ``strides`` broadcast to
+    ``shape`` (axes aligned to the right; a broadcast axis has stride 0),
+    as ``broadcast_to`` would give them, computed without a view."""
+    pad = len(shape) - len(sizes)
+    if pad < 0:
+        raise ValueError(f'cannot broadcast {tuple(sizes)} to {shape}')
+    out = [0] * pad
+    for n, m, st in zip(shape[pad:], sizes, strides):
+        if m not in (1, n):
+            raise ValueError(f'cannot broadcast {tuple(sizes)} to {shape}')
+        out.append(st if m == n and n != 1 else 0)
+    return out
+
+
+def kernel_geometry(means, logweights, weights, logstds, scaled_cdfs,
+                    init_samples):
+    """What the kernel reads, with no copy: the six inputs in fp32 as they
+    lie, a fresh (*lead, N, H, W) fp32 output, and the merged element axes
+    (*lead, N, H, W): ``sizes``, the element ``strides`` of the six inputs
+    (broadcast axes 0) and the output, and the component strides
+    ``gstrides`` of means, log-weights and weights. Only a tensor not in
+    fp32 is converted."""
+    lead, h, w, _ = _layout(means, scaled_cdfs)
+    g, n = means.shape[-3], scaled_cdfs.shape[-3]
+    elem = lead + (n, h, w)
+    inputs = [x if x.dtype == torch.float32 else x.to(torch.float32)
+              for x in (means, logweights, weights, logstds, scaled_cdfs,
+                        init_samples)]
+    strides, gstrides = [], []
+    for x in inputs[:4]:
+        # (..., rows, H, W) over (*lead, N, rows, H, W): a unit axis for N,
+        # and the rows axis leaves the element axes
+        size, stride = x.shape, x.stride()
+        st = _aligned_strides(size[:-3] + (1,) + size[-3:],
+                              stride[:-3] + (0,) + stride[-3:],
+                              lead + (n, size[-3], h, w))
+        strides.append(st[:-3] + st[-2:])
+        gstrides.append(st[-3])
+    strides += [_aligned_strides(x.shape, x.stride(), elem)
+                for x in inputs[4:]]
+    out = torch.empty(elem, dtype=torch.float32, device=scaled_cdfs.device)
+    sizes, strides = merge_dims(elem, strides + [list(out.stride())])
+    return dict(inputs=inputs, out=out, sizes=sizes, strides=strides,
+                gstrides=gstrides[:3], g=g, elements=math.prod(elem))
+
+
+def launch(geom, n_steps: int, eps: float, max_step_size: float,
+           lanes=None) -> torch.Tensor:
+    """One kernel launch on a ``kernel_geometry``, at ``lanes`` lanes per
+    element (default ``lanes_for``): fills and returns its output and
+    counts the launch."""
+    inputs, out, g = geom['inputs'], geom['out'], geom['g']
+    dev = out.device
+    for t in inputs:
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError('the kernel takes fp32 tensors on one card')
+    if len(geom['sizes']) > MAX_DIMS:
+        raise ValueError(f'the element axes merge into '
+                         f'{len(geom["sizes"])} dims; the kernel indexes '
+                         f'at most {MAX_DIMS}')
+    elements = geom['elements']
+    lanes = lanes_for(g, elements) if lanes is None else lanes
+    per_lane = _pow2_at_least(-(-g // lanes))
+    if (g < 1 or lanes not in (1, 2, 4, 8, 16) or per_lane > MAX_PER_LANE
+            or not 1 <= elements < 2 ** 31):
+        raise ValueError(f'unsupported inverse-CDF problem G={g} '
+                         f'elements={elements} at {lanes} lanes')
     from .._build import load_library
     lib = load_library()
-    out = torch.empty((n, m), dtype=torch.float32, device=dev)
+    vals = [*geom['sizes'], *(s for st in geom['strides'] for s in st),
+            *geom['gstrides']]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.arcflow_gm_inverse_cdf(
-        *(t.data_ptr() for t in rows), out.data_ptr(), g, n, m, n_steps,
-        eps, max_step_size, stream)
+        *(t.data_ptr() for t in inputs), out.data_ptr(),
+        (ctypes.c_longlong * len(vals))(*vals), len(geom['sizes']), g,
+        elements, n_steps, eps, max_step_size, lanes, per_lane, stream)
     if err != 0:
         raise RuntimeError('inverse-CDF kernel launch failed: '
                            + lib.arcflow_cuda_error_string(err).decode())
@@ -128,8 +247,8 @@ def gm1d_inverse_cdf_kernel(means, logweights, weights, logstds, scaled_cdfs,
     """``n_steps`` NR steps from ``init_samples`` toward the roots of
     cdf(s) = ``scaled_cdfs``: the Hopper kernel on CUDA tensors, one launch
     per call. Not differentiable (the caller runs it under no_grad). CPU
-    tensors go to ``gm1d_inverse_cdf_ref``; any other device, N > 65535 or
-    an empty problem raises."""
+    tensors go to ``gm1d_inverse_cdf_ref``; any other device, an empty
+    problem, G > 256, or element axes that merge into more than 6 raise."""
     dev = scaled_cdfs.device
     if dev.type == 'cpu':
         return gm1d_inverse_cdf_ref(means, logweights, weights, logstds,
@@ -137,7 +256,7 @@ def gm1d_inverse_cdf_kernel(means, logweights, weights, logstds, scaled_cdfs,
                                     max_step_size)
     if dev.type != 'cuda':
         raise ValueError(f'no inverse-CDF kernel for device {dev}')
-    rows, (lead, h, w) = kernel_layout(means, logweights, weights, logstds,
-                                       scaled_cdfs, init_samples)
-    out = launch(rows, n_steps, eps, max_step_size)
-    return _from_rows(out, lead, h, w).to(scaled_cdfs.dtype)
+    out = launch(kernel_geometry(means, logweights, weights, logstds,
+                                 scaled_cdfs, init_samples),
+                 n_steps, eps, max_step_size)
+    return out.to(scaled_cdfs.dtype)

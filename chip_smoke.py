@@ -58,8 +58,11 @@ line each, and any failure exits non-zero:
 12. inverse-CDF kernel vs plain: against ``gm1d_inverse_cdf_ref`` at the
     KR transport's per-axis problem (G 16 over the 128 x 128 latent, one
     target, 16 steps), 64 times that (1024 x 1024), a ragged M, five
-    targets and saturated targets; finite, within the root tolerance,
-    bitwise deterministic; kernel and plain version timed at both sizes;
+    targets and saturated targets, each with the lanes per element its
+    launcher chose; finite, within the root tolerance, bitwise
+    deterministic; kernel (device time), the call and the plain version
+    timed at both sizes, the kernel at every lane count at the KR axis,
+    beside its registers and spills;
 13. KR transport on the card: ``gaussian_samples_to_gm_samples`` on a
     mixture of the ArcFlux head geometry at 1024x1024 (K=16 over the
     128 x 128 x 16 latent): exactly 16 kernel launches (one per channel
@@ -102,8 +105,11 @@ line each, and any failure exits non-zero:
     batch row (the mean of v), at the JAX test's shape, ragged, and on the
     q, k, v of one joint and one single block captured from phase 21's
     w8a8 image (cosine against K1 above 0.999); two planted faults must
-    break the limits; K7, its plain version, K1 and bf16 SDPA timed at the
-    FLUX shape.
+    break the limits; the fused row quantization bitwise equal to
+    ``rowwise_int8`` on every case's q and k, fp32 and head-major rows; K7,
+    the call with its quantization, its plain version, K1 and bf16 SDPA
+    timed at the FLUX shape, and the quantization alone, beside both
+    kernels' registers and spills.
 
 ``python3 chip_smoke.py --ranks 4`` (four cards) instead spawns 4 NCCL
 ranks and serves FLUX-12B through ``pipe.shard({'sp': 4})`` in ring and in
@@ -1482,30 +1488,47 @@ def phase_k6_vs_plain():
         args = k6_case(g, **kw)
         err = k6_check(name, args)
         worst = max(worst, err)
+        geom = icdf.kernel_geometry(*args)
+        k, n = args[0].shape[2], args[4].shape[2]
         m = math.prod(args[0].shape[-2:])
-        parts.append(f'{name} G{args[0].shape[2]} N{args[4].shape[2]} M{m} '
-                     f'max|d| {err:.3e}')
+        lanes = icdf.lanes_for(k, geom['elements'])
+        parts.append(f'{name} G{k} N{n} M{m} L{lanes} max|d| {err:.3e}')
         if name in ('kr_axis', 'large'):
-            rows, _ = icdf.kernel_layout(*args)
-            ms = cuda_ms(lambda: icdf.launch(rows, KR_STEPS, 1e-6, 1.5), 50)
+            ms = kernel_ms(lambda: icdf.launch(geom, KR_STEPS, 1e-6, 1.5),
+                           'gm_inverse_cdf', 50)
             wrapper_ms = cuda_ms(lambda: icdf.gm1d_inverse_cdf_kernel(
                 *args, n_steps=KR_STEPS), 20)
+            rows, _ = icdf.kernel_layout(*args)
             plain_ms = cuda_ms(lambda: icdf.nr_steps_ref(
                 *rows, KR_STEPS, 1e-6, 1.5), 5)
             bound_ms, bound_by, which = k6_bound(KR_K, 1, m, KR_STEPS)
+            per_lane = -(-k // lanes)
             timed[name] = dict(shape=dict(G=KR_K, N=1, M=m,
                                           n_steps=KR_STEPS),
-                               ms=ms, wrapper_ms=wrapper_ms,
+                               lanes=lanes, ms=ms, wrapper_ms=wrapper_ms,
                                plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, bound_detail=which)
+                               bound_by=bound_by, bound_detail=which,
+                               ptxas=ptxas_usage(
+                                   f'gm_inverse_cdf_kernelILi{lanes}ELi'
+                                   f'{1 << (per_lane - 1).bit_length()}E'))
+            if name == 'kr_axis':           # every lane count the launcher
+                timed[name]['ms_by_lanes'] = {     # can choose
+                    str(n_lanes): kernel_ms(lambda: icdf.launch(
+                        geom, KR_STEPS, 1e-6, 1.5, lanes=n_lanes),
+                        'gm_inverse_cdf', 50)
+                    for n_lanes in (1, 2, 4, 8, 16)}
     log(f'phase 12 inverse-CDF kernel vs plain: ok | {" ; ".join(parts)} '
         f'(bound {K6_ATOL} + {K6_CDF_TOL} / 2 pdf, unsaturated), finite, '
         f'deterministic | ' + ' ; '.join(
-            f'{name} M{t["shape"]["M"]}: kernel {t["ms"]:.4f} ms (with the '
-            f'wrapper\'s layout copies {t["wrapper_ms"]:.4f} ms), plain fp32 '
-            f'{t["plain_ms"]:.4f} ms, bound {t["bound_ms"]:.4f} ms '
-            f'({t["bound_detail"]}, {100 * t["bound_ms"] / t["ms"]:.1f}% '
-            f'of it)' for name, t in timed.items()))
+            f'{name} M{t["shape"]["M"]} L{t["lanes"]}: kernel {t["ms"]:.4f} '
+            f'ms device time (the call with its wrapper {t["wrapper_ms"]:.4f}'
+            f' ms), plain fp32 {t["plain_ms"]:.4f} ms, bound '
+            f'{t["bound_ms"]:.4f} ms ({t["bound_detail"]}, '
+            f'{100 * t["bound_ms"] / t["ms"]:.1f}% of it), ptxas '
+            f'{t["ptxas"]}' for name, t in timed.items())
+        + ' | kr_axis device ms by lanes: ' + ', '.join(
+            f'L{n_lanes} {ms:.4f}' for n_lanes, ms in
+            timed['kr_axis']['ms_by_lanes'].items()))
     return worst, timed
 
 
@@ -2252,6 +2275,33 @@ def planted_k7_faults(q, k, v):
     return parts
 
 
+def quant_bound(b, s, h, elem=2):
+    """Roofline of the row quantization of q and k at (B, S, H, 128):
+    reading both in ``elem`` bytes a value, writing their int8 rows and fp32
+    scales; against 6 fp32 operations a value (abs, max, divide, round,
+    two clips) at the fp32 peak."""
+    values = 2 * b * s * h * 128
+    nbytes = values * elem + values + 2 * b * h * s * 4
+    return roofline(6 * values, nbytes, H100_FP32)
+
+
+def quant_check(name, q, k):
+    """The quantization kernel against ``rowwise_int8`` (through
+    ``quantize_qk_ref``) on the same card tensors, bitwise; raises on any
+    difference, else returns the largest |difference| (0)."""
+    got = fi8.quantize_qk(q, k)
+    want = fi8.quantize_qk_ref(q, k)
+    worst = 0.0
+    for part, x, y in zip(('q rows', 'q scales', 'k rows', 'k scales'), got,
+                          want):
+        if not torch.equal(x, y):
+            raise AssertionError(f'quantization {name}: {part} differ from '
+                                 f'rowwise_int8 at {int((x != y).sum())} '
+                                 f'places')
+        worst = max(worst, (x.float() - y.float()).abs().max().item())
+    return worst
+
+
 def cosine(a, b):
     a, b = a.double().flatten(), b.double().flatten()
     return (a @ b / (a.norm() * b.norm())).item()
@@ -2276,6 +2326,14 @@ def phase_k7_vs_plain(captured):
              ('jax test shape', jax_shape, None),
              ('jax test shape masked', jax_shape, valid(512, (256, 448))),
              ('ragged', qkv((2, 1000, 4, 128)), valid(1000, (900, 1000)))]
+    fp32 = [x.float() for x in qkv((2, 1000, 4, 128))]
+    quant_err = max(quant_check(name, q, k) for name, (q, k, _), _ in
+                    cases + [('ragged fp32', fp32, None)])
+    q, k, _ = flux
+    quant_err = max(quant_err, quant_check(
+        'FLUX shape, head-major views',
+        q.transpose(1, 2).contiguous().transpose(1, 2),
+        k.transpose(1, 2).contiguous().transpose(1, 2)))
     worst, parts = 0.0, []
     for name, (q, k, v), kv_valid in cases:
         err, rel, out = k7_check(name, q, k, v, kv_valid)
@@ -2285,7 +2343,7 @@ def phase_k7_vs_plain(captured):
                 raise AssertionError('K7: a keyless row is not the mean of v')
         worst = max(worst, err)
         parts.append(f'{name} max|d| {err:.3e} rel L2 {rel:.3e}')
-    fi8.LAUNCHES = 0                        # the probe of the w8a8 image
+    fi8.LAUNCHES = fi8.QUANT_LAUNCHES = 0   # the probe of the w8a8 image
     probe = []
     for name, (q, k, v) in zip(('joint block 0', 'single block 0'),
                                captured):
@@ -2297,6 +2355,10 @@ def phase_k7_vs_plain(captured):
         probe.append(f'{name} max|d| {err:.3e} rel L2 {rel:.3e}, cosine '
                      f'against K1 {cos:.6f}')
     launches = fi8.LAUNCHES // 2            # each case runs twice
+    quant_launches = fi8.QUANT_LAUNCHES // 2
+    if launches != 2 or quant_launches != 2:
+        raise AssertionError(f'the probe launched K7 {launches} and the '
+                             f'quantization {quant_launches} times, want 2')
     faults = planted_k7_faults(*flux) + planted_k7_faults(*jax_shape)
     q, k, v = flux
     qq, qs, kq, ks = fi8.quantize_qk(q, k)
@@ -2308,6 +2370,14 @@ def phase_k7_vs_plain(captured):
     with torch.inference_mode():
         sdpa_ms = cuda_ms(lambda: sdpa(q, k, v), 20)
     bound_ms, bound_by = k7_bound(b, s, h)
+    quant = dict(ms=kernel_ms(lambda: fi8.quantize_qk(q, k),
+                              'quantize_rows_int8', 50),
+                 call_ms=cuda_ms(lambda: fi8.quantize_qk(q, k), 50),
+                 plain_ms=cuda_ms(lambda: fi8.quantize_qk_ref(q, k), 20),
+                 launches=quant_launches, max_abs_err=quant_err)
+    quant['bound_ms'], quant['bound_by'] = quant_bound(b, s, h)
+    ptxas = {name: ptxas_usage(name) for name in (
+        'flash_int8_kernelI13__nv_bfloat16E', 'quantize_rows_int8_kernel')}
     log(f'phase 22 int8-QK^T attention kernel (K7) vs plain: ok | '
         f'{" ; ".join(parts)} | on the w8a8 image ({launches} probe '
         f'launches): {" ; ".join(probe)} | limits |d| <= {K7_ATOL} + '
@@ -2315,14 +2385,21 @@ def phase_k7_vs_plain(captured):
         f'runs bitwise equal, the keyless row the mean of v | planted faults '
         f'refused by both limits (FLUX shape, then B2 S512 H3): '
         f'{" ; ".join(faults)} | FLUX shape B{b} S{s} H{h} D128: kernel '
-        f'{ms:.4f} ms (with the quantization pass {wrapper_ms:.4f} ms), '
+        f'{ms:.4f} ms (the call with the quantization {wrapper_ms:.4f} ms), '
         f'plain {plain_ms:.4f} ms, K1 {k1_ms:.4f} ms, SDPA bf16 '
         f'{sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, '
-        f'{100 * bound_ms / ms:.1f}% of it)')
+        f'{100 * bound_ms / ms:.1f}% of it) | quantization ({quant_launches} '
+        f'probe launches) bitwise rowwise_int8 on bf16, fp32, ragged and '
+        f'head-major rows: {quant["ms"]:.4f} ms device time (the call '
+        f'{quant["call_ms"]:.4f} ms), plain {quant["plain_ms"]:.4f} ms, '
+        f'bound {quant["bound_ms"]:.4f} ms ({quant["bound_by"]}, '
+        f'{100 * quant["bound_ms"] / quant["ms"]:.1f}% of it) | ptxas: '
+        + ' ; '.join(f'{name}: {use}' for name, use in ptxas.items()))
     return worst, launches, dict(ms=ms, wrapper_ms=wrapper_ms,
                                  plain_ms=plain_ms, bound_ms=bound_ms,
                                  bound_by=bound_by, k1_ms=k1_ms,
-                                 sdpa_ms=sdpa_ms)
+                                 sdpa_ms=sdpa_ms, quant=quant,
+                                 ptxas=ptxas)
 
 
 def spied_call(pipe, embeds, latents, output_type):
@@ -2605,6 +2682,8 @@ def main():
          'bound_by': k6_timed['kr_axis']['bound_by'], 'library_ms': None,
          'shape': k6_timed['kr_axis']['shape'],
          'wrapper_ms': k6_timed['kr_axis']['wrapper_ms'],
+         'lanes': k6_timed['kr_axis']['lanes'],
+         'ms_by_lanes': k6_timed['kr_axis']['ms_by_lanes'],
          'large': k6_timed['large']},
         {'name': 'ring_hop', 'route': 'cuda',
          'source': 'arcflow_tpu_torch/csrc/ring_hop.cu',
@@ -2628,6 +2707,19 @@ def main():
          'wrapper_ms': k7_timed['wrapper_ms'],
          'reference_ms': {'attention_fwd': k7_timed['k1_ms'],
                           'sdpa_bf16': k7_timed['sdpa_ms']},
+         'shape': list(FLUX_SHAPE)},
+        {'name': 'quantize_rows_int8', 'route': 'cuda',
+         'source': 'arcflow_tpu_torch/csrc/flash_int8.cu',
+         'replaces': 'arcflow_tpu/ops/flash_int8.py:118',
+         'launches': k7_timed['quant']['launches'],
+         'launches_by_path': {
+             'w8a8_flux_probe': k7_timed['quant']['launches']},
+         'max_abs_err': k7_timed['quant']['max_abs_err'],
+         'ms': k7_timed['quant']['ms'],
+         'plain_ms': k7_timed['quant']['plain_ms'],
+         'bound_ms': k7_timed['quant']['bound_ms'],
+         'bound_by': k7_timed['quant']['bound_by'], 'library_ms': None,
+         'call_ms': k7_timed['quant']['call_ms'],
          'shape': list(FLUX_SHAPE)}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

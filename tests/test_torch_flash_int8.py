@@ -217,3 +217,61 @@ def test_launch_refuses_operands_it_does_not_take(bad, match):
     with pytest.raises(ValueError, match=match):
         t_fi8.launch(args['qq'], args['qs'], args['kq'], args['ks'],
                      args['v'], None, 1.0, torch.bfloat16)
+
+
+def test_rowwise_int8_scale_is_the_ieee_quotient():
+    """scale = max(absmax, 1e-6) / 127 as one IEEE division in fp32 (numpy's
+    float32 division), not a product with 1/127: the quantization kernel
+    divides so, and so does JAX."""
+    x = _qkv(6, (3, 50, 4, D))[0] * np.exp(
+        3 * np.random.default_rng(7).standard_normal((3, 50, 4, 1)))
+    x = x.astype(np.float32)
+    _, scale = t_fi8.rowwise_int8(torch.from_numpy(x))
+    want = np.maximum(np.abs(x).max(-1, keepdims=True),
+                      np.float32(1e-6)) / np.float32(127)
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(scale.numpy(), want)
+
+
+# the attention kernel's key tile (csrc/flash_int8.cu:kBlockN)
+KEY_TILE = 128
+
+
+@pytest.mark.parametrize('b,s,h', [(1, 4608, 24), (2, 1000, 3), (3, 77, 2),
+                                   (1, 1, 1), (1, 129, 1)])
+def test_key_scale_rows_cover_every_key(b, s, h):
+    """The rows the kernel's 2-D TMA map reads: a pitch that TMA can step (a
+    multiple of 4 values), every key k < S of every (b, h) at column k of
+    its row, zeros from S to the pitch, and each 128-key box starting inside
+    its row; no copy when S is a multiple of 4."""
+    ks = torch.rand(b, h, s) + 0.5
+    rows, pitch = t_fi8.key_scale_rows(ks)
+    assert pitch % 4 == 0 and s <= pitch < s + 4
+    assert rows.shape == (b * h, pitch) and rows.is_contiguous()
+    assert torch.equal(rows[:, :s], ks.reshape(b * h, s))
+    assert not rows[:, s:].any()
+    assert (rows.data_ptr() == ks.data_ptr()) == (s % 4 == 0)
+    starts = KEY_TILE * torch.arange(-(-s // KEY_TILE))
+    assert starts.max().item() < s
+    boxes = torch.nn.functional.pad(rows[:, :s], (0, KEY_TILE))[
+        :, starts[:, None] + torch.arange(KEY_TILE)]
+    keys = torch.arange(s)
+    assert torch.equal(boxes[:, keys // KEY_TILE, keys % KEY_TILE],
+                       ks.reshape(b * h, s))
+
+
+def test_quantize_qk_refuses_other_devices():
+    q = torch.zeros(1, 64, 2, D, device='meta')
+    with pytest.raises(ValueError, match='no int8 quantization kernel'):
+        t_fi8.quantize_qk(q, q)
+
+
+def test_launch_refuses_misaligned_key_scales():
+    """The key scales are read by a TMA map, whose base must be 16-byte
+    aligned."""
+    ks = torch.ones(1 * 2 * 64 + 1)[1:].reshape(1, 2, 64)
+    assert ks.is_contiguous() and ks.data_ptr() % 16
+    with pytest.raises(ValueError, match='ks needs a 16-byte aligned'):
+        t_fi8.launch(_i8(), _scales(), _i8(), ks,
+                     torch.zeros(1, 64, 2, D, dtype=torch.bfloat16), None,
+                     1.0, torch.bfloat16)

@@ -13,7 +13,9 @@ the same exact int8 scores; the kernel rounds P to bf16 (2^-9 relative)
 before P.V and its sums run in another order, which reads at most one bf16
 ulp of O and a few 1e-3 by relative L2. Two planted faults (the k scales
 dropped; int8 key rows 0-7 and 8-15 swapped in one tile, which is what a
-wrong accumulator-to-key mapping does) must break both limits.
+wrong accumulator-to-key mapping does) must break both limits. The fused
+row quantization (``quantize_qk``) must equal ``rowwise_int8`` bitwise, on
+the card and on a CPU copy of its input.
 """
 
 import pytest
@@ -134,3 +136,65 @@ def test_launch_refusals_on_the_card(cuda):
         fi8.flash_attention_int8(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match='128'):
         fi8.flash_attention_int8(q[..., :64], k[..., :64], v[..., :64])
+
+
+def _quant_rows(g, b, s, h, dtype):
+    """Random rows with the cases the rounding has to get right: a row of
+    zeros (the 1e-6 floor), a row whose scale is exactly 1 (absmax 127)
+    holding ties at .5 and their negatives (round half to even), and rows
+    of every magnitude."""
+    x = torch.randn(b, s, h, 128, generator=g, device='cuda') * torch.exp(
+        4 * torch.randn(b, s, h, 1, generator=g, device='cuda'))
+    x[0, 0, 0] = 0.0
+    ties = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5],
+                        device='cuda')
+    x[0, 1, 0, :8] = ties
+    x[0, 1, 0, 8:] = 0.25
+    return x.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('b,s,h', [(1, 4608, 24), (2, 1000, 3), (1, 77, 2)])
+def test_fused_quantization_equals_rowwise_int8_bitwise(cuda, dtype, b, s, h):
+    q = _quant_rows(cuda, b, s, h, dtype)
+    k = _quant_rows(cuda, b, s, h, dtype).transpose(1, 2).contiguous() \
+        .transpose(1, 2)                                 # head-major
+    assert not k.is_contiguous()
+    before = fi8.QUANT_LAUNCHES
+    got = fi8.quantize_qk(q, k)
+    torch.cuda.synchronize()
+    assert fi8.QUANT_LAUNCHES == before + 1
+    on_card = fi8.quantize_qk_ref(q, k)
+    on_cpu = fi8.quantize_qk_ref(q.cpu(), k.cpu())
+    for name, x, y, z in zip(('qq', 'qs', 'kq', 'ks'), got, on_card,
+                             on_cpu):
+        assert x.is_contiguous() and x.dtype == y.dtype, name
+        assert torch.equal(x, y), name
+        assert torch.equal(x.cpu(), z), name
+    qq, qs = got[0], got[1]
+    floor = torch.tensor(1e-6, dtype=torch.float32) / 127
+    assert qs[0, 0, 0].item() == floor.item()
+    assert qs[0, 0, 1].item() == 1.0
+    assert qq[0, 1, 0, :8].tolist() == [127, 0, 2, 2, 0, -2, -2, 126]
+
+
+@pytest.mark.cuda
+def test_attention_call_launches_each_kernel_once(cuda):
+    q, k, v = _qkv(cuda, 1, 300, 2)
+    before = fi8.LAUNCHES, fi8.QUANT_LAUNCHES
+    fi8.flash_attention_int8(q, k, v)
+    fi8.flash_attention_int8_ref(q, k, v)
+    assert (fi8.LAUNCHES, fi8.QUANT_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_key_scales_of_a_ragged_tile_past_the_end(cuda):
+    """The last tile of the last head reads its key scales past the end of
+    the scale tensor (TMA gives zeros there): a ragged S with one head and
+    one batch row, so that tile is the tensor's end, with the scales kept
+    at their own allocation."""
+    for s in (1, 129, 1000):
+        q, k, v = _qkv(cuda, 1, s, 1)
+        _check(q, k, v)

@@ -12,6 +12,8 @@ as 1e-6) moves a root by, 1e-6 / (2 pdf), on unsaturated targets
 only on a card: tests/test_torch_inverse_cdf_cuda.py, which imports no JAX.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -178,3 +180,109 @@ def test_wrapper_refuses_other_devices():
     args[4] = args[4].to('meta')
     with pytest.raises(ValueError, match='no inverse-CDF kernel'):
         t_icdf.gm1d_inverse_cdf_kernel(*args)
+
+
+def _torch_args(case, seed=8):
+    gm1d, cdf = problem(seed, **CASES[case])
+    return [torch.from_numpy(np.asarray(a))
+            for a in args_of(gm1d, cdf, jax_init(gm1d, cdf))]
+
+
+def _read_back(geom, i, elem):
+    """Tensor ``i`` of a ``kernel_geometry`` as the kernel indexes it, by
+    ``torch.as_strided`` from its merged sizes and strides, in the (rows, M)
+    form of ``kernel_layout``."""
+    t, st = geom['inputs'][i], geom['strides'][i]
+    n = elem[-3]
+    if i < 3:                                # means, logw, w: (G, M)
+        g = geom['g']
+        v = torch.as_strided(t, (g, *geom['sizes']),
+                             (geom['gstrides'][i], *st), t.storage_offset())
+        return v.reshape(g, *elem).select(-3, 0).reshape(g, -1)
+    v = torch.as_strided(t, geom['sizes'], st, t.storage_offset())
+    v = v.reshape(elem)
+    if i == 3:                               # logstd: (1, M)
+        return v.select(-3, 0).reshape(1, -1)
+    return v.movedim(-3, 0).reshape(n, -1)   # target, init: (N, M)
+
+
+@pytest.mark.parametrize('case', list(CASES))
+def test_kernel_geometry_reads_the_plain_layout(case):
+    """What the wrapper hands the kernel (views, merged sizes, strides),
+    read back with ``torch.as_strided``, is exactly the (rows, M) layout of
+    ``kernel_layout``; the output is the (..., N, H, W) result itself; no
+    fp32 input is copied."""
+    args = _torch_args(case)
+    rows, (lead, h, w) = t_icdf.kernel_layout(*args)
+    geom = t_icdf.kernel_geometry(*args)
+    elem = lead + (args[4].shape[-3], h, w)
+    for i in range(6):
+        assert torch.equal(_read_back(geom, i, elem), rows[i]), i
+        assert geom['inputs'][i].data_ptr() == args[i].data_ptr(), i
+    assert geom['out'].shape == elem and geom['out'].is_contiguous()
+    assert geom['strides'][6] == list(torch.empty(geom['sizes']).stride())
+    assert geom['elements'] == math.prod(elem)
+
+
+def test_kernel_geometry_of_the_kr_axes():
+    """The KR transport's per-axis problems read out of channel-last
+    tensors: axis 0 merges into one element dim, a later axis (per-sample
+    weights, means broadcast over the samples) into two; both read back as
+    ``kernel_layout``'s rows."""
+    rng = np.random.default_rng(9)
+    f = np.float32
+    b, k, n, h, w, c = 1, 16, 3, 8, 8, 4
+    means = torch.from_numpy(rng.standard_normal((b, k, h, w, c)).astype(f))
+    lw0 = torch.log_softmax(torch.from_numpy(
+        rng.standard_normal((b, k, h, w, 1)).astype(f)), 1)[..., 0]
+    ls = torch.full((b, 1, 1, 1), -1.0)
+    z = torch.from_numpy(rng.standard_normal((b, n, h, w, c)).astype(f))
+    tgt = torch.erf(z / math.sqrt(2))
+    axis0 = (means[..., 0], lw0, lw0.exp(), ls, tgt[..., 0], z[..., 0])
+    lw1 = torch.log_softmax(torch.from_numpy(
+        rng.standard_normal((b, n, k, h, w)).astype(f)), 2)
+    axis1 = (means[..., 1].unsqueeze(-4), lw1, lw1.exp(), ls.unsqueeze(-4),
+             tgt[..., 1].unsqueeze(-3), z[..., 1].unsqueeze(-3))
+    for args, dims in ((axis0, [n, h * w]), (axis1, [n, h * w])):
+        rows, (lead, hh, ww) = t_icdf.kernel_layout(*args)
+        geom = t_icdf.kernel_geometry(*args)
+        assert geom['sizes'] == dims
+        elem = lead + (args[4].shape[-3], hh, ww)
+        for i in range(6):
+            assert torch.equal(_read_back(geom, i, elem), rows[i]), i
+
+
+@pytest.mark.parametrize('g,elements,lanes', [
+    (16, 16384, 4),           # the KR axis: 65,536 threads
+    (16, 8192, 8),
+    (16, 1 << 20, 1),         # a million elements fill the card alone
+    (1, 16384, 1),            # one component: nothing to share
+    (5, 1024, 8),
+    (16, 1961, 16),           # a ragged M = 37 x 53
+    (64, 1 << 20, 4),         # at most 16 components a lane
+    (256, 1 << 20, 16),
+])
+def test_lanes_for(g, elements, lanes):
+    assert t_icdf.lanes_for(g, elements) == lanes
+    assert -(-g // lanes) <= t_icdf.MAX_PER_LANE
+
+
+def test_merge_dims():
+    # contiguous (2, 3, 4) and a tensor broadcast over the middle axis:
+    # only the inner pair merges for both; size-1 axes drop
+    sizes, strides = t_icdf.merge_dims((2, 1, 3, 4),
+                                       [(12, 12, 4, 1), (4, 4, 0, 1)])
+    assert sizes == [2, 3, 4] and strides == [[12, 4, 1], [4, 0, 1]]
+    sizes, strides = t_icdf.merge_dims((2, 3, 4), [(12, 4, 1), (0, 0, 0)])
+    assert sizes == [24] and strides == [[1], [0]]
+    assert t_icdf.merge_dims((1, 1), [(5, 1)]) == ([1], [[0]])
+
+
+def test_launch_refuses_more_components_than_the_lanes_hold():
+    """G = 257 needs more than 16 lanes x 16 slots: refused before any
+    library is loaded."""
+    gm1d, cdf = problem(10, g=257, n=1)
+    args = [torch.from_numpy(np.asarray(a))
+            for a in args_of(gm1d, cdf, jax_init(gm1d, cdf))]
+    with pytest.raises(ValueError, match='G=257'):
+        t_icdf.launch(t_icdf.kernel_geometry(*args), 4, 1e-6, 1.5)

@@ -11,7 +11,8 @@ Tolerance: kernel and plain version run the same fp32 steps with sums in
 another order, so their cdfs differ by a few 1e-7; a root moves by that
 over the slope 2 pdf. Each unsaturated element (|target| < 0.999) is held
 within 1e-5 + 1e-6 / (2 pdf), pdf taken at the plain version's root;
-saturated targets must give finite results.
+saturated targets must give finite results. The kernel runs at every
+lane count its launcher can choose (``lanes=``), each bitwise repeatable.
 """
 
 import math
@@ -48,9 +49,17 @@ def problem(g, lead, k, n, h, w, logstd=-1.0):
     return means, lw, wt, logstds, tgt, z * var.sqrt() + mean
 
 
-def check(args):
+def check(args, lanes=None):
     before = icdf.LAUNCHES
-    out = icdf.gm1d_inverse_cdf_kernel(*args, n_steps=STEPS)
+    if lanes is None:
+        out = icdf.gm1d_inverse_cdf_kernel(*args, n_steps=STEPS)
+    else:
+        out = icdf.launch(icdf.kernel_geometry(*args), STEPS, 1e-6, 1.5,
+                          lanes=lanes)
+        again = icdf.launch(icdf.kernel_geometry(*args), STEPS, 1e-6, 1.5,
+                            lanes=lanes)
+        assert torch.equal(out, again)
+        before += 1
     torch.cuda.synchronize()
     assert icdf.LAUNCHES == before + 1
     ref = icdf.gm1d_inverse_cdf_ref(*args, n_steps=STEPS)
@@ -79,6 +88,32 @@ def test_kernel_matches_plain_version(cuda, lead, k, n, h, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('lanes', [1, 2, 4, 8, 16])
+@pytest.mark.parametrize('k,hw', [(1, (37, 53)), (5, (37, 53)),
+                                  (16, (37, 53)), (16, (128, 128))])
+def test_every_lane_count(cuda, lanes, k, hw):
+    """G = 1, 5 (no multiple of the lanes: empty slots add 0) and 16, on a
+    ragged M = 37 x 53 and the KR axis, at each lane count."""
+    check(problem(cuda, (1,), k, 2, *hw), lanes=lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('lanes', [1, 4, 16])
+def test_per_sample_weights_at_every_lane_count(cuda, lanes):
+    """The KR chain's axes after the first: means (B, 1, G, H, W) broadcast
+    over the samples, per-sample log-weights (B, N, G, H, W), targets
+    (B, N, 1, H, W) strided out of a (B, N, H, W, C) tensor."""
+    means, lw, _, logstds, tgt, init = problem(cuda, (2, 1), 16, 1, 12, 9)
+    lw = torch.log_softmax(torch.randn(2, 3, 16, 12, 9, generator=cuda,
+                                       device='cuda'), dim=-3)
+    z = torch.randn(2, 3, 12, 9, 4, generator=cuda, device='cuda')
+    tgt = torch.erf(z / math.sqrt(2))[..., 2].unsqueeze(-3)
+    init = (z[..., 2] * 0.5).unsqueeze(-3)
+    assert not tgt.is_contiguous()
+    check((means, lw, lw.exp(), logstds, tgt, init), lanes=lanes)
+
+
+@pytest.mark.cuda
 def test_per_sample_weights_fold_into_the_element_axis(cuda):
     """The KR transport's later axes: means (B, 1, G, H, W), per-sample
     log-weights (B, N, G, H, W), targets (B, N, 1, H, W)."""
@@ -102,6 +137,8 @@ def test_saturated_targets_and_determinism(cuda):
     out = check(args)
     again = icdf.gm1d_inverse_cdf_kernel(*args, n_steps=STEPS)
     assert torch.equal(out, again)
+    for lanes in (1, 2, 4, 8, 16):
+        check(args, lanes=lanes)
 
 
 @pytest.mark.cuda
@@ -143,13 +180,15 @@ def test_gm1d_inverse_cdf_and_kr_launch_the_kernel(cuda):
 @pytest.mark.cuda
 def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     means, lw, wt, logstds, tgt, init = problem(cuda, (), 2, 1, 1, 1)
-    with pytest.raises(ValueError, match='N=65536'):
-        icdf.gm1d_inverse_cdf_kernel(means, lw, wt, logstds,
-                                     tgt.expand(65536, 1, 1),
-                                     init.expand(65536, 1, 1))
+    many = problem(cuda, (), 257, 1, 1, 1)
+    with pytest.raises(ValueError, match='G=257'):
+        icdf.gm1d_inverse_cdf_kernel(*many)
     with pytest.raises(ValueError, match='on one card'):
         icdf.gm1d_inverse_cdf_kernel(means.cpu(), lw, wt, logstds, tgt, init)
-    rows, _ = icdf.kernel_layout(means, lw, wt, logstds, tgt, init)
-    rows[0] = rows[0].double()
-    with pytest.raises(ValueError, match='contiguous fp32'):
-        icdf.launch(rows, STEPS, 1e-6, 1.5)
+    geom = icdf.kernel_geometry(means, lw, wt, logstds, tgt, init)
+    geom['inputs'][0] = geom['inputs'][0].double()
+    with pytest.raises(ValueError, match='fp32'):
+        icdf.launch(geom, STEPS, 1e-6, 1.5)
+    # more targets than a grid's y axis took before: one element axis now
+    check((means, lw, wt, logstds, tgt.expand(65536, 1, 1).contiguous(),
+           init.expand(65536, 1, 1).contiguous()))
