@@ -13,7 +13,10 @@ from typing import Sequence
 
 import numpy as np
 
+from ..registry import DATASETS
 
+
+@DATASETS.register_module()
 class CheckerboardData:
     def __init__(self, n_rc: int = 4, n_samples: float = 1e8,
                  thickness: float = 1.0, scale: float = 1.0,

@@ -1,4 +1,5 @@
-from .arcflow import ArcFlowImitationDataFree, multistep_train_loss
+from .arcflow import (ArcFlowImitation, ArcFlowImitationBase,
+                      ArcFlowImitationDataFree, multistep_train_loss)
 from .gaussian_flow import GaussianFlow
 from .gmflow import (GMFlow, gmflow_posterior, gmflow_posterior_mean,
                      probabilistic_guidance)
@@ -8,7 +9,8 @@ from .policies import ArcFlowPolicy
 from .sampler import ContinuousTimeStepSampler
 from .schedulers import FlowEulerODEScheduler, FlowSDEScheduler
 
-__all__ = ['ArcFlowImitationDataFree', 'ArcFlowPolicy',
+__all__ = ['ArcFlowImitation', 'ArcFlowImitationBase',
+           'ArcFlowImitationDataFree', 'ArcFlowPolicy',
            'ContinuousTimeStepSampler', 'DiffusionMSELoss',
            'FlowEulerODEScheduler', 'FlowSDEScheduler', 'GMFlow',
            'GMFlowNLLLoss', 'GaussianFlow', 'gmflow_posterior',

@@ -25,12 +25,12 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..ops.gm import (gm_mul_iso_gaussian, gm_samples_to_gaussian_samples,
                       gm_to_iso_gaussian, gm_to_mean, gm_to_sample,
                       iso_gaussian_mul_iso_gaussian)
-from .gaussian_flow import GaussianFlow, _bview
+from ..registry import MODULES
+from .gaussian_flow import GaussianFlow, _bview, denoiser_args
 
 Tensor = torch.Tensor
 
@@ -94,22 +94,18 @@ def _full(value, b: int, like: Tensor) -> Tensor:
                       device=like.device)
 
 
+@MODULES.register_module()
 class GMFlow(GaussianFlow):
     """Flow matching with a mixture-valued denoiser ``nn.Module``;
     ``spectrum_net`` (an ``nn.Module`` from iso-Gaussian x0 statistics to a
-    log power spectrum) adds the spectral loss when given."""
+    log power spectrum, or its ``MODULES`` config) adds the spectral loss
+    when given."""
 
-    def __init__(self, denoising: nn.Module, flow_loss=None,
-                 num_timesteps: int = 1000, timestep_sampler=None,
-                 spectrum_net: Optional[nn.Module] = None,
-                 spectral_loss_weight: float = 1.0,
-                 train_cfg: Optional[dict] = None,
-                 test_cfg: Optional[dict] = None):
-        super().__init__(denoising, flow_loss=flow_loss,
-                         num_timesteps=num_timesteps,
-                         timestep_sampler=timestep_sampler,
-                         train_cfg=train_cfg, test_cfg=test_cfg)
-        self.spectrum_net = spectrum_net
+    def __init__(self, *args, spectrum_net=None,
+                 spectral_loss_weight: float = 1.0, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.spectrum_net = MODULES.build(spectrum_net, default_args=(
+            denoiser_args(kwargs.get('device'), kwargs.get('dtype'))))
         self.spectral_loss_weight = spectral_loss_weight
 
     # ---- GM-space conversions ------------------------------------------------

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops.gm import gm_logprob
+from ..registry import MODULES
 
 
 def _flatmean(x: torch.Tensor) -> torch.Tensor:
@@ -69,6 +70,7 @@ class _BaseDiffusionLoss:
         return per_sample.mean(), log_info
 
 
+@MODULES.register_module()
 class DiffusionMSELoss(_BaseDiffusionLoss):
     """0.5 * MSE between ``data_info['pred']`` and ``data_info['target']``."""
 
@@ -81,6 +83,7 @@ class DiffusionMSELoss(_BaseDiffusionLoss):
         return 0.5 * mse_loss(d['pred'], d['target'], weight=weight)
 
 
+@MODULES.register_module()
 class GMFlowNLLLoss(_BaseDiffusionLoss):
     """Negative log-likelihood of the target under a Gaussian-mixture
     prediction, per channel: means (B, K, H, W, C), logstds, logweights

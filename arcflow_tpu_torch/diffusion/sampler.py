@@ -17,9 +17,12 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ..registry import MODULES
+
 Scalar = Union[float, torch.Tensor]
 
 
+@MODULES.register_module()
 @dataclasses.dataclass(frozen=True)
 class ContinuousTimeStepSampler:
     num_timesteps: int = 1000

@@ -15,6 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...registry import SCHEDULERS
+
 
 def as_f32(x, like: torch.Tensor) -> torch.Tensor:
     """A sigma (Python or numpy scalar, or tensor) as fp32 on ``like``'s
@@ -26,6 +28,7 @@ def shift_sigmas(sigmas: np.ndarray, shift: float) -> np.ndarray:
     return shift * sigmas / (1 + (shift - 1) * sigmas)
 
 
+@SCHEDULERS.register_module()
 @dataclasses.dataclass(frozen=True)
 class FlowEulerODEScheduler:
     """First-order ODE integration of the rectified flow, u- or

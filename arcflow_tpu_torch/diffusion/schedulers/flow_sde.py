@@ -18,9 +18,11 @@ from typing import Optional, Union
 
 import torch
 
+from ...registry import SCHEDULERS
 from .flow_euler_ode import FlowEulerODEScheduler, as_f32
 
 
+@SCHEDULERS.register_module()
 @dataclasses.dataclass(frozen=True)
 class FlowSDEScheduler(FlowEulerODEScheduler):
     """Stochastic flow sampler; shares the sigma grid with the ODE one."""

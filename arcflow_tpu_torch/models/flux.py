@@ -43,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..parallel.mesh import (SequenceParallel, pad_tokens, stream_padding,
                              token_validity)
+from ..registry import MODULES
 from .layers import (AdaLayerNormContinuous, AdaLayerNormZero,
                      AdaLayerNormZeroSingle, FeedForward, JointAttention,
                      LoRADense, SingleStreamAttention, layer_norm_no_affine,
@@ -53,6 +54,15 @@ from .layers import (AdaLayerNormContinuous, AdaLayerNormZero,
 # configs/flux/arcflux_2nfe_k16.py:20-26; JAX flux.py:45-46)
 ARCFLUX_ADAPTER_KEYS = ('proj_out_means', 'proj_out_logweights',
                         'proj_out_loggamma', 'norm_out', 'lora')
+
+
+def check_fixed(**fields):
+    """Refuse a config field whose value the port fixes; each field comes
+    as name=(value given, the only value ported)."""
+    for key, (got, want) in fields.items():
+        if got != want:
+            raise ValueError(f'{key} must be {want!r} in the port, got '
+                             f'{got!r}')
 
 
 def dropout_generator(seed: Optional[int], index: int, device
@@ -194,8 +204,14 @@ class FluxBackbone(nn.Module):
                  pooled_projection_dim: int = 768,
                  axes_dims_rope: Sequence[int] = (16, 56, 56),
                  lora_rank: int = 0, lora_dropout: float = 0.0,
-                 checkpointing: bool = True, device=None, dtype=None):
+                 checkpointing: bool = True, patch_size: int = 2,
+                 guidance_embeds: bool = True, pretrained=None,
+                 pretrained_adapter=None, device=None, dtype=None):
         super().__init__()
+        check_fixed(patch_size=(patch_size, 2),
+                    guidance_embeds=(guidance_embeds, True),
+                    pretrained=(pretrained, None),
+                    pretrained_adapter=(pretrained_adapter, None))
         self.in_channels = in_channels
         self.axes_dims_rope = tuple(axes_dims_rope)
         self.lora_dropout = lora_dropout
@@ -349,6 +365,7 @@ class ArcFlowHeads:
                     loggammas=to_pixel(loggammas, k - 1, 1))
 
 
+@MODULES.register_module()
 class ArcFluxTransformer2DModel(ArcFlowHeads, FluxBackbone):
     """FLUX trunk + the three ArcFlow mixture heads (see ``ArcFlowHeads``
     for the output dict). It always has guidance embeds."""
@@ -374,6 +391,7 @@ class ArcFluxTransformer2DModel(ArcFlowHeads, FluxBackbone):
         return self._heads(hidden, temb, b, h, w)
 
 
+@MODULES.register_module()
 class FluxTransformer2DModel(FluxBackbone):
     """The teacher: the FLUX trunk + ``norm_out`` and the fp32 ``proj_out``
     u head (JAX ``flux.py:428-459``); returns u (B, H, W, C) in fp32."""

@@ -13,10 +13,10 @@ and its weight economy:
   frozen tensor, so the trunk is in memory once (the JAX dict overlay,
   ``latent_diffusion.py:256-273``).
 
-Configs are the JAX package's dicts (``type`` keys included); the port
-builds the few types this path uses itself, as it has no registry yet.
-Modules are made on ``device`` (the card unless the caller says otherwise)
-and compute in ``dtype``. Prompt embeds and latents come in the batch and
+Configs are the JAX package's dicts, built through ``MODULES``: the
+student on ``device`` (the card unless the caller says otherwise), the
+teacher's trunk on the meta device, as it borrows the student's tensors;
+both compute in ``dtype``. Prompt embeds and latents come in the batch and
 are checked against ``latent_shape``, ``text_embed_dim``, ``pooled_dim``
 and ``max_text_len``: ``pretrained`` loading, ``frozen_quant``, the text
 encoder, the VAE encode and ``val_step`` wait for their slices.
@@ -29,46 +29,14 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from ..diffusion.arcflow import ArcFlowImitationDataFree, multistep_train_loss
-from ..diffusion.gaussian_flow import GaussianFlow
-from ..diffusion.losses import DiffusionMSELoss
-from ..diffusion.sampler import ContinuousTimeStepSampler
+from ..diffusion.arcflow import multistep_train_loss
+from ..registry import MODELS, MODULES
 from ..utils.pytree import name_matches
-from .base import BaseModel, _typed
-from .flux import (ARCFLUX_ADAPTER_KEYS, ArcFluxTransformer2DModel,
-                   FluxTransformer2DModel)
+from .base import BaseModel
+from .flux import ARCFLUX_ADAPTER_KEYS
 
 # the teacher's own head; the rest of it is the student's frozen trunk
 TEACHER_HEAD_KEYS = ('proj_out', 'norm_out')
-_DENOISERS = {'ArcFluxTransformer2DModel': ArcFluxTransformer2DModel,
-              'FluxTransformer2DModel': FluxTransformer2DModel}
-# fields of the JAX configs that the port's FLUX models fix
-_FIXED = dict(patch_size=2, guidance_embeds=True, pretrained=None,
-              pretrained_adapter=None)
-
-
-def _build_denoiser(cfg: dict, device, dtype) -> nn.Module:
-    cfg = dict(cfg)
-    cls = _DENOISERS[cfg.pop('type')]
-    for key, value in _FIXED.items():
-        if key in cfg and cfg.pop(key) != value:
-            raise ValueError(f'{key} must be {value} in the port')
-    return cls(device=device, dtype=dtype, **cfg)
-
-
-def _flow_kwargs(cfg: dict) -> dict:
-    """GaussianFlow arguments from a JAX diffusion/teacher config."""
-    cfg = dict(cfg)
-    if cfg.pop('denoising_mean_mode', 'U').upper() != 'U':
-        raise ValueError('only u-prediction is ported')
-    out = dict(num_timesteps=cfg.pop('num_timesteps', 1000))
-    if cfg.get('flow_loss') is not None:
-        out['flow_loss'] = DiffusionMSELoss(
-            **_typed(cfg.pop('flow_loss'), 'DiffusionMSELoss'))
-    if cfg.get('timestep_sampler') is not None:
-        out['timestep_sampler'] = ContinuousTimeStepSampler(
-            **_typed(cfg.pop('timestep_sampler'), 'ContinuousTimeStepSampler'))
-    return out
 
 
 def _set_param(root: nn.Module, name: str, param: nn.Parameter):
@@ -77,6 +45,7 @@ def _set_param(root: nn.Module, name: str, param: nn.Parameter):
     module._parameters[leaf] = param
 
 
+@MODELS.register_module()
 class LatentDiffusionTextImage(BaseModel):
 
     def __init__(self, diffusion: dict, teacher: Optional[dict] = None,
@@ -94,21 +63,18 @@ class LatentDiffusionTextImage(BaseModel):
         if isinstance(frozen_dtype, str):
             frozen_dtype = getattr(torch, frozen_dtype)
         self.frozen_dtype = frozen_dtype or torch.float32
+        self.device = torch.device(device)
         self.diffusion_use_ema = diffusion_use_ema
         self.latent_shape = tuple(latent_shape)
         self.text_embed_dim = text_embed_dim
         self.pooled_dim = pooled_dim
         self.max_text_len = max_text_len
 
-        cfg = _typed(diffusion, 'ArcFlowImitationDataFree')
-        if cfg.pop('policy_type', 'ArcFlow') != 'ArcFlow':
-            raise ValueError('the port builds the ArcFlow policy only')
-        student = _build_denoiser(cfg.pop('denoising'), device, dtype)
-        self.diffusion = ArcFlowImitationDataFree(
-            denoising=student, train_cfg=self.train_cfg,
-            test_cfg=self.test_cfg, **_flow_kwargs(cfg))
+        self.diffusion = MODULES.build(diffusion, default_args=dict(
+            train_cfg=self.train_cfg, test_cfg=self.test_cfg, device=device,
+            dtype=dtype))
         self._adapter, self._base = {}, {}
-        for name, p in student.named_parameters():
+        for name, p in self.diffusion.denoising.named_parameters():
             if name_matches(name, ARCFLUX_ADAPTER_KEYS):
                 p.data = p.data.float()
                 self._adapter[name] = p.requires_grad_(True)
@@ -119,9 +85,10 @@ class LatentDiffusionTextImage(BaseModel):
         self.teacher = None
         self._teacher_head = {}
         if teacher:
-            cfg = _typed(teacher, 'GaussianFlow')
             # the trunk without storage: it borrows the student's below
-            t_model = _build_denoiser(cfg.pop('denoising'), 'meta', dtype)
+            self.teacher = MODULES.build(teacher, default_args=dict(
+                device='meta', dtype=dtype))
+            t_model = self.teacher.denoising
             t_model.init_head(device=device, dtype=dtype)
             for name, p in t_model.named_parameters():
                 if name_matches(name, TEACHER_HEAD_KEYS, exact_prefix=True):
@@ -133,8 +100,6 @@ class LatentDiffusionTextImage(BaseModel):
                     raise ValueError(f'teacher parameter {name} has no '
                                      f'frozen student twin')
                 _set_param(t_model, name, shared)
-            self.teacher = GaussianFlow(denoising=t_model,
-                                        **_flow_kwargs(cfg))
 
     @property
     def ema_keys(self):

@@ -24,8 +24,9 @@ from torch import nn
 
 from ..parallel.mesh import (SequenceParallel, pad_tokens, stream_padding,
                              token_validity)
-from .flux import (ArcFlowHeads, FluxJointBlock, MLPEmbedder, make_img_ids,
-                   patchify)
+from ..registry import MODULES
+from .flux import (ArcFlowHeads, FluxJointBlock, MLPEmbedder, check_fixed,
+                   make_img_ids, patchify)
 from .layers import LoRADense, RMSNorm, rope_frequencies, timestep_sinusoidal
 
 
@@ -66,8 +67,11 @@ class QwenBackbone(nn.Module):
                  joint_attention_dim: int = 3584,
                  axes_dims_rope: Sequence[int] = (16, 56, 56),
                  max_text_len: Optional[int] = None, lora_rank: int = 0,
-                 device=None, dtype=None):
+                 patch_size: int = 2, pretrained=None,
+                 pretrained_adapter=None, device=None, dtype=None):
         super().__init__()
+        check_fixed(patch_size=(patch_size, 2), pretrained=(pretrained, None),
+                    pretrained_adapter=(pretrained_adapter, None))
         self.in_channels = in_channels
         self.axes_dims_rope = tuple(axes_dims_rope)
         self.max_text_len = max_text_len
@@ -134,6 +138,7 @@ class QwenBackbone(nn.Module):
         return img[:, :n_img], temb
 
 
+@MODULES.register_module()
 class ArcQwenImageTransformer2DModel(ArcFlowHeads, QwenBackbone):
     """Qwen trunk + the three ArcFlow mixture heads; the output contract is
     ArcFlux's (``flux.py:ArcFlowHeads``)."""

@@ -72,7 +72,9 @@ def jax_params_to_torch(tree: Mapping, quant: Optional[Mapping] = None
     module of the same structure (``ArcFluxTransformer2DModel``,
     ``ArcQwenImageTransformer2DModel`` (after ``quantize_weights_int8`` or
     ``quantize_weights_int4`` when ``quant`` is given), ``PretrainedVAE``,
-    ``PretrainedVAEQwenImage``)."""
+    ``PretrainedVAEQwenImage``, the toy denoisers: ``ToyMLPDenoiser`` and
+    ``ToyArcFlowDenoiser``'s rank-0 ``LoRADense_i`` trunks map as any
+    dense layer)."""
     out = {}
     for key, v in {**_flatten(tree), **_flatten(quant or {})}.items():
         *path, name = key.split('.')

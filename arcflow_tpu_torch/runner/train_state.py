@@ -10,7 +10,10 @@ PyTorch optimizers update their tensors in place):
 * ``frozen`` {submodule: {name: tensor}}: the shared trunk and the
   teacher's head, never written;
 * ``ema`` {submodule: {name: tensor}}: fp32 copies of ``trainable``;
-* ``opt_states`` {submodule: the optimizer's per-parameter state};
+* ``optimizers`` {submodule: its optimizer}, and ``opt_states``
+  {submodule: that optimizer's per-parameter state}, read from the
+  optimizers on each access, so it stays the live state after an
+  ``optimizer.load_state_dict`` (a checkpoint restore);
 * ``generator``: every random draw of the step.
 """
 
@@ -28,8 +31,12 @@ class TrainState:
     trainable: Dict[str, Dict[str, torch.Tensor]]
     frozen: Dict[str, Dict[str, torch.Tensor]]
     ema: Optional[Dict[str, Dict[str, torch.Tensor]]]
-    opt_states: Dict[str, Any]
+    optimizers: Dict[str, torch.optim.Optimizer]
     generator: torch.Generator
+
+    @property
+    def opt_states(self) -> Dict[str, Any]:
+        return {k: tx.state for k, tx in self.optimizers.items()}
 
     @classmethod
     def create(cls, generator: torch.Generator,
@@ -37,11 +44,10 @@ class TrainState:
                frozen: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                optimizers: Optional[Dict[str, torch.optim.Optimizer]] = None,
                ema_keys: tuple = ()) -> 'TrainState':
-        opt_states = {k: tx.state for k, tx in (optimizers or {}).items()}
         ema = {k: {n: p.detach().clone() for n, p in trainable[k].items()}
                for k in ema_keys} or None
         return cls(step=0, trainable=trainable, frozen=frozen or {}, ema=ema,
-                   opt_states=opt_states, generator=generator)
+                   optimizers=dict(optimizers or {}), generator=generator)
 
 
 def count_params(tree: Dict[str, Dict[str, torch.Tensor]]) -> int:

@@ -47,14 +47,27 @@ line each, and any failure exits non-zero:
     both attention kernels, then the same weights and draws through the
     plain versions; loss and adapter gradients compared by relative L2;
 11. FLUX training at full geometry: the FLUX-12B ArcFlow distillation of
-    ``configs/flux/arcflux_2nfe_k16.py`` (frozen bf16 trunk shared with the
-    teacher, fp32 LoRA rank 256 + heads, checkpointing, LoRA dropout 0.05,
-    nfe 2, 4 intermediate states) with random weights from a seed, 3
-    ``train_step``s of ``build_train_step`` on one batch of random prompt
-    embeds: finite losses and grad norms, the adapter moved, the frozen
-    trunk bit-identical, the EMA equal to the adapter (copy-through before
-    iteration 100), exactly 12 x 57 forward and 2 x 57 backward attention
-    launches per step; then a ``torch.profiler`` split of one warm step;
+    ``configs/flux/arcflux_2nfe_k16.py``, built through the port's
+    ``Config`` and ``MODELS`` (frozen bf16 trunk shared with the teacher,
+    fp32 LoRA rank 256 + heads, checkpointing, LoRA dropout 0.05, nfe 2, 4
+    intermediate states; 652,405,884 adapter parameters) with random
+    weights from a seed, 3 ``train_step``s of ``build_train_step`` on one
+    batch of random prompt embeds: finite losses and grad norms, the
+    adapter moved, the frozen trunk bit-identical, the EMA equal to the
+    adapter (copy-through before iteration 100), exactly 12 x 57 forward
+    and 2 x 57 backward attention launches per step; then a
+    ``torch.profiler`` split of one warm step;
+11r. (right after phase 11, on its model and state) FLUX-12B through
+    ``IterBasedRunner`` with the config's log hooks, the loss quartiles,
+    ``IterTimerHook(sync=True)`` and a trainable-only fp32
+    ``CheckpointManager`` in a temporary directory: a hook raises SIGTERM
+    after the second of three iterations, and the runner must stop there
+    with a checkpoint of that step; 12 x 57 / 2 x 57 launches per
+    iteration; the checkpoint (10.4 GB) bitwise equal to the live state,
+    and restored into a disturbed live state bitwise; the frozen trunk
+    untouched; s per iteration against phase 11's bare step, the runner's
+    own host time, the checkpoint's bytes and save / load / restore
+    seconds;
 12. inverse-CDF kernel vs plain: against ``gm1d_inverse_cdf_ref`` at the
     KR transport's per-axis problem (G 16 over the 128 x 128 latent, one
     target, 16 steps), 64 times that (1024 x 1024), a ragged M, five
@@ -109,7 +122,17 @@ line each, and any failure exits non-zero:
     ``rowwise_int8`` on every case's q and k, fp32 and head-major rows; K7,
     the call with its quantization, its plain version, K1 and bf16 SDPA
     timed at the FLUX shape, and the quantization alone, beside both
-    kernels' registers and spills.
+    kernels' registers and spills;
+23. (after phase 14) the toy stack through the training CLI on the card:
+    ``python -m arcflow_tpu_torch.train`` in a subprocess on
+    ``configs/toy/checkerboard_flow.py``, then on
+    ``configs/toy/checkerboard_arcflow_2nfe.py`` with that run's
+    checkpoint as its teacher, with the cuts of
+    ``tests/test_e2e_checkerboard.py`` (hidden 128 x 2, the 2 x 2 board,
+    3000 and 800 iterations); each child must log that it trains on the
+    card; the samples of each run's last checkpoint (EMA) must lie in the
+    board's support above 0.75 (flow) and 0.5 (2-NFE student), as in the
+    JAX test.
 
 ``python3 chip_smoke.py --ranks 4`` (four cards) instead spawns 4 NCCL
 ranks and serves FLUX-12B through ``pipe.shard({'sp': 4})`` in ring and in
@@ -128,6 +151,9 @@ import itertools
 import json
 import math
 import os
+import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -139,11 +165,13 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from arcflow_tpu_torch import MODELS, Config
+from arcflow_tpu_torch.apis import build_model_from_cfg, ema_config_from_cfg
 from arcflow_tpu_torch.data import CheckerboardData
 from arcflow_tpu_torch.models import (ArcFluxTransformer2DModel,
                                       ArcQwenImageTransformer2DModel,
-                                      Diffusion2D, LatentDiffusionTextImage,
-                                      PretrainedVAE, PretrainedVAEQwenImage)
+                                      Diffusion2D, PretrainedVAE,
+                                      PretrainedVAEQwenImage)
 from arcflow_tpu_torch.models import layers
 from arcflow_tpu_torch.models.layers import LoRADense
 from arcflow_tpu_torch.ops import _build
@@ -159,8 +187,12 @@ from arcflow_tpu_torch.parallel import (LocalRing, SequenceParallel,
                                         set_sequence_parallel,
                                         setup_distributed, spawn)
 from arcflow_tpu_torch.pipelines import ArcFluxPipeline, ArcQwenImagePipeline
-from arcflow_tpu_torch.runner import (EmaConfig, TrainState, build_optimizers,
-                                      build_train_step, count_params)
+from arcflow_tpu_torch.runner import (CheckpointHook, CheckpointManager,
+                                      EmaConfig, Hook, IterBasedRunner,
+                                      IterTimerHook, QuartileLossLoggerHook,
+                                      TrainState, build_hooks,
+                                      build_optimizers, build_train_step,
+                                      count_params, load_raw_checkpoint)
 from arcflow_tpu_torch.utils.pytree import flatten
 from arcflow_tpu_torch.utils.quantize import pack_int4
 
@@ -177,34 +209,29 @@ FLUX_SHAPE = (1, 4608, 24, 128)
 # the Qwen path's masked attention: 512 text tokens of which 384 are valid,
 # then 4096 image tokens, so 4480 of 4608 keys are valid
 QWEN_VALID_KEYS = 4480
-# FLUX-12B ArcFlow distillation: configs/flux/arcflux_2nfe_k16.py:13-112
-# (model, train_cfg, EMA hook) and configs/flux/_mesh_train.py:19-26
-# (optimizer, clip), batch 1
-FLUX_TRAIN_NET = dict(in_channels=64, num_layers=19, num_single_layers=38,
-                      attention_head_dim=128, num_attention_heads=24,
-                      joint_attention_dim=4096, pooled_projection_dim=768,
-                      guidance_embeds=True, checkpointing=True)
-FLUX_TRAIN_LATENT = (128, 128, 16)          # 1024x1024
-FLUX_TRAIN_CFG = dict(num_decay_iters=2000, window_substeps=3, gm_dropout=0.1,
-                      num_intermediate_states=4, distilled_guidance_scale=3.5,
-                      teacher_distilled_guidance_scale=3.5, nfe=2,
-                      timestep_ratio=1.0, total_substeps=128,
-                      diffusion_grad_clip=50.0,
-                      diffusion_grad_clip_begin_iter=100,
-                      diffusion_grad_clip_skip_ratio=20.0)
-FLUX_TRAIN_OPT = dict(diffusion=dict(
-    type='AdamW', lr=1e-4, betas=(0.9, 0.95), weight_decay=0.0,
-    paramwise_cfg=dict(custom_keys={'proj_out_loggamma': dict(lr_mult=0.1)})))
-FLUX_TRAIN_EMA_HOOK = dict(type='ExponentialMovingAverageHookMod',
-                           module_keys=('diffusion_ema',), interp_mode='lerp',
-                           interval=1, start_iter=100,
-                           momentum_policy='karras',
-                           momentum_cfg=dict(gamma=7.0))
+# FLUX-12B ArcFlow distillation, batch 1: configs/flux/arcflux_2nfe_k16.py
+# (model, train_cfg, optimizer, EMA hook, log_config) through the port's
+# Config and MODELS. The config sets no frozen_dtype, and the port's
+# default fp32 trunk would not leave room on the card: the frozen trunk is
+# bf16. Its parallel (a TPU mesh) and data (ImagePrompt) are not used: the
+# phases feed their own batches.
+FLUX_TRAIN_CONFIG = 'configs/flux/arcflux_2nfe_k16.py'
+# (trainable, frozen) parameters it builds: the fp32 adapter (LoRA rank 256
+# on every block, the three heads, norm_out) and the bf16 trunk plus the
+# teacher's head
+FLUX_TRAIN_PARAMS = (652_405_884, 11_901_408_320)
+# phase 11r: runner iterations from phase 11's step, and the one after
+# which a hook raises SIGTERM (the runner must stop there, saved)
+RUNNER_ITERS, RUNNER_SIGTERM_AFTER = 3, 2
+# free disk the phase 11r checkpoint needs beyond its own bytes
+CKPT_DISK_MARGIN = 2 ** 30
 # DiT forwards per train step: nfe student forwards with grad, nfe x
 # num_intermediate_states teacher forwards, and the nfe student forwards
 # recomputed block by block in the backward
 TRAIN_FORWARDS = 2 + 2 * 4 + 2
 TRAIN_BACKWARDS = 2
+# profiler windows kernel_ms runs before it gives up on missing records
+KERNEL_MS_WINDOWS = 6
 # H100 SXM dense peaks and memory rate (NVIDIA's data sheet), for the bound
 H100_BF16, H100_INT8, H100_BYTES = 989e12, 1979e12, 3.35e12
 # fp32 outside the tensor cores (NVIDIA's data sheet: 67 TFLOP/s), and the
@@ -215,7 +242,8 @@ H100_BF16, H100_INT8, H100_BYTES = 989e12, 1979e12, 3.35e12
 H100_FP32, H100_SFU = 67e12, 16 * 132 * 1.98e9
 # the KR transport at the ArcFlux head geometry: K=16 heads
 # (configs/flux/arcflux_2nfe_k16.py) over the 128 x 128 x 16 latent of a
-# 1024^2 image (FLUX_TRAIN_LATENT), one draw, 16 NR steps, no grad
+# 1024^2 image (the FLUX config's latent_shape), one draw, 16 NR steps,
+# no grad
 KR_K, KR_LATENT, KR_STEPS, KR_LOGSTD = 16, (128, 128, 16), 16, -1.0
 K6_LARGE_HW = (1024, 1024)              # 64 x the 16,384 elements of an axis
 # kernel vs plain, per unsaturated element (|target| < 0.999): both run the
@@ -249,6 +277,20 @@ CKB_EMA_HOOK = dict(type='ExponentialMovingAverageHookMod',
                     interval=1, start_iter=100, momentum_policy='karras',
                     momentum_cfg=dict(gamma=7.0))
 CKB_BATCH, CKB_STEPS, CKB_SAMPLES = 512, 1000, 4096
+# phase 23: the toy stack through the CLI on the card, with the cuts and
+# the in-support gates of tests/test_e2e_checkerboard.py
+TOY_FLOW = ('configs/toy/checkerboard_flow.py', {
+    'model.diffusion.denoising.hidden': (128, 128), 'data.train.n_rc': 2,
+    'data.train_dataloader.samples_per_gpu': 512, 'total_iters': 3000,
+    'checkpoint_config.interval': 1000, 'log_config.interval': 1000})
+TOY_DISTILL = ('configs/toy/checkerboard_arcflow_2nfe.py', {
+    'model.diffusion.denoising.hidden': (128, 128),
+    'model.teacher.denoising.hidden': (128, 128), 'data.train.n_rc': 2,
+    'data.train_dataloader.samples_per_gpu': 256, 'total_iters': 800,
+    'train_cfg.num_decay_iters': 300, 'checkpoint_config.interval': 800,
+    'log_config.interval': 400})
+TOY_FLOW_SUPPORT, TOY_DISTILL_SUPPORT = 0.75, 0.5
+TOY_CLI_TIMEOUT = 300
 # configs/qwen/arcqwen_2nfe_k16.py and bench.py:build_qwen
 QWEN_20B = dict(in_channels=64, num_layers=60, attention_head_dim=128,
                 num_attention_heads=24, joint_attention_dim=3584,
@@ -466,14 +508,16 @@ def kernel_ms(fn, name, iters):
     ``iters`` calls of ``fn`` under ``torch.profiler`` after two warm-up
     calls: the device's own time where a call is too short for CUDA events
     around it to see past the host's launch cost. The profiler now and then
-    drops a kernel record of such short calls: the window runs again, up to
-    three times, and then a named kernel's mean is taken over the launches
-    it recorded, if they are at least half."""
+    drops kernel records of such short calls (24 of 50 in one window on a
+    busy host): the window runs again, up to ``KERNEL_MS_WINDOWS`` times,
+    and then a named kernel's mean is taken over the window that recorded
+    the most of its launches, if they are at least half."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    best = []
+    for _ in range(KERNEL_MS_WINDOWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -484,11 +528,13 @@ def kernel_ms(fn, name, iters):
               and (name is None or name in e.name)]
         if name is None and len(us) >= iters and len(us) % iters == 0:
             return sum(us) / iters / 1e3
-        if name is not None and (len(us) == iters or (
-                attempt == 2 and 2 * len(us) >= iters)):
+        if name is not None and len(us) == iters:
             return sum(us) / len(us) / 1e3
-    raise AssertionError(f'the profiler saw {len(us)} kernel records of '
-                         f'{name or "the call"} in {iters} calls')
+        best = max(best, us, key=len)
+    if name is not None and 2 * len(best) >= iters:
+        return sum(best) / len(best) / 1e3
+    raise AssertionError(f'the profiler saw at most {len(best)} kernel '
+                         f'records of {name or "the call"} in {iters} calls')
 
 
 def ptxas_usage(kernel):
@@ -1165,37 +1211,30 @@ def phase_bwd_vs_plain():
                 bound_by=bound_by)
 
 
-def flux_train_model(generator, **net):
-    """The FLUX-12B distillation composition (``net`` cuts it) on the card,
-    frozen trunk in bf16, with random weights: normal(0.02) on every weight
-    matrix of the student (trunk and adapter) and of the teacher's head."""
-    net = dict(FLUX_TRAIN_NET, **net)
-    model = LatentDiffusionTextImage(
-        diffusion=dict(
-            type='ArcFlowImitationDataFree', policy_type='ArcFlow',
-            denoising=dict(type='ArcFluxTransformer2DModel', patch_size=2,
-                           num_gaussians=16, lora_rank=256, lora_dropout=0.05,
-                           **net),
-            flow_loss=dict(type='DiffusionMSELoss',
-                           data_info=dict(pred='u_t_pred', target='u_t'),
-                           rescale_mode='constant',
-                           rescale_cfg=dict(scale=30.0)),
-            num_timesteps=1,
-            timestep_sampler=dict(type='ContinuousTimeStepSampler',
-                                  shift=3.2),
-            denoising_mean_mode='U'),
-        teacher=dict(type='GaussianFlow',
-                     denoising=dict(type='FluxTransformer2DModel',
-                                    patch_size=2, **net),
-                     num_timesteps=1, denoising_mean_mode='U'),
-        tie_teacher=True, diffusion_use_ema=True,
-        latent_shape=FLUX_TRAIN_LATENT,
-        text_embed_dim=net['joint_attention_dim'],
-        pooled_dim=net['pooled_projection_dim'], frozen_dtype='bfloat16',
-        train_cfg=FLUX_TRAIN_CFG,
-        test_cfg=dict(distilled_guidance_scale=3.5, nfe=2, timestep_ratio=1.0,
-                      total_substeps=128),
-        device='cuda', dtype=torch.bfloat16)
+def flux_train_config(**net):
+    """The FLUX config through the port's ``Config``: frozen trunk bf16,
+    ``total_iters`` and ``checkpoint_config`` cut to phase 11r's run,
+    ``net`` cutting the depth of the student and of the teacher alike."""
+    cfg = Config.fromfile(FLUX_TRAIN_CONFIG)
+    opts = {'model.frozen_dtype': 'bfloat16',
+            'total_iters': RUNNER_ITERS,
+            'checkpoint_config': dict(_delete_=True, interval=0,
+                                      trainable_only=True)}
+    for k, v in net.items():
+        opts[f'model.diffusion.denoising.{k}'] = v
+        opts[f'model.teacher.denoising.{k}'] = v
+    cfg.merge_from_dict(opts)
+    return cfg
+
+
+def flux_train_model(generator, cfg):
+    """The FLUX-12B distillation composition of ``cfg`` built through
+    ``MODELS`` on the card, with random weights: normal(0.02) on every
+    weight matrix of the student (trunk and adapter) and of the teacher's
+    head."""
+    model = MODELS.build(cfg.model, default_args=dict(
+        train_cfg=cfg.train_cfg, test_cfg=cfg.test_cfg, device='cuda',
+        dtype=torch.bfloat16))
     randomize_(model.diffusion.denoising, generator)
     teacher = model.teacher.denoising
     randomize_(torch.nn.ModuleList([teacher.norm_out, teacher.proj_out]),
@@ -1203,18 +1242,19 @@ def flux_train_model(generator, **net):
     return model
 
 
-def flux_train_batch(generator):
+def flux_train_batch(generator, cfg):
     """One batch of 1: random latents (only their shape and device are
     used: the data-free loss starts from noise) and prompt embeds."""
-    return dict(latents=torch.randn(1, *FLUX_TRAIN_LATENT,
+    return dict(latents=torch.randn(1, *cfg.model.latent_shape,
                                     generator=generator, device='cuda'),
                 prompt_embed_kwargs=flux_inputs(generator))
 
 
 def phase_train_reduced():
     g = torch.Generator(device='cuda').manual_seed(SEED + 7)
-    model = flux_train_model(g, num_layers=1, num_single_layers=1)
-    batch = flux_train_batch(g)
+    cfg = flux_train_config(num_layers=1, num_single_layers=1)
+    model = flux_train_model(g, cfg)
+    batch = flux_train_batch(g, cfg)
     adapter = model.init_params()[0]['diffusion']
 
     def run():
@@ -1300,22 +1340,28 @@ def phase_train_reduced():
 def phase_train_full():
     g = torch.Generator(device='cuda').manual_seed(SEED + 9)
     t0 = time.perf_counter()
-    model = flux_train_model(g)
+    cfg = flux_train_config()
+    model = flux_train_model(g, cfg)
     trainable, frozen = model.init_params()
-    optimizers = build_optimizers(FLUX_TRAIN_OPT, trainable)
+    n_params = (count_params(trainable), count_params(frozen))
+    if n_params != FLUX_TRAIN_PARAMS:
+        raise AssertionError(f'{FLUX_TRAIN_CONFIG} built (trainable, '
+                             f'frozen) {n_params} parameters, want '
+                             f'{FLUX_TRAIN_PARAMS}')
+    optimizers = build_optimizers(dict(cfg.optimizer), trainable)
     state = TrainState.create(
         torch.Generator(device='cuda').manual_seed(SEED + 10), trainable,
         frozen, optimizers, ema_keys=model.ema_keys)
     step = build_train_step(model, optimizers, model.train_cfg,
-                            EmaConfig.from_hook_cfg(FLUX_TRAIN_EMA_HOOK))
-    batch = flux_train_batch(g)
+                            ema_config_from_cfg(cfg))
+    batch = flux_train_batch(g, cfg)
     adapter = trainable['diffusion']
     start = {n: p.detach().clone() for n, p in adapter.items()}
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     frozen_host = {n: t.detach().cpu() for n, t in flatten(frozen).items()}
-    n_blocks = FLUX_TRAIN_NET['num_layers'] + FLUX_TRAIN_NET[
-        'num_single_layers']
+    net = cfg.model.diffusion.denoising
+    n_blocks = net.num_layers + net.num_single_layers
     want = (TRAIN_FORWARDS * n_blocks, TRAIN_BACKWARDS * n_blocks)
 
     torch.cuda.reset_peak_memory_stats()
@@ -1353,12 +1399,12 @@ def phase_train_full():
                if not torch.equal(t.cpu(), frozen_host[n])]
     if changed:
         raise AssertionError(f'frozen tensors changed: {changed[:5]}')
-    del frozen_host
     wall, busy, by_name = profile_split(lambda: step(state, batch))
     families = split_families(by_name)
     total = sum(ms for ms, _, _ in families.values())
     warm = sum(st['s'] for st in steps[1:]) / len(steps[1:])
-    log(f'phase 11 FLUX training full slice (FLUX-12B ArcFlow distillation, '
+    log(f'phase 11 FLUX training full slice (FLUX-12B ArcFlow distillation '
+        f'of {FLUX_TRAIN_CONFIG} through Config and MODELS, '
         f'{count_params(frozen) / 1e9:.2f}B frozen bf16 + '
         f'{count_params(trainable)} fp32 adapter parameters, batch 1, '
         f'1024x1024, nfe 2, 4 intermediate states, checkpointing): ok | '
@@ -1379,7 +1425,179 @@ def phase_train_full():
             f'{top_name[:60]})'
             for f, (ms, calls, top_name) in sorted(families.items(),
                                                    key=lambda kv: -kv[1][0])))
-    return dict(forward=launches[0], backward=launches[1])
+    return dict(forward=launches[0], backward=launches[1]), dict(
+        cfg=cfg, model=model, state=state, step=step, batch=batch,
+        frozen_host=frozen_host, warm=warm, n_blocks=n_blocks)
+
+
+class LaunchesPerIter(Hook):
+    """Reads the attention launch counts after each iteration and sets
+    them to 0 for the next (first among the hooks, none of which
+    launches)."""
+
+    priority = 0
+
+    def __init__(self):
+        self.per_iter = []
+
+    def after_train_iter(self, runner):
+        self.per_iter.append((attn.LAUNCHES, attn.BWD_LAUNCHES))
+        attn.LAUNCHES = attn.BWD_LAUNCHES = 0
+
+
+class Timings(Hook):
+    """Keeps IterTimerHook's per-iteration readings (interval 1)."""
+
+    priority = 35
+
+    def __init__(self):
+        self.rows = []
+
+    def after_train_iter(self, runner):
+        self.rows.append({k: runner.log_buffer[k] for k in
+                          ('time_data', 'time_step', 'time_iter')})
+
+
+class RaiseSigterm(Hook):
+    priority = 90
+
+    def __init__(self, at):
+        self.at = at
+
+    def after_train_iter(self, runner):
+        if runner.iter == self.at:
+            signal.raise_signal(signal.SIGTERM)
+
+
+def state_mismatches(state, raw):
+    """Names of what differs, bit for bit, between the live ``state`` and
+    the checkpoint dict ``raw``: trainable, EMA, optimizer slots and step
+    counts, the step and the generator's state."""
+    bad = []
+    for what in ('trainable', 'ema'):
+        for k, sub in getattr(state, what).items():
+            bad += [f'{what}.{n}' for n, t in sub.items()
+                    if not torch.equal(t.detach().cpu(), raw[what][k][n])]
+    for k, tx in state.optimizers.items():
+        saved = raw['optimizers'][k]['state']
+        for i, slots in tx.state_dict()['state'].items():
+            bad += [f'opt.{i}.{n}' for n, v in slots.items()
+                    if not torch.equal(v.cpu(), saved[i][n])]
+    if not torch.equal(state.generator.get_state(), raw['generator']):
+        bad.append('generator')
+    if state.step != raw['step']:
+        bad.append('step')
+    return bad
+
+
+def phase_train_runner(run):
+    """Phase 11's model and state through ``IterBasedRunner``: the config's
+    log hooks, the loss quartiles, ``IterTimerHook(sync=True)``, a
+    trainable-only fp32 ``CheckpointManager`` in a temporary directory, and
+    a hook that raises SIGTERM after the second of three iterations."""
+    cfg, state, frozen_host = run['cfg'], run['state'], run['frozen_host']
+    adapter_bytes = 4 * FLUX_TRAIN_PARAMS[0] * 4   # weights, EMA, 2 slots
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix='runner-', dir=_build.BUILD_DIR)
+    try:
+        free = shutil.disk_usage(work).free
+        log(f'phase 11r: {free / 2 ** 30:.1f} GiB free under {work} for a '
+            f'{adapter_bytes / 2 ** 30:.1f} GiB checkpoint')
+        if free < adapter_bytes + CKPT_DISK_MARGIN:
+            raise AssertionError(f'{free} bytes free under {work}: the '
+                                 f'checkpoint needs {adapter_bytes} + '
+                                 f'{CKPT_DISK_MARGIN}')
+        ckpt_cfg = cfg.checkpoint_config
+        manager = CheckpointManager(
+            os.path.join(work, 'ckpt'), interval=ckpt_cfg.interval,
+            ckpt_trainable_only=ckpt_cfg.trainable_only)
+        start = state.step
+        counter, timings = LaunchesPerIter(), Timings()
+        log_cfg = dict(cfg.log_config, interval=1)
+        hooks = build_hooks(log_cfg, extra_hooks=[
+            counter, timings, QuartileLossLoggerHook(
+                total_timesteps=cfg.model.diffusion.num_timesteps),
+            IterTimerHook(interval=1, sync=True), CheckpointHook(manager),
+            RaiseSigterm(start + RUNNER_SIGTERM_AFTER)])
+        runner = IterBasedRunner(
+            run['model'], state, run['step'], itertools.repeat(run['batch']),
+            start + cfg.total_iters, work_dir=work, hooks=hooks,
+            device='cuda')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        attn.LAUNCHES = attn.BWD_LAUNCHES = 0   # the main path's counted run
+        t = time.perf_counter()
+        runner.run()
+        wall = time.perf_counter() - t
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        ran = runner.iter - start
+        want = (TRAIN_FORWARDS * run['n_blocks'],
+                TRAIN_BACKWARDS * run['n_blocks'])
+        if ran != RUNNER_SIGTERM_AFTER or not runner.preempted:
+            raise AssertionError(f'{ran} iterations ran (preempted '
+                                 f'{runner.preempted}), want '
+                                 f'{RUNNER_SIGTERM_AFTER} then SIGTERM')
+        if counter.per_iter != [want] * ran:
+            raise AssertionError(f'launches (forward, backward) per '
+                                 f'iteration {counter.per_iter}, want {want}')
+        saved_at = manager.latest_step()
+        if saved_at != state.step:
+            raise AssertionError(f'latest checkpoint {saved_at}, state step '
+                                 f'{state.step}')
+        nbytes, save = manager.last_save['bytes'], dict(manager.last_save)
+        t = time.perf_counter()
+        raw = load_raw_checkpoint(os.path.join(work, 'ckpt'))
+        load_s = time.perf_counter() - t
+        bad = state_mismatches(state, raw)
+        if bad:
+            raise AssertionError(f'checkpoint differs from the live state: '
+                                 f'{bad[:5]} ({len(bad)})')
+        # restore into a disturbed live state: every part must come back
+        live_step = state.step
+        with torch.no_grad():
+            for sub in (*state.trainable.values(), *state.ema.values()):
+                for p in sub.values():
+                    p.add_(1.0)
+        state.generator.manual_seed(SEED + 99)
+        state.step = 0
+        t = time.perf_counter()
+        manager.restore(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        bad = state_mismatches(state, raw)
+        if bad or state.step != live_step:
+            raise AssertionError(f'restored state differs: {bad[:5]} '
+                                 f'({len(bad)}), step {state.step}')
+        del raw
+        changed = [n for n, t in flatten(state.frozen).items()
+                   if not torch.equal(t.cpu(), frozen_host[n])]
+        if changed:
+            raise AssertionError(f'frozen tensors changed: {changed[:5]}')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    per_iter = [r['time_iter'] for r in timings.rows]
+    host_ms = [1e3 * (r['time_iter'] - r['time_step']) for r in timings.rows]
+    data_ms = [1e3 * r['time_data'] for r in timings.rows]
+    log(f'phase 11r FLUX-12B through IterBasedRunner (phase 11 model and '
+        f'state, {len(hooks)} hooks: {", ".join(type(h).__name__ for h in hooks)}'
+        f'): ok | SIGTERM after iteration {RUNNER_SIGTERM_AFTER} of '
+        f'{RUNNER_ITERS}: {ran} iterations ran, steps {start} -> '
+        f'{live_step}, force-saved at {saved_at} | launches per '
+        f'iteration {counter.per_iter} | s per iteration through the runner '
+        + ', '.join(f'{x:.4f}' for x in per_iter)
+        + f' (phase 11 bare warm step {run["warm"]:.4f} s) | runner host '
+        f'time per iteration (iteration minus synced step: data, hooks) '
+        + ', '.join(f'{x:.3f}' for x in host_ms) + ' ms, of it data '
+        + ', '.join(f'{x:.3f}' for x in data_ms) + f' ms | checkpoint '
+        f'(trainable-only fp32: adapter, EMA, AdamW slots, step, generator) '
+        f'{nbytes} bytes, staged to the host in {save["stage_s"]:.3f} s, '
+        f'written in {save["write_s"]:.3f} s ({nbytes / save["write_s"] / 1e9:.2f} '
+        f'GB/s), loaded in {load_s:.3f} s, restored into the live state in '
+        f'{restore_s:.3f} s, bitwise equal to the live state before and after '
+        f'the restore; frozen trunk bit-identical | run {wall:.2f} s with '
+        f'the forced save | peak memory {peak_gib:.2f} GiB')
+    return dict(forward=sum(c[0] for c in counter.per_iter),
+                backward=sum(c[1] for c in counter.per_iter))
 
 
 def k7_bound(b, s, h, valid_keys=None):
@@ -1643,6 +1861,95 @@ def phase_gmflow():
         f'(not gated)')
     return dict(s_per_step=t_step, s_per_sample_call=t_sample,
                 support=float(support.mean()))
+
+
+def toy_cli(path, opts, work_dir):
+    """``python -m arcflow_tpu_torch.train path`` with ``opts`` on the card
+    (the CLI's default device), in a subprocess: (its config, its output,
+    seconds, the mean s/iter of its last log line)."""
+    opts = dict(opts)
+    args = [f'{k}={v!r}'.replace(' ', '') for k, v in opts.items()]
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, '-m', 'arcflow_tpu_torch.train', path,
+         '--work-dir', work_dir, '--cfg-options', *args],
+        capture_output=True, text=True, timeout=TOY_CLI_TIMEOUT)
+    wall = time.perf_counter() - t
+    out = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise AssertionError(f'{path}: the CLI exited {res.returncode}:\n'
+                             f'{out[-3000:]}')
+    if not re.search(r'INFO device: cuda', out):
+        raise AssertionError(f'{path}: the CLI did not train on the card:\n'
+                             f'{out[-3000:]}')
+    times = re.findall(r'iter \[\d+/\d+\] time: ([0-9.e+-]+)s', out)
+    if not times:
+        raise AssertionError(f'{path}: no iteration log:\n{out[-3000:]}')
+    cfg = Config.fromfile(path)
+    cfg.merge_from_dict(opts)
+    return cfg, out, wall, float(times[-1])
+
+
+def toy_support(cfg, work_dir, n, seed, **kwargs):
+    """In-support share of ``n`` samples of the CLI run's last checkpoint,
+    with its EMA weights, from a model built from the same config on the
+    card."""
+    model = build_model_from_cfg(cfg, device='cuda')
+    raw = load_raw_checkpoint(os.path.join(work_dir, 'checkpoints',
+                                           cfg.name))
+    ema = {k: t.to('cuda') for k, t in raw['ema']['diffusion'].items()}
+    samples = model.val_step(
+        dict(num_samples=n), torch.Generator(device='cuda').manual_seed(seed),
+        ema=ema, **kwargs)
+    samples = samples.float().cpu().numpy()
+    if samples.shape != (n, 2) or not np.isfinite(samples).all():
+        raise AssertionError(f'{cfg.name}: samples {samples.shape}, finite '
+                             f'{np.isfinite(samples).all()}')
+    share = CheckerboardData(n_rc=cfg.data.train.n_rc).log_prob_support(
+        samples).mean()
+    return raw['step'], float(share)
+
+
+def phase_toy_cli():
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix='toy-', dir=_build.BUILD_DIR)
+    try:
+        wd_flow, wd_distill = (os.path.join(work, n)
+                               for n in ('flow', 'distill'))
+        flow_cfg, _, flow_wall, flow_s = toy_cli(*TOY_FLOW, wd_flow)
+        flow_step, flow_share = toy_support(
+            flow_cfg, wd_flow, 2048, SEED + 23,
+            test_cfg_override=dict(num_timesteps=32))
+        path, opts = TOY_DISTILL
+        opts = dict(opts, **{'model.teacher_ckpt': os.path.join(
+            wd_flow, 'checkpoints', flow_cfg.name)})
+        distill_cfg, _, distill_wall, distill_s = toy_cli(path, opts,
+                                                          wd_distill)
+        distill_step, distill_share = toy_support(distill_cfg, wd_distill,
+                                                  1024, SEED + 24)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if flow_step != flow_cfg.total_iters or \
+            distill_step != distill_cfg.total_iters:
+        raise AssertionError(f'last checkpoints at {flow_step}, '
+                             f'{distill_step}')
+    if not (flow_share > TOY_FLOW_SUPPORT
+            and distill_share > TOY_DISTILL_SUPPORT):
+        raise AssertionError(f'in-support shares {flow_share:.4f} (want > '
+                             f'{TOY_FLOW_SUPPORT}), {distill_share:.4f} '
+                             f'(want > {TOY_DISTILL_SUPPORT})')
+    log(f'phase 23 toy stack through python -m arcflow_tpu_torch.train on '
+        f'the card (hidden 128 x 2, 2 x 2 board): ok | {TOY_FLOW[0]}: '
+        f'{flow_cfg.total_iters} iterations at batch 512, {flow_s:.5f} s per '
+        f'iteration (last log interval), {flow_wall:.1f} s of command, '
+        f'in-support share {flow_share:.4f} of 2048 samples (EMA, 32 Euler '
+        f'steps; gate > {TOY_FLOW_SUPPORT}) | {TOY_DISTILL[0]} with that '
+        f'teacher: {distill_cfg.total_iters} iterations at batch 256, '
+        f'{distill_s:.5f} s per iteration, {distill_wall:.1f} s of command, '
+        f'2-NFE in-support share {distill_share:.4f} of 1024 samples (gate > '
+        f'{TOY_DISTILL_SUPPORT})')
+    return dict(flow_s_per_iter=flow_s, flow_support=flow_share,
+                distill_s_per_iter=distill_s, distill_support=distill_share)
 
 
 def hop_case(g, b, s, h, lengths=None):
@@ -2623,12 +2930,15 @@ def main():
     phase_train_reduced()
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches = phase_train_full()
+    train_launches, train_run = phase_train_full()
+    runner_launches = phase_train_runner(train_run)
+    del train_run
     gc.collect()
     torch.cuda.empty_cache()
     k6_err, k6_timed = phase_k6_vs_plain()
     kr = phase_kr()
     phase_gmflow()
+    phase_toy_cli()
     gc.collect()
     torch.cuda.empty_cache()
     k4_err, k4_timed = phase_k4_vs_plain()
@@ -2639,7 +2949,10 @@ def main():
     fwd = attn_timed['unmasked']
     ff_in = w4a8_timed[0]
     fwd_by_path = {'flux': flux_launches, 'qwen': qwen_launches['attention'],
-                   'flux_train': train_launches['forward']}
+                   'flux_train': train_launches['forward'],
+                   'flux_train_runner': runner_launches['forward']}
+    bwd_by_path = {'flux_train': train_launches['backward'],
+                   'flux_train_runner': runner_launches['backward']}
     print(json.dumps({'kernels': [
         {'name': 'attention_fwd', 'route': 'cuda',
          'source': 'arcflow_tpu_torch/csrc/attention_fwd.cu',
@@ -2665,8 +2978,8 @@ def main():
         {'name': 'attention_bwd', 'route': 'cuda',
          'source': 'arcflow_tpu_torch/csrc/attention_bwd.cu',
          'replaces': 'arcflow_tpu/models/layers.py:542',
-         'launches': train_launches['backward'],
-         'launches_by_path': {'flux_train': train_launches['backward']},
+         'launches': sum(bwd_by_path.values()),
+         'launches_by_path': bwd_by_path,
          'max_abs_err': bwd['max_abs_err'], 'max_rel_l2': bwd['max_rel_l2'],
          'ms': bwd['ms'], 'plain_ms': bwd['plain_ms'],
          'bound_ms': bwd['bound_ms'], 'bound_by': bwd['bound_by'],
