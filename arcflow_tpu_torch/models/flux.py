@@ -197,6 +197,7 @@ class FluxBackbone(nn.Module):
     """Shared trunk: embedders + joint blocks + single blocks."""
 
     patch_size = 2
+    family = 'flux'     # the diffusers key maps (pipelines/convert.py)
 
     def __init__(self, in_channels: int = 64, num_layers: int = 19,
                  num_single_layers: int = 38, attention_head_dim: int = 128,

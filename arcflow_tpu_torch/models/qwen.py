@@ -61,6 +61,7 @@ class QwenBackbone(nn.Module):
 
     patch_size = 2
     guidance_embeds = False
+    family = 'qwen'     # the diffusers key maps (pipelines/convert.py)
 
     def __init__(self, in_channels: int = 64, num_layers: int = 60,
                  attention_head_dim: int = 128, num_attention_heads: int = 24,

@@ -8,20 +8,25 @@ VAE reduces exactly to a 2-D network with temporally sliced kernels, which
 is what the JAX package holds and what is ported. The public layout is the
 JAX package's, channel last: ``decode`` takes (B, h, w, z) latents and
 returns (B, 8h, 8w, 3) images; inside, the convs run NCHW. The mid-block
-attention is plain torch (XLA in the JAX package, no kernel). The encoder
-and the quant conv wait for their slice.
+attention is plain torch (XLA in the JAX package, no kernel).
+``from_pretrained`` loads the decoder half of a diffusers
+AutoencoderKLQwenImage folder (``pipelines/convert.py:
+diffusers_qwen_vae_to_torch``). The encoder and the quant conv wait for
+their slice.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .vae import _conv, _run
+from ..registry import MODULES
+from .vae import _conv, _run, load_vae_folder, torch_dtype
 
 
 class WanRMSNorm(nn.Module):
@@ -153,18 +158,23 @@ class QwenVAEDecoder(nn.Module):
         return _run(self.conv_out, F.silu(self.norm_out(h)))
 
 
+@MODULES.register_module()
 class PretrainedVAEQwenImage(nn.Module):
     """Qwen-Image VAE decode: per-channel latent denormalization
     z * latents_std + latents_mean, the post-quant 1x1 conv, then the
-    decoder."""
+    decoder. ``from_pretrained`` (+ ``subfolder``) loads a diffusers
+    folder's weights; its ``config.json`` fields come in as constructor
+    arguments. Encoder-side options are taken and ignored."""
 
     def __init__(self, base_dim: int = 96, z_dim: int = 16,
                  dim_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, out_channels: int = 3,
                  latents_mean: Optional[Sequence[float]] = None,
                  latents_std: Optional[Sequence[float]] = None,
-                 device=None, dtype=None):
+                 from_pretrained: Optional[str] = None, subfolder: str = '',
+                 device=None, dtype=None, **kwargs):
         super().__init__()
+        dtype = torch_dtype(dtype)
         f32 = dict(device=device, dtype=torch.float32)
         mean = torch.zeros(z_dim, **f32) if latents_mean is None \
             else torch.tensor(latents_mean, **f32)
@@ -177,6 +187,10 @@ class PretrainedVAEQwenImage(nn.Module):
                                       num_res_blocks, out_channels,
                                       device=device, dtype=dtype)
         self.post_quant_conv = _conv(z_dim, z_dim, 1, device, dtype)
+        if from_pretrained is not None:
+            from ..pipelines.convert import diffusers_qwen_vae_to_torch
+            load_vae_folder(self, os.path.join(from_pretrained, subfolder),
+                            diffusers_qwen_vae_to_torch, 'qwen vae')
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Normalized latents (B, h, w, z) -> images (B, 8h, 8w, 3) in

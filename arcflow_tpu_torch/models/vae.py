@@ -6,19 +6,23 @@ The public layout is the JAX package's, channel last: ``decode`` takes
 (B, h, w, C) latents and returns (B, H, W, 3) images; inside, the convs run
 NCHW. GroupNorms compute in fp32, as in the JAX package. Convs and linears
 are drawn as flax's ``nn.Conv``/``nn.Dense`` defaults draw them (truncated
-LeCun normal, zero bias: ``flax_init_``). The encoder and the quant convs
-wait for their slice.
+LeCun normal, zero bias: ``flax_init_``). ``from_pretrained`` loads the
+decoder half of a diffusers AutoencoderKL folder
+(``pipelines/convert.py:diffusers_vae_to_torch``). The encoder and
+``quant_conv`` wait for their slice.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+import os
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..registry import MODULES
 from .layers import lecun_normal_
 
 
@@ -108,12 +112,12 @@ class Upsample(nn.Module):
 
 class Decoder(nn.Module):
     """Latents (B, C, h, w) -> RGB images (B, 3, H, W), upsampled 2x between
-    levels (8x for FLUX's four); three resnets per level (diffusers'
-    layers_per_block 2, plus one)."""
+    levels (8x for FLUX's four); layers_per_block + 1 resnets per level
+    (three for FLUX)."""
 
     def __init__(self, latent_channels: int = 16,
                  block_out_channels: Sequence[int] = (128, 256, 512, 512),
-                 device=None, dtype=None):
+                 layers_per_block: int = 2, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         ch = list(reversed(block_out_channels))        # (512, 512, 256, 128)
@@ -124,7 +128,7 @@ class Decoder(nn.Module):
         self.up_names = []
         prev = ch[0]
         for i, c in enumerate(ch):
-            for j in range(3):
+            for j in range(layers_per_block + 1):
                 self.add_module(f'up_{i}_res_{j}', ResnetBlock(prev, c, **kw))
                 self.up_names.append(f'up_{i}_res_{j}')
                 prev = c
@@ -142,26 +146,91 @@ class Decoder(nn.Module):
         return _run(self.conv_out, F.silu(self.conv_norm_out(h)))
 
 
-class PretrainedVAE(nn.Module):
-    """AutoencoderKL decode with diffusers scaling semantics:
-    z = z' / scaling_factor + shift_factor (the FLUX VAE's constants),
-    then the decoder."""
+def torch_dtype(dtype):
+    """A torch dtype, or a config's name of one ('bfloat16'); None stays."""
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
-    scaling_factor = 0.3611
-    shift_factor = 0.1159
+
+def load_vae_folder(module: nn.Module, path: str, convert,
+                    what: str = 'vae') -> None:
+    """Load a diffusers VAE folder's decoder half into ``module`` (its
+    ``state_dict`` keys, cast to their dtypes): the top-level parts the
+    module lacks (the encoder, quant convs it was built without) are
+    dropped as in JAX; any other missing or unexpected key raises the JAX
+    error."""
+    from ..pipelines.convert import graft_pretrained, load_safetensors_state
+    converted, _ = convert(load_safetensors_state(path))
+    own = module.state_dict()
+    tops = {k.partition('.')[0] for k in own}
+    converted = {k: v for k, v in converted.items()
+                 if k.partition('.')[0] in tops}
+    state, missing, unexpected = graft_pretrained(own, converted)
+    if missing or unexpected:
+        raise ValueError(f'{what} load mismatch: missing {missing[:3]}, '
+                         f'unexpected {unexpected[:3]}')
+    module.load_state_dict(state, strict=True)
+
+
+@MODULES.register_module()
+class PretrainedVAE(nn.Module):
+    """AutoencoderKL decode with diffusers scaling semantics (JAX
+    ``PretrainedVAE``): z = z' / scaling_factor + shift_factor (the FLUX
+    VAE's constants), or the per-channel ``latents_mean`` / ``latents_std``
+    when given, the 1x1 ``post_quant_conv`` of SD-family VAEs
+    (``use_post_quant_conv``), then the decoder. ``from_pretrained`` (+
+    ``subfolder``) loads a diffusers folder's weights; the folder's
+    ``config.json`` fields come in as constructor arguments
+    (``ArcFluxPipeline._load_vae_folder``). Encoder-side options are taken
+    and ignored."""
 
     def __init__(self, latent_channels: int = 16,
                  block_out_channels: Sequence[int] = (128, 256, 512, 512),
-                 device=None, dtype=None):
+                 layers_per_block: int = 2, scaling_factor: float = 0.3611,
+                 shift_factor: float = 0.1159,
+                 latents_mean: Optional[Sequence[float]] = None,
+                 latents_std: Optional[Sequence[float]] = None,
+                 use_post_quant_conv: bool = False,
+                 from_pretrained: Optional[str] = None, subfolder: str = '',
+                 device=None, dtype=None, **kwargs):
         super().__init__()
+        dtype = torch_dtype(dtype)
+        self.scaling_factor = scaling_factor
+        self.shift_factor = shift_factor
+        f32 = dict(device=device, dtype=torch.float32)
+        self.latents_mean = None if latents_mean is None \
+            else torch.tensor(latents_mean, **f32)
+        self.latents_std = None if latents_std is None \
+            else torch.tensor(latents_std, **f32)
         self.decoder = Decoder(latent_channels, block_out_channels,
-                               device=device, dtype=dtype)
+                               layers_per_block, device=device, dtype=dtype)
+        self.post_quant_conv = _conv(latent_channels, latent_channels, 1,
+                                     device, dtype) \
+            if use_post_quant_conv else None
+        if from_pretrained is not None:
+            from ..pipelines.convert import diffusers_vae_to_torch
+            load_vae_folder(self, os.path.join(from_pretrained, subfolder),
+                            diffusers_vae_to_torch)
 
     def _denormalize(self, z: torch.Tensor) -> torch.Tensor:
+        if self.latents_mean is not None:
+            return z * self.latents_std.to(z.device) \
+                + self.latents_mean.to(z.device)
         return z / self.scaling_factor + self.shift_factor
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Normalized latents (B, h, w, C) -> images (B, 8h, 8w, 3) in
         [-1, 1], fp32."""
         z = self._denormalize(latents.float()).permute(0, 3, 1, 2)
+        if self.post_quant_conv is not None:
+            z = _run(self.post_quant_conv, z)
         return self.decoder(z).float().permute(0, 2, 3, 1)
+
+
+@MODULES.register_module()
+class PretrainedVAEDecoder(PretrainedVAE):
+    """The decoder-only VAE of the training configs (JAX
+    ``PretrainedVAEDecoder``); the port's ``PretrainedVAE`` has no encoder
+    yet, so the two are the same module."""
+
+    def encode(self, *args, **kwargs):
+        raise RuntimeError('decoder-only VAE')

@@ -1,21 +1,27 @@
-"""End-user 2-NFE text-to-image pipelines (FLUX, Qwen-Image) from prompt
-embeds.
+"""End-user 2-NFE text-to-image pipelines (FLUX, Qwen-Image).
 
 Counterpart of ``arcflow_tpu/pipelines/arcflux_pipeline.py``
-(``retrieve_raw_timesteps``, ``ArcFluxPipeline`` with ``quantize_int8`` and
-``quantize_int4``, ``ArcQwenImagePipeline``): nfe-step ArcFlow sampling
-(one DiT call + closed-form momentum integration per step, temperature on
-every step but the last) -> VAE decode. The kernels follow the device the
-modules and inputs live on; the w8a8 and w4a8 modes are state of the
-transformer's layers and the sequence-parallel layout (``shard``) state of
-its trunk and attention modules; there is no process-wide serving,
-quantization or mesh flag. Prompt encoding, ``from_pretrained``, adapter
-loading and the mesh axes other than ``sp`` wait for their slices.
+(``retrieve_raw_timesteps``, ``ArcFluxPipeline`` with ``from_pretrained``,
+``load_arcflow_adapter``, ``quantize_int8``, ``quantize_int4``, ``shard``
+and ``encode_prompt``, ``ArcQwenImagePipeline``): prompt encoding ->
+nfe-step ArcFlow sampling (one DiT call + closed-form momentum integration
+per step, temperature on every step but the last) -> VAE decode. The
+kernels follow the device the modules and inputs live on; the w8a8 and
+w4a8 modes are state of the transformer's layers and the sequence-parallel
+layout (``shard``) state of its trunk and attention modules; there is no
+process-wide serving, quantization or mesh flag. ``from_pretrained`` reads
+local diffusers folders (a transformer folder, or a whole pipeline folder
+with ``model_index.json``); hub names and remote URIs wait for
+``utils/io_utils`` (ROADMAP.md queue A item 7), the mesh axes other than
+``sp`` for theirs.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import inspect
+import json
+import os
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -50,18 +56,198 @@ class ArcFluxPipeline:
     family = 'flux'
 
     def __init__(self, transformer: nn.Module, vae: Optional[nn.Module] = None,
-                 shift: float = 3.2, use_dynamic_shifting: bool = False,
-                 nfe: int = 2, timestep_ratio: float = 1.0,
-                 temperature: float = 1.0, guidance_scale: float = 3.5):
+                 text_encoder=None, shift: float = 3.2,
+                 use_dynamic_shifting: bool = False, nfe: int = 2,
+                 timestep_ratio: float = 1.0, temperature: float = 1.0,
+                 total_substeps: int = 128, guidance_scale: float = 3.5,
+                 base_shift: float = 0.5, max_shift: float = 1.15,
+                 base_image_seq_len: int = 256,
+                 max_image_seq_len: int = 4096):
+        """``base_shift`` .. ``max_image_seq_len`` are the dynamic shift's
+        fields of a diffusers ``scheduler_config.json`` (log shifts at two
+        image token counts; FLUX.1-dev's values by default)."""
         self.transformer = transformer
         self.vae = vae
+        self.text_encoder = text_encoder
         self.guidance_scale = guidance_scale
         self.diffusion = ArcFlowImitationDataFree(
             denoising=transformer, num_timesteps=1,
             timestep_sampler=ContinuousTimeStepSampler(
-                shift=shift, use_dynamic_shifting=use_dynamic_shifting),
+                shift=shift, use_dynamic_shifting=use_dynamic_shifting,
+                base_logshift=base_shift, max_logshift=max_shift,
+                base_seq_len=base_image_seq_len,
+                max_seq_len=max_image_seq_len),
             test_cfg=dict(nfe=nfe, timestep_ratio=timestep_ratio,
-                          temperature=temperature))
+                          temperature=temperature,
+                          total_substeps=total_substeps))
+
+    # ---- loading -----------------------------------------------------------
+    @classmethod
+    def from_pretrained(cls, model_dir: str, transformer_cls=None,
+                        device='cuda', dtype=torch.bfloat16, **kwargs):
+        """Build from a local diffusers folder (JAX ``from_pretrained``):
+        a transformer folder (``config.json`` + safetensors, sharded or
+        not) loads the DiT and takes the rest from ``kwargs``; a pipeline
+        folder (``model_index.json``) assembles every component
+        (``_from_pipeline_folder``). The transformer's class comes from
+        ``transformer_cls``, else the config's ``_class_name``, else
+        ArcFlux; only its constructor's fields are read from
+        the config. It is built on ``device`` in ``dtype`` (the heads stay
+        fp32). A teacher-only folder's ``proj_out`` is expanded into the
+        K-way means head. More than 10% of the model's keys missing, or
+        any shape mismatch, raises (a folder of the other family); a key
+        the model has no place for raises too, except the LoRA leaves of
+        layers built without LoRA, which are fused into their weights. The
+        few missing keys keep their init: the adapter brings them."""
+        if '://' in model_dir:
+            raise NotImplementedError(
+                f'{model_dir}: remote folders need utils/io_utils, which the '
+                f'port does not have yet (ROADMAP.md queue A item 7); '
+                f'download the folder and pass its local path')
+        if os.path.exists(os.path.join(model_dir, 'model_index.json')):
+            return cls._from_pipeline_folder(
+                model_dir, transformer_cls=transformer_cls, device=device,
+                dtype=dtype, **kwargs)
+        from .. import models
+        from .convert import (diffusers_to_torch,
+                              expand_proj_out_to_arc_heads,
+                              load_safetensors_state)
+        cfg = _read_json(os.path.join(model_dir, 'config.json'))
+        if transformer_cls is None and cfg.get('_class_name'):
+            transformer_cls = getattr(models, cfg['_class_name'], None)
+        transformer_cls = transformer_cls or models.ArcFluxTransformer2DModel
+        fields = _init_fields(transformer_cls)
+        cfg = {k: tuple(v) if isinstance(v, list) else v
+               for k, v in cfg.items()
+               if not k.startswith('_') and k in fields
+               and k not in ('device', 'dtype')}
+        model = transformer_cls(device=device, dtype=dtype, **cfg).eval()
+        family = model.family
+        state, _ = diffusers_to_torch(
+            load_safetensors_state(model_dir),
+            len(getattr(model, 'joint_blocks', None)
+                or model.transformer_blocks),
+            len(getattr(model, 'single_blocks', ())),
+            family=family, patch_size=model.patch_size)
+        if getattr(model, 'num_gaussians', 0):
+            state = expand_proj_out_to_arc_heads(
+                state, model.num_gaussians, model.patch_size,
+                generator=torch.Generator().manual_seed(0))
+        expected = model.state_dict()
+        bad = [f'{k}: ckpt {tuple(v.shape)} vs model '
+               f'{tuple(expected[k].shape)}' for k, v in state.items()
+               if k in expected and v.shape != expected[k].shape]
+        missing = sorted(set(expected) - set(state))
+        if bad or len(missing) > 0.1 * len(expected):
+            raise ValueError(
+                f'checkpoint at {model_dir} does not match the {family!r} '
+                f'key maps / {type(model).__name__} structure: '
+                f'{len(missing)}/{len(expected)} model params missing (e.g. '
+                f'{missing[:3]}); shape mismatches: {bad[:3]} — wrong '
+                f'pipeline family for this folder?')
+        merge_state(model, state)
+        return cls(model, **kwargs)
+
+    @classmethod
+    def _from_pipeline_folder(cls, root: str, transformer_cls=None,
+                              text_encoder_kwargs: Optional[dict] = None,
+                              vae_kwargs: Optional[dict] = None,
+                              device='cuda', dtype=torch.bfloat16, **kwargs):
+        """One call from a diffusers pipeline folder (JAX
+        ``_from_pipeline_folder``): ``model_index.json`` names the
+        components; the VAE and the text towers (with their ``tokenizer*``
+        folders) are built from their subfolders, the transformer from
+        ``transformer/``, and every field of ``scheduler/
+        scheduler_config.json`` sets the timestep sampler: ``shift``,
+        ``use_dynamic_shifting``, and ``base_shift``, ``max_shift``,
+        ``base_image_seq_len``, ``max_image_seq_len`` for the dynamic
+        shift. Explicit keyword arguments win over the folder's values,
+        field by field. (JAX reads ``shift`` and ``use_dynamic_shifting``
+        only, and neither when ``shift=`` is passed.)"""
+        index = _read_json(os.path.join(root, 'model_index.json'))
+
+        def sub(name):
+            d = os.path.join(root, name)
+            return d if name in index and os.path.isdir(d) else None
+
+        sched = sub('scheduler')
+        if sched is not None:
+            scfg = _read_json(os.path.join(sched, 'scheduler_config.json'))
+            for field in SCHEDULER_FIELDS:
+                if field in scfg:
+                    kwargs.setdefault(field, scfg[field])
+        vae_dir = sub('vae')
+        if vae_dir is not None and 'vae' not in kwargs:
+            kwargs['vae'] = cls._load_vae_folder(
+                vae_dir, (index.get('vae') or (None, ''))[1] or '',
+                device=device, dtype=dtype, **(vae_kwargs or {}))
+        if sub('text_encoder') is not None and 'text_encoder' not in kwargs:
+            kwargs['text_encoder'] = cls._build_text_encoder(
+                root, index, device=device, dtype=dtype,
+                **(text_encoder_kwargs or {}))
+        return cls.from_pretrained(os.path.join(root, 'transformer'),
+                                   transformer_cls=transformer_cls,
+                                   device=device, dtype=dtype, **kwargs)
+
+    @staticmethod
+    def _load_vae_folder(vae_dir: str, class_name: str = '', device='cuda',
+                         dtype=torch.bfloat16, **overrides) -> nn.Module:
+        """The VAE of a diffusers ``vae/`` folder, its ``config.json``
+        giving the architecture and latent normalisation (JAX
+        ``_load_vae_folder``): the Wan VAE for a QwenImage / Wan class
+        name, else AutoencoderKL."""
+        from ..models import PretrainedVAE, PretrainedVAEQwenImage
+        cfg = _read_json(os.path.join(vae_dir, 'config.json'))
+        if 'QwenImage' in class_name or 'Wan' in class_name:
+            vae_cls, keys = PretrainedVAEQwenImage, (
+                'base_dim', 'z_dim', 'dim_mult', 'num_res_blocks',
+                'latents_mean', 'latents_std')
+        else:
+            vae_cls, keys = PretrainedVAE, (
+                'latent_channels', 'block_out_channels', 'layers_per_block',
+                'scaling_factor', 'shift_factor', 'latents_mean',
+                'latents_std', 'use_post_quant_conv')
+        args = {k: cfg[k] for k in keys if k in cfg and cfg[k] is not None}
+        return vae_cls(from_pretrained=vae_dir, device=device, dtype=dtype,
+                       **{**args, **overrides}).eval()
+
+    @staticmethod
+    def _build_text_encoder(root: str, index: dict, **overrides):
+        """The text towers of a pipeline folder's ``text_encoder*`` and
+        ``tokenizer*`` subfolders (JAX ``_build_text_encoder``); they load
+        on the first encode."""
+        from ..models import (PretrainedFluxTextEncoder,
+                              PretrainedQwenImageTextEncoder)
+        name = (index.get('text_encoder') or (None, ''))[1] or ''
+        if name.startswith('Qwen'):
+            return PretrainedQwenImageTextEncoder(
+                pretrained=os.path.join(root, 'text_encoder'),
+                tokenizer_path=os.path.join(root, 'tokenizer'), **overrides)
+        return PretrainedFluxTextEncoder(
+            clip_path=os.path.join(root, 'text_encoder'),
+            t5_path=os.path.join(root, 'text_encoder_2'),
+            clip_tokenizer_path=os.path.join(root, 'tokenizer'),
+            t5_tokenizer_path=os.path.join(root, 'tokenizer_2'), **overrides)
+
+    def load_arcflow_adapter(self, adapter_path: str) -> Optional[dict]:
+        """Merge an exported ArcFlow adapter (heads, ``norm_out``, LoRA)
+        into the transformer (JAX ``load_arcflow_adapter``) and update the
+        sampling config from its ``policy_config`` (nfe, timestep_ratio,
+        total_substeps, temperature). LoRA leaves of layers built without
+        LoRA are fused into their weights (JAX keeps them in the tree,
+        where a model without LoRA never reads them). Call before
+        quantizing. Returns the policy config."""
+        from .loader import load_adapter_state
+        self._check_not_quantized()
+        adapter, policy_config = load_adapter_state(
+            adapter_path, family=self.transformer.family)
+        merge_state(self.transformer, adapter)
+        if policy_config:
+            self.diffusion.test_cfg.update(
+                {k: v for k, v in policy_config.items()
+                 if k in ('nfe', 'timestep_ratio', 'total_substeps',
+                          'temperature')})
+        return policy_config
 
     def prepare_latents(self, batch_size: int, height: int, width: int,
                         generator: Optional[torch.Generator] = None,
@@ -136,8 +322,18 @@ class ArcFluxPipeline:
         set_sequence_parallel(self.transformer, sp)
         return mesh
 
+    def encode_prompt(self, prompt: Union[str, Sequence[str]]
+                      ) -> Dict[str, torch.Tensor]:
+        """The text encoder's conditioning for ``prompt`` (one or a list)."""
+        if self.text_encoder is None:
+            raise ValueError('pass prompt_embeds, or build the pipeline with '
+                             'a text_encoder')
+        return self.text_encoder([prompt] if isinstance(prompt, str)
+                                 else list(prompt))
+
     @torch.inference_mode()
-    def __call__(self, prompt_embeds: Dict[str, torch.Tensor],
+    def __call__(self, prompt: Union[str, Sequence[str], None] = None,
+                 prompt_embeds: Optional[Dict[str, torch.Tensor]] = None,
                  height: int = 1024, width: int = 1024,
                  num_inference_steps: Optional[int] = None,
                  timestep_ratio: Optional[float] = None,
@@ -146,17 +342,21 @@ class ArcFluxPipeline:
                  latents: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
                  output_type: str = 'np'):
-        """Sample from ``prompt_embeds`` (the transformer's conditioning,
-        on its device: {encoder_hidden_states, pooled_projections} for
-        FLUX, {encoder_hidden_states, encoder_hidden_states_mask} for
-        Qwen). A transformer with guidance embeds gets ``guidance_scale``
-        unless the embeds carry ``guidance``; one without gets none.
+        """Sample from ``prompt`` through the text encoder, or from
+        ``prompt_embeds`` (the transformer's conditioning, on its device:
+        {encoder_hidden_states, pooled_projections} for FLUX,
+        {encoder_hidden_states, encoder_hidden_states_mask} for Qwen). The
+        latents come from ``latents`` or ``generator`` (JAX's ``seed=`` has
+        no bitwise counterpart across the two RNGs). A transformer with
+        guidance embeds gets ``guidance_scale`` unless the embeds carry
+        ``guidance``; one without gets none.
 
         ``output_type``: 'np' -> {'images': (B, H, W, 3) numpy in [0, 1]},
         'pt' -> the same as a tensor on the device, 'latent' ->
         {'latents': (B, H/8, W/8, C)}.
         """
-        embeds = dict(prompt_embeds)
+        embeds = dict(prompt_embeds) if prompt_embeds is not None \
+            else self.encode_prompt(prompt)
         ref = next(iter(embeds.values()))
         bs = ref.shape[0]
         if latents is None:
@@ -192,3 +392,63 @@ class ArcQwenImagePipeline(ArcFluxPipeline):
     ``encoder_hidden_states_mask`` through to the transformer."""
 
     family = 'qwen'
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, transformer_cls=None, **kwargs):
+        """``ArcFluxPipeline.from_pretrained`` with the ArcQwen transformer
+        unless ``transformer_cls`` says otherwise (JAX, line 467)."""
+        from ..models import ArcQwenImageTransformer2DModel
+        return super().from_pretrained(
+            model_dir,
+            transformer_cls=transformer_cls or ArcQwenImageTransformer2DModel,
+            **kwargs)
+
+
+# the scheduler_config.json fields the pipeline takes, under their names
+SCHEDULER_FIELDS = ('shift', 'use_dynamic_shifting', 'base_shift',
+                    'max_shift', 'base_image_seq_len', 'max_image_seq_len')
+
+
+def _read_json(path: str) -> dict:
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
+def _init_fields(cls) -> set:
+    """The named constructor arguments of ``cls`` and its bases."""
+    fields = set()
+    for klass in cls.__mro__:
+        init = klass.__dict__.get('__init__')
+        if init is not None:
+            fields.update(
+                name for name, p in inspect.signature(init).parameters.items()
+                if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)
+                and name != 'self')
+    return fields
+
+
+def merge_state(model: nn.Module, state: Dict[str, torch.Tensor]) -> None:
+    """Copy ``state`` into ``model``'s parameters, cast to their dtypes.
+    The LoRA pair of a layer that has a weight but no LoRA is fused into
+    that weight (W += (a b)^T, alpha = rank); any other key the model lacks
+    raises. Keys the state lacks keep their values."""
+    from .convert import fuse_lora
+    own = model.state_dict()
+    state = dict(state)
+    for key in [k for k in state if k.endswith('.lora_a') and k not in own]:
+        base = key[:-len('.lora_a')]
+        b = state.pop(base + '.lora_b', None)
+        a = state.pop(key)
+        if b is None or base + '.weight' not in own:
+            raise ValueError(f'LoRA leaves of {base} have no layer to go to')
+        weight = state.get(base + '.weight', own[base + '.weight'])
+        state[base + '.weight'] = fuse_lora(
+            {'w.weight': weight, 'w.lora_a': a.to(weight.device),
+             'w.lora_b': b.to(weight.device)})['w.weight']
+    unexpected = sorted(set(state) - set(own))
+    if unexpected:
+        raise ValueError(f'{len(unexpected)} keys the model has no place '
+                         f'for, e.g. {unexpected[:5]}')
+    model.load_state_dict(state, strict=False)

@@ -132,7 +132,34 @@ line each, and any failure exits non-zero:
     3000 and 800 iterations); each child must log that it trains on the
     card; the samples of each run's last checkpoint (EMA) must lie in the
     board's support above 0.75 (flow) and 0.5 (2-NFE student), as in the
-    JAX test.
+    JAX test;
+24. (right after phase 6, on its pipeline) FLUX-12B from a prompt: CLIP-L
+    and the T5 v1.1 XXL encoder at their published widths (random bf16
+    weights from a seed, built on the card; a toy BPE tokenizer, since the
+    real ones are not in the repo) wrapped by ``PretrainedFluxTextEncoder``;
+    ``pipe(prompt=...)`` with exactly 114 attention launches in the counted
+    run, its image bitwise equal to the one from
+    ``prompt_embeds=pipe.encode_prompt(prompt)``, finite embeddings (shape,
+    dtype and max|x| printed); s per warm image split into encode,
+    transformer + integration and decode, and peak memory;
+25. (right after phase 8, on its pipeline) Qwen-Image 20B w4a8 from a
+    prompt: the native Qwen2.5-VL-7B decoder (28 layers, 28 heads over 4
+    KV heads, hidden 3584, FF 18944, vocab 152064) with random bf16 weights
+    through ``PretrainedQwenImageTextEncoder``; the same checks and split,
+    the valid text tokens of the encoder's mask, exactly 120 masked
+    attention and 1686 w4a8 launches;
+26. (after phase 23) ``from_pretrained``: diffusers pipeline folders
+    (``model_index.json``, ``transformer/``, ``vae/``, ``text_encoder*/``,
+    ``tokenizer*/``, ``scheduler/``) written at FLUX's and Qwen-Image's
+    widths with depth cut (2 joint + 2 single FLUX blocks with LoRA rank
+    256 and a 2-layer T5-XXL; 2 Qwen blocks and a 2-layer Qwen2.5 decoder;
+    CLIP-L and the VAEs whole), and an ArcFlow adapter written by
+    ``save_adapter_state``; each loaded by ``from_pretrained`` +
+    ``load_arcflow_adapter`` on the card, its image from a prompt bitwise
+    equal to that of a pipeline built directly from the same modules;
+    bytes and load seconds; then ``python -m
+    arcflow_tpu_torch.inference_flux`` on the FLUX folder in a subprocess,
+    which must exit 0 and write a PNG.
 
 ``python3 chip_smoke.py --ranks 4`` (four cards) instead spawns 4 NCCL
 ranks and serves FLUX-12B through ``pipe.shard({'sp': 4})`` in ring and in
@@ -1126,7 +1153,7 @@ def phase_qwen_full(w4a8_classes):
         + ' | by name: ' + ' ; '.join(
             f'{ms:.2f} ms {100 * ms / total:.1f}% x{calls} {name[:90]}'
             for name, (ms, calls) in top))
-    return launches
+    return launches, (pipe, latents, n_int4)
 
 
 def rel_l2(a, b):
@@ -2895,6 +2922,511 @@ def main_ranks(n):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# prompt to image: the text towers, diffusers folders, from_pretrained, CLIs
+# ---------------------------------------------------------------------------
+
+PROMPT = 'a photo of an astronaut riding a horse on the moon'
+# the published text-tower widths: CLIP ViT-L/14's text model and the
+# T5 v1.1 XXL encoder (FLUX.1-dev's text_encoder/ and text_encoder_2/), the
+# Qwen2.5-VL-7B decoder (Qwen-Image's text_encoder/)
+CLIP_L = dict(vocab_size=49408, hidden_size=768, intermediate_size=3072,
+              num_hidden_layers=12, num_attention_heads=12,
+              max_position_embeddings=77, hidden_act='quick_gelu',
+              projection_dim=768)
+T5_XXL = dict(vocab_size=32128, d_model=4096, d_kv=64, d_ff=10240,
+              num_layers=24, num_heads=64, feed_forward_proj='gated-gelu')
+QWEN25_7B = dict(vocab_size=152064, hidden_size=3584, num_layers=28,
+                 num_heads=28, num_kv_heads=4, intermediate_size=18944,
+                 rope_theta=1e6, rms_norm_eps=1e-6)
+T5_SEQ = 512
+# phase 26's folders: FLUX and Qwen widths, depth cut to these
+PRETRAINED_FLUX = dict(FLUX_12B, num_layers=2, num_single_layers=2,
+                       lora_rank=256)
+PRETRAINED_QWEN = dict(QWEN_20B, num_layers=2)
+PRETRAINED_T5_LAYERS, PRETRAINED_QWEN_TEXT_LAYERS = 2, 2
+PRETRAINED_HW = 512
+CLI_TIMEOUT = 300
+
+
+def toy_tokenizer():
+    """A byte-level BPE trained on a few sentences, as a transformers fast
+    tokenizer with a pad token: the real tokenizers are not in the repo.
+    Its ids stay below every tower's vocabulary."""
+    import transformers
+    from tokenizers import (Tokenizer, decoders, models, pre_tokenizers,
+                            trainers)
+    tok = Tokenizer(models.BPE(unk_token='<unk>'))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    trainer = trainers.BpeTrainer(
+        vocab_size=600, special_tokens=['<pad>', '<unk>', '</s>',
+                                        '<|im_start|>', '<|im_end|>'],
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet())
+    tok.train_from_iterator(
+        [PROMPT, 'a serene mountain lake at sunrise',
+         'Describe the image by detailing the color, shape, size, texture, '
+         'quantity, text, spatial relationships of the objects and '
+         'background', 'system user assistant'] * 8, trainer)
+    return transformers.PreTrainedTokenizerFast(
+        tokenizer_object=tok, pad_token='<pad>', unk_token='<unk>',
+        eos_token='</s>')
+
+
+def bf16_tower(cls_name, **config):
+    """A transformers text tower built on the card in bf16 (random
+    weights: normal(0, 0.02) on every matrix from the seeded generator
+    later; transformers' own init runs on the card, not the host)."""
+    import transformers
+    cfg_cls = {'CLIPTextModel': 'CLIPTextConfig',
+               'T5EncoderModel': 'T5Config'}[cls_name]
+    cfg = getattr(transformers, cfg_cls)(**config)
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.bfloat16)
+    try:
+        with torch.device('cuda'):
+            model = getattr(transformers, cls_name)(cfg)
+    finally:
+        torch.set_default_dtype(default)
+    return model.to(torch.bfloat16).eval()
+
+
+def qwen_text_tower(generator, **overrides):
+    from arcflow_tpu_torch.models import Qwen25TextModel
+    with torch.device('cuda'):
+        model = Qwen25TextModel(**dict(QWEN25_7B, **overrides),
+                                dtype=torch.bfloat16)
+    randomize_(model, generator)
+    return model.eval()
+
+
+def synced(fn):
+    """(fn(), its host seconds), synchronised at both ends."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def prompt_run(pipe, latents, want, counts, label):
+    """Drive ``pipe`` from PROMPT: a cold call, then the counted call
+    (counts reset just before it and read just after), the embeds path with
+    ``encode_prompt``'s output bitwise equal to it, and the split of a warm
+    image into encode, transformer + integration and decode seconds."""
+    pipe(prompt=PROMPT, latents=latents, output_type='pt')       # cold
+    torch.cuda.reset_peak_memory_stats()
+    for name in counts:
+        setattr(counts[name][0], counts[name][1], 0)
+    out, t_e2e = synced(lambda: pipe(prompt=PROMPT, latents=latents,
+                                     output_type='pt'))
+    launches = {name: getattr(*counts[name]) for name in counts}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches != want:
+        raise AssertionError(f'{label}: launches {launches}, want {want}')
+    img = out['images']
+    check_image(img)
+    embeds, t_enc = synced(lambda: pipe.encode_prompt(PROMPT))
+    for k, v in embeds.items():
+        if not torch.isfinite(v.float()).all():
+            raise AssertionError(f'{label}: non-finite {k}')
+    same = pipe(prompt_embeds=embeds, latents=latents, output_type='pt')
+    if not torch.equal(same['images'], img):
+        raise AssertionError(f'{label}: the image from prompt_embeds='
+                             f'encode_prompt(prompt) differs from the image '
+                             f'from prompt= by '
+                             f'{(same["images"] - img).abs().max().item()}')
+    lat, t_dit = synced(lambda: pipe(prompt_embeds=embeds, latents=latents,
+                                     output_type='latent')['latents'])
+    t_dec = timed_decode(pipe.vae, lat)
+    return dict(launches=launches, s_per_image=t_e2e, encode_s=t_enc,
+                transformer_s=t_dit, decode_s=t_dec, peak_gib=peak_gib,
+                embeds={k: (tuple(v.shape), str(v.dtype).split('.')[-1],
+                            v.float().abs().max().item())
+                        for k, v in embeds.items()}, image=img)
+
+
+def phase_prompt_flux_full(flux_run):
+    """Phase 24, on phase 6's FLUX-12B pipeline: CLIP-L and T5-XXL at their
+    published widths, random bf16 weights, then images from a prompt."""
+    from arcflow_tpu_torch.models import PretrainedFluxTextEncoder
+    pipe, _, latents, _, _ = flux_run
+    g = torch.Generator(device='cuda').manual_seed(SEED + 24)
+    (clip, t5), t_build = synced(lambda: (bf16_tower('CLIPTextModel',
+                                                     **CLIP_L),
+                                          bf16_tower('T5EncoderModel',
+                                                     **T5_XXL)))
+    randomize_(clip, g)
+    randomize_(t5, g)
+    n_text = sum(p.numel() for m in (clip, t5) for p in m.parameters())
+    tok = toy_tokenizer()
+    pipe.text_encoder = PretrainedFluxTextEncoder.from_modules(
+        clip, t5, tok, tok, max_sequence_length=T5_SEQ)
+    n_blocks = FLUX_12B['num_layers'] + FLUX_12B['num_single_layers']
+    try:
+        run = prompt_run(pipe, latents, {'attention': 2 * n_blocks},
+                         {'attention': (attn, 'LAUNCHES')}, 'phase 24')
+        run['clip_s'] = tower_s(lambda ids: clip(input_ids=ids), tok, 77)
+        run['t5_s'] = tower_s(lambda ids: t5(input_ids=ids), tok, T5_SEQ)
+    finally:
+        pipe.text_encoder = None
+        del clip, t5
+        gc.collect()
+        torch.cuda.empty_cache()
+    img = run['image']
+    log(f'phase 24 FLUX from a prompt (FLUX-12B bf16 + CLIP-L and T5-XXL '
+        f'at published widths, {n_text / 1e9:.3f}B text params bf16, random '
+        f'from a seed; toy BPE tokenizer): ok | image {tuple(img.shape)} '
+        f'finite, range [{img.min().item():.3f}, {img.max().item():.3f}], '
+        f'bitwise equal from prompt= and from prompt_embeds=encode_prompt '
+        f'| embeds (shape, dtype, max|x|) {run["embeds"]} | launches '
+        f'{run["launches"]} | towers built in {t_build:.1f} s | warm per '
+        f'image from a prompt {run["s_per_image"]:.4f} s: encode '
+        f'{run["encode_s"]:.4f} s (CLIP-L alone {run["clip_s"]:.4f} s, '
+        f'T5-XXL alone {run["t5_s"]:.4f} s, best of 3), transformer + '
+        f'integration {run["transformer_s"]:.4f} s, decode '
+        f'{run["decode_s"]:.4f} s | peak memory {run["peak_gib"]:.2f} GiB')
+    run.pop('image')
+    return run
+
+
+def tower_s(fn, tok, length, reps=3):
+    """Best of ``reps`` synchronised seconds of one tower's forward on
+    PROMPT's ids at ``length`` tokens."""
+    ids = tok([PROMPT], padding='max_length', max_length=length,
+              truncation=True, return_tensors='pt')['input_ids'].to('cuda')
+    with torch.inference_mode():
+        return min(synced(lambda: fn(ids))[1] for _ in range(reps))
+
+
+def phase_prompt_qwen_full(qwen_run):
+    """Phase 25, on phase 8's Qwen-Image 20B w4a8 pipeline: the native
+    Qwen2.5-VL-7B decoder at its published width, random bf16 weights,
+    then images from a prompt. The toy tokenizer's template is not the real
+    one's 34 tokens; 34 of its tokens are dropped all the same, as JAX
+    does."""
+    from arcflow_tpu_torch.models import PretrainedQwenImageTextEncoder
+    pipe, latents, n_int4 = qwen_run
+    g = torch.Generator(device='cuda').manual_seed(SEED + 25)
+    model, t_build = synced(lambda: qwen_text_tower(g))
+    n_text = sum(p.numel() for p in model.parameters())
+    tok = toy_tokenizer()
+    pipe.text_encoder = PretrainedQwenImageTextEncoder.from_modules(
+        model, tok, pad_seq_len=QWEN_TXT)
+    try:
+        valid = int(pipe.encode_prompt(PROMPT)[
+            'encoder_hidden_states_mask'].sum())
+        run = prompt_run(
+            pipe, latents,
+            {'attention': 2 * QWEN_20B['num_layers'], 'w4a8': 2 * n_int4},
+            {'attention': (attn, 'LAUNCHES'), 'w4a8': (qmm, 'LAUNCHES')},
+            'phase 25')
+    finally:
+        pipe.text_encoder = None
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    img = run['image']
+    log(f'phase 25 Qwen from a prompt (Qwen-Image 20B w4a8 + the native '
+        f'Qwen2.5-VL-7B decoder at its published width, {n_text / 1e9:.3f}B '
+        f'params bf16, random from a seed; toy BPE tokenizer, 34 template '
+        f'tokens dropped as in JAX): ok | valid text tokens {valid} of '
+        f'{QWEN_TXT} | image {tuple(img.shape)} finite, range '
+        f'[{img.min().item():.3f}, {img.max().item():.3f}], bitwise equal '
+        f'from prompt= and from prompt_embeds=encode_prompt | embeds '
+        f'(shape, dtype, max|x|) {run["embeds"]} | launches '
+        f'{run["launches"]} | tower built in {t_build:.1f} s | warm per '
+        f'image from a prompt {run["s_per_image"]:.4f} s: encode '
+        f'{run["encode_s"]:.4f} s, transformer + integration '
+        f'{run["transformer_s"]:.4f} s, decode {run["decode_s"]:.4f} s | '
+        f'peak memory {run["peak_gib"]:.2f} GiB')
+    run.pop('image')
+    run['valid_text_tokens'] = valid
+    return run
+
+
+# the port's VAE decoder names -> diffusers' (the inverse of
+# pipelines/convert.py's rules, for the folders phase 26 writes)
+VAE_TO_DIFFUSERS = [
+    (r'^decoder\.up_(\d+)_res_(\d+)\.', r'decoder.up_blocks.\1.resnets.\2.'),
+    (r'^decoder\.up_(\d+)_us\.', r'decoder.up_blocks.\1.upsamplers.0.'),
+    (r'\.mid_res_1\.', '.mid_block.resnets.0.'),
+    (r'\.mid_res_2\.', '.mid_block.resnets.1.'),
+    (r'\.mid_attn\.', '.mid_block.attentions.0.'),
+    (r'\.to_out\.', '.to_out.0.'),
+]
+QWEN_VAE_TO_DIFFUSERS = [
+    (r'^decoder\.up_blocks_(\d+)\.resnets_(\d+)\.',
+     r'decoder.up_blocks.\1.resnets.\2.'),
+    (r'^decoder\.up_blocks_(\d+)\.upsampler\.',
+     r'decoder.up_blocks.\1.upsamplers.0.'),
+    (r'\.mid_block\.resnets_(\d+)\.', r'.mid_block.resnets.\1.'),
+    (r'\.mid_block\.attentions_0\.', '.mid_block.attentions.0.'),
+    (r'\.resample_conv\.', '.resample.1.'),
+]
+
+
+def vae_to_diffusers(state, family):
+    """A port VAE state -> diffusers keys and layouts: the Wan VAE's convs
+    outside attention and resampling as causal 3-D kernels of one temporal
+    slice, its RMS gammas (c, 1, 1)."""
+    rules = VAE_TO_DIFFUSERS if family == 'flux' else QWEN_VAE_TO_DIFFUSERS
+    out = {}
+    for key, v in state.items():
+        name = key
+        for pat, rep in rules:
+            name = re.sub(pat, rep, name)
+        v = v.detach().cpu().contiguous()
+        if family == 'qwen' and name.endswith('.gamma'):
+            v = v.reshape(-1, 1, 1)
+        elif (family == 'qwen' and v.dim() == 4 and '.attentions.' not in
+              name and '.resample.' not in name):
+            v = v[:, :, None].contiguous()
+        out[name] = v
+    return out
+
+
+def save_safetensors(state, path):
+    from safetensors.torch import save_file
+    save_file({k: v.detach().cpu().contiguous() for k, v in state.items()},
+              path)
+    return os.path.getsize(path)
+
+
+def write_json(path, obj):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, 'w') as f:
+        json.dump(obj, f)
+
+
+def dir_bytes(root):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def adapter_of(model, generator):
+    """The ArcFlow surface of ``model`` (heads, norm_out, LoRA) moved by
+    random draws, as a trained adapter would be."""
+    from arcflow_tpu_torch.models.flux import ARCFLUX_ADAPTER_KEYS
+    from arcflow_tpu_torch.utils.pytree import name_matches
+    out = {}
+    for k, v in model.state_dict().items():
+        if name_matches(k, ARCFLUX_ADAPTER_KEYS):
+            out[k] = (v.float() + 0.02 * torch.randn(
+                v.shape, generator=generator, device=v.device)).to(v.dtype)
+    return out
+
+
+def write_pipeline_folder(root, family, generator):
+    """A diffusers pipeline folder at the family's widths, depth cut
+    (PRETRAINED_*), random weights, and the modules it was written from
+    (transformer with the adapter merged, VAE, text towers, tokenizer) for
+    a pipeline built directly."""
+    from arcflow_tpu_torch.pipelines import torch_to_diffusers
+    tok = toy_tokenizer()
+    index = {'_class_name': 'ArcFluxPipeline' if family == 'flux'
+             else 'ArcQwenImagePipeline',
+             'scheduler': ['diffusers', 'FlowMatchEulerDiscreteScheduler'],
+             'transformer': ['diffusers', 'ArcFluxTransformer2DModel']}
+    cfg = PRETRAINED_FLUX if family == 'flux' else PRETRAINED_QWEN
+    cls = ArcFluxTransformer2DModel if family == 'flux' \
+        else ArcQwenImageTransformer2DModel
+    with torch.device('cuda'):
+        model = cls(dtype=torch.bfloat16, **cfg)
+        vae = PretrainedVAE(dtype=torch.bfloat16) if family == 'flux' \
+            else PretrainedVAEQwenImage(dtype=torch.bfloat16)
+    randomize_(model, generator)
+    randomize_(vae, generator)
+    write_json(os.path.join(root, 'transformer', 'config.json'),
+               dict(cfg, _class_name=cls.__name__))
+    save_safetensors(torch_to_diffusers(model.state_dict(), family=family),
+                     os.path.join(root, 'transformer',
+                                  'diffusion_pytorch_model.safetensors'))
+    adapter = adapter_of(model, generator)
+    model.load_state_dict(adapter, strict=False)
+    if family == 'flux':
+        vae_cfg = dict(_class_name='AutoencoderKL', latent_channels=16,
+                       block_out_channels=[128, 256, 512, 512],
+                       layers_per_block=2, scaling_factor=0.3611,
+                       shift_factor=0.1159, use_quant_conv=False,
+                       use_post_quant_conv=False)
+    else:
+        vae_cfg = dict(_class_name='AutoencoderKLQwenImage', base_dim=96,
+                       z_dim=16, dim_mult=[1, 2, 4, 4], num_res_blocks=2)
+    index['vae'] = ['diffusers', vae_cfg['_class_name']]
+    write_json(os.path.join(root, 'vae', 'config.json'), vae_cfg)
+    save_safetensors(vae_to_diffusers(vae.state_dict(), family),
+                     os.path.join(root, 'vae',
+                                  'diffusion_pytorch_model.safetensors'))
+    towers = {}
+    if family == 'flux':
+        clip = bf16_tower('CLIPTextModel', **CLIP_L)
+        t5 = bf16_tower('T5EncoderModel', **dict(
+            T5_XXL, num_layers=PRETRAINED_T5_LAYERS))
+        randomize_(clip, generator)
+        randomize_(t5, generator)
+        for sub, m in (('text_encoder', clip), ('text_encoder_2', t5)):
+            m.save_pretrained(os.path.join(root, sub))
+        for sub in ('tokenizer', 'tokenizer_2'):
+            tok.save_pretrained(os.path.join(root, sub))
+        index.update(text_encoder=['transformers', 'CLIPTextModel'],
+                     text_encoder_2=['transformers', 'T5EncoderModel'],
+                     tokenizer=['transformers', 'CLIPTokenizer'],
+                     tokenizer_2=['transformers', 'T5TokenizerFast'])
+        towers = dict(clip=clip, t5=t5)
+        sched = dict(shift=3.0, use_dynamic_shifting=True)
+    else:
+        text = qwen_text_tower(generator,
+                               num_layers=PRETRAINED_QWEN_TEXT_LAYERS)
+        write_json(os.path.join(root, 'text_encoder', 'config.json'),
+                   dict(architectures=['Qwen2_5_VLForConditionalGeneration'],
+                        text_config=dict(
+                            vocab_size=QWEN25_7B['vocab_size'],
+                            hidden_size=QWEN25_7B['hidden_size'],
+                            num_hidden_layers=PRETRAINED_QWEN_TEXT_LAYERS,
+                            num_attention_heads=QWEN25_7B['num_heads'],
+                            num_key_value_heads=QWEN25_7B['num_kv_heads'],
+                            intermediate_size=QWEN25_7B['intermediate_size'],
+                            rope_theta=QWEN25_7B['rope_theta'],
+                            rms_norm_eps=QWEN25_7B['rms_norm_eps'])))
+        save_safetensors({'model.language_model.' + k: v
+                          for k, v in text.state_dict().items()},
+                         os.path.join(root, 'text_encoder',
+                                      'model.safetensors'))
+        tok.save_pretrained(os.path.join(root, 'tokenizer'))
+        index.update(text_encoder=['transformers',
+                                   'Qwen2_5_VLForConditionalGeneration'],
+                     tokenizer=['transformers', 'Qwen2Tokenizer'])
+        towers = dict(text=text)
+        sched = dict(shift=QWEN_SHIFT, use_dynamic_shifting=False)
+    write_json(os.path.join(root, 'scheduler', 'scheduler_config.json'),
+               dict(_class_name='FlowMatchEulerDiscreteScheduler', **sched,
+                    base_shift=0.5, max_shift=1.15, base_image_seq_len=256,
+                    max_image_seq_len=4096))
+    write_json(os.path.join(root, 'model_index.json'), index)
+    adapter_path = os.path.join(root, 'arcflow_adapter.safetensors')
+    from arcflow_tpu_torch.pipelines import save_adapter_state
+    save_adapter_state(adapter_path, adapter,
+                       policy_config=dict(nfe=2, temperature=0.9),
+                       family=family)
+    return dict(model=model, vae=vae, tok=tok, sched=sched,
+                adapter=adapter_path, **towers)
+
+
+def direct_pipeline(family, built):
+    """The pipeline of the same modules, built without a folder."""
+    from arcflow_tpu_torch.models import (PretrainedFluxTextEncoder,
+                                          PretrainedQwenImageTextEncoder)
+    if family == 'flux':
+        enc = PretrainedFluxTextEncoder.from_modules(
+            built['clip'], built['t5'], built['tok'], built['tok'])
+        return ArcFluxPipeline(built['model'], vae=built['vae'],
+                               text_encoder=enc, temperature=0.9,
+                               **built['sched'])
+    enc = PretrainedQwenImageTextEncoder.from_modules(built['text'],
+                                                      built['tok'])
+    return ArcQwenImagePipeline(built['model'], vae=built['vae'],
+                                text_encoder=enc, temperature=0.9,
+                                **built['sched'])
+
+
+def phase_from_pretrained():
+    """Phase 26: diffusers pipeline folders written at FLUX's and
+    Qwen-Image's widths (depth cut: 2 joint + 2 single FLUX blocks, a
+    2-layer T5-XXL, 2 Qwen blocks, a 2-layer Qwen2.5 decoder; CLIP-L, the
+    VAEs and every width full), loaded with ``from_pretrained`` +
+    ``load_arcflow_adapter`` on the card; each image bitwise equal to that
+    of a pipeline built directly from the same modules; then the FLUX CLI
+    in a subprocess on the folder."""
+    g = torch.Generator(device='cuda').manual_seed(SEED + 26)
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix='pretrained-', dir=_build.BUILD_DIR)
+    pipe_cls = dict(flux=ArcFluxPipeline, qwen=ArcQwenImagePipeline)
+    readings = {}
+    try:
+        for family in ('flux', 'qwen'):
+            root = os.path.join(work, family)
+            built, t_write = synced(lambda: write_pipeline_folder(
+                root, family, g))
+            nbytes = dir_bytes(root)
+            direct = direct_pipeline(family, built)
+            (pipe, policy), t_load = synced(lambda: load_folder(
+                pipe_cls[family], root, built['adapter']))
+            if policy != dict(nfe=2, temperature=0.9) or \
+                    pipe.diffusion.test_cfg['temperature'] != 0.9:
+                raise AssertionError(f'{family}: policy {policy}, test_cfg '
+                                     f'{pipe.diffusion.test_cfg}')
+            hw = PRETRAINED_HW
+            latents = direct.prepare_latents(1, hw, hw, generator=g,
+                                             device='cuda')
+            want = direct(prompt=PROMPT, latents=latents,
+                          output_type='pt')['images']
+            got, t_image = synced(lambda: pipe(
+                prompt=PROMPT, latents=latents, output_type='pt')['images'])
+            if tuple(got.shape) != (1, hw, hw, 3) or \
+                    not torch.isfinite(got).all():
+                raise AssertionError(f'{family}: image {tuple(got.shape)}')
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f'{family}: from_pretrained image differs from the '
+                    f'direct pipeline by {(got - want).abs().max().item()}')
+            readings[family] = dict(bytes=nbytes, write_s=t_write,
+                                    load_s=t_load, image_s=t_image)
+            if family == 'flux':
+                cli = run_cli(root, built['adapter'], work)
+                readings['flux_cli'] = cli
+            del built, direct, pipe, latents, want, got
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f'phase 26 from_pretrained (diffusers pipeline folders at FLUX and '
+        f'Qwen-Image widths, cut to 2 + 2 FLUX blocks and a 2-layer T5-XXL, '
+        f'2 Qwen blocks and a 2-layer Qwen2.5 decoder; full CLIP-L and '
+        f'VAEs; bf16; {PRETRAINED_HW}x{PRETRAINED_HW}): ok | '
+        + ' ; '.join(
+            f'{f}: {r["bytes"] / 1e9:.3f} GB written in {r["write_s"]:.1f} s, '
+            f'from_pretrained + load_arcflow_adapter {r["load_s"]:.2f} s, '
+            f'image from a prompt {r["image_s"]:.4f} s, bitwise equal to the '
+            f'directly built pipeline' for f, r in readings.items()
+            if f != 'flux_cli')
+        + f' | python -m arcflow_tpu_torch.inference_flux on the folder: '
+        f'exit 0 in {readings["flux_cli"]["s"]:.1f} s, '
+        f'{readings["flux_cli"]["png_bytes"]} B PNG')
+    return readings
+
+
+def load_folder(cls, root, adapter):
+    """``from_pretrained`` + ``load_arcflow_adapter``, and a first encode,
+    which loads the text towers (they load lazily)."""
+    pipe = cls.from_pretrained(root)
+    policy = pipe.load_arcflow_adapter(adapter)
+    pipe.encode_prompt(PROMPT)
+    return pipe, policy
+
+
+def run_cli(model_dir, adapter, work):
+    out = os.path.join(work, 'cli.png')
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, '-m', 'arcflow_tpu_torch.inference_flux',
+         '--model-dir', model_dir, '--adapter', adapter, '--prompt', PROMPT,
+         '--height', str(PRETRAINED_HW), '--width', str(PRETRAINED_HW),
+         '--out', out], capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    wall = time.perf_counter() - t
+    text = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise AssertionError(f'inference_flux exited {res.returncode}:\n'
+                             f'{text[-3000:]}')
+    if 'device: cuda' not in text or not os.path.exists(out):
+        raise AssertionError(f'inference_flux did not serve on the card:\n'
+                             f'{text[-3000:]}')
+    with open(out, 'rb') as f:
+        if f.read(8) != b'\x89PNG\r\n\x1a\n':
+            raise AssertionError('inference_flux wrote no PNG')
+    return dict(s=wall, png_bytes=os.path.getsize(out))
+
+
 def main():
     if sys.argv[1:2] == ['--ranks']:
         return main_ranks(int(sys.argv[2]))
@@ -2911,6 +3443,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     flux_launches, flux_run = phase_full_slice()
+    flux_prompt = phase_prompt_flux_full(flux_run)
     ring_launches, ring_host = phase_full_local_ring(*flux_run)
     captured = phase_w8a8_full(*flux_run)
     del flux_run
@@ -2921,7 +3454,9 @@ def main():
     phase_qwen_reduced()
     gc.collect()
     torch.cuda.empty_cache()
-    qwen_launches = phase_qwen_full(w4a8_classes)
+    qwen_launches, qwen_run = phase_qwen_full(w4a8_classes)
+    qwen_prompt = phase_prompt_qwen_full(qwen_run)
+    del qwen_run
     gc.collect()
     torch.cuda.empty_cache()
     bwd = phase_bwd_vs_plain()
@@ -2941,6 +3476,9 @@ def main():
     phase_toy_cli()
     gc.collect()
     torch.cuda.empty_cache()
+    pretrained = phase_from_pretrained()
+    gc.collect()
+    torch.cuda.empty_cache()
     k4_err, k4_timed = phase_k4_vs_plain()
     phase_ring_vs_k1()
     gc.collect()
@@ -2949,6 +3487,8 @@ def main():
     fwd = attn_timed['unmasked']
     ff_in = w4a8_timed[0]
     fwd_by_path = {'flux': flux_launches, 'qwen': qwen_launches['attention'],
+                   'flux_prompt': flux_prompt['launches']['attention'],
+                   'qwen_prompt': qwen_prompt['launches']['attention'],
                    'flux_train': train_launches['forward'],
                    'flux_train_runner': runner_launches['forward']}
     bwd_by_path = {'flux_train': train_launches['backward'],
@@ -2967,8 +3507,9 @@ def main():
         {'name': 'w4a8_matmul', 'route': 'cuda',
          'source': 'arcflow_tpu_torch/csrc/w4a8_matmul.cu',
          'replaces': 'arcflow_tpu/ops/quant_matmul.py:88',
-         'launches': qwen_launches['w4a8'],
-         'launches_by_path': {'qwen': qwen_launches['w4a8']},
+         'launches': qwen_launches['w4a8'] + qwen_prompt['launches']['w4a8'],
+         'launches_by_path': {'qwen': qwen_launches['w4a8'],
+                              'qwen_prompt': qwen_prompt['launches']['w4a8']},
          'max_abs_err': w4a8_err, 'ms': ff_in['ms'],
          'plain_ms': ff_in['plain_ms'], 'bound_ms': ff_in['bound_ms'],
          'bound_by': ff_in['bound_by'], 'library_ms': None,

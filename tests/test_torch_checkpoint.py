@@ -176,8 +176,13 @@ def test_pruning_keeps_the_newest_and_the_must_save_steps(tmp_path):
     assert os.listdir(tmp_path / 'c') == ['15']
 
 
-def test_tmp_scheme_lies_under_the_temporary_directory(tmp_path,
-                                                       monkeypatch):
+def test_tmp_scheme_lies_under_the_temp_dir_not_dev_shm_unlike_jax(
+        tmp_path, monkeypatch):
+    """A divergence from the reference, kept on purpose: JAX stages
+    ``tmp:name`` under ``/dev/shm`` whenever that exists
+    (``arcflow_tpu/runner/checkpoint.py:39-42``); the port always uses
+    ``tempfile.gettempdir()``. A container's ``/dev/shm`` is often 64 MB,
+    and the trainable-only FLUX-12B checkpoint is 10.4 GB."""
     monkeypatch.setattr(tempfile, 'tempdir', str(tmp_path))
     assert resolve_checkpoint_dir('tmp:run1') == \
         os.path.join(str(tmp_path), 'arcflow_ckpt', 'run1')
