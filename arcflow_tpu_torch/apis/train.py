@@ -3,10 +3,11 @@
 Counterpart of ``arcflow_tpu/apis/train.py`` (``train_model``,
 ``ema_config_from_cfg``): build the model through ``MODELS`` on the
 device, the optimizers and the state, auto-resume from the latest
-checkpoint with the loader fast-forwarded to the resumed step, add the
-hooks and run. A ``parallel.mesh`` with an axis above 1 is refused (the
-port's mesh training waits for its slice), as are the host offload of the
-cold state (the H100 holds it) and the bucketized loader.
+checkpoint with the loader fast-forwarded to the resumed step (the
+bucketized loader for a dataset of more than one resolution bucket, as in
+JAX), add the hooks and run. A ``parallel.mesh`` with an axis above 1 is
+refused (the port's mesh training waits for its slice), as is the host
+offload of the cold state (the H100 holds it).
 """
 
 from __future__ import annotations
@@ -16,8 +17,11 @@ from typing import Optional
 
 import torch
 
+import numpy as np
+
 from ..config import Config
-from ..data import Prefetcher, build_dataloader, build_dataset
+from ..data import (Prefetcher, build_bucketized_loader, build_dataloader,
+                    build_dataset)
 from ..registry import MODELS
 from ..runner import (CheckpointHook, CheckpointManager, EmaConfig,
                       EvalHook, IterBasedRunner, ProfilerHook,
@@ -33,14 +37,12 @@ def build_model_from_cfg(cfg: Config, device='cuda'):
 
 
 def ema_config_from_cfg(cfg: Config) -> EmaConfig:
-    """The EMA of the config's ExponentialMovingAverage hook. The JAX
-    default without one (a fixed momentum of 0.999) is not ported."""
+    """The EMA of the config's ExponentialMovingAverage hook, else the JAX
+    default: a fixed momentum of 0.999."""
     for hook_cfg in cfg.get('custom_hooks', []) or []:
         if 'ExponentialMovingAverage' in hook_cfg.get('type', ''):
             return EmaConfig.from_hook_cfg(hook_cfg)
-    raise ValueError('the model keeps an EMA but the config has no '
-                     'ExponentialMovingAverage hook; the JAX default (a fixed '
-                     'momentum of 0.999) is not ported')
+    return EmaConfig(momentum_policy='fixed', momentum=0.999)
 
 
 def _check_parallel(cfg: Config):
@@ -113,11 +115,13 @@ def train_model(cfg: Config, work_dir: Optional[str] = None,
         grad_accum_steps=grad_accum_steps)
 
     dataset = build_dataset(data_cfg['train'])
-    if getattr(dataset, 'bucket_ids', None) is not None:
-        raise NotImplementedError('bucketized datasets are not ported yet '
-                                  '(ROADMAP.md queue A item 4)')
-    loader = Prefetcher(build_dataloader(dataset, samples_per_gpu, seed=seed,
-                                         start_iter=state.step))
+    if getattr(dataset, 'bucket_ids', None) is not None and \
+            len(np.unique(dataset.bucket_ids)) > 1:
+        loader = build_bucketized_loader(dataset, samples_per_gpu, seed=seed,
+                                         start_iter=state.step)
+    else:
+        loader = Prefetcher(build_dataloader(
+            dataset, samples_per_gpu, seed=seed, start_iter=state.step))
 
     extra_hooks = [QuartileLossLoggerHook(
         total_timesteps=cfg.model.diffusion.get('num_timesteps', 1000)),

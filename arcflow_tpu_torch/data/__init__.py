@@ -1,6 +1,9 @@
 from .builder import build_dataloader, build_dataset, collate
 from .checkerboard import CheckerboardData
-from .prefetch import Prefetcher
+from .image_prompts import ImagePrompt, load_datalist
+from .prefetch import Prefetcher, batched_index_loader
+from .samplers import BucketizedBatchSampler, build_bucketized_loader
 
-__all__ = ['CheckerboardData', 'Prefetcher', 'build_dataloader',
-           'build_dataset', 'collate']
+__all__ = ['BucketizedBatchSampler', 'CheckerboardData', 'ImagePrompt',
+           'Prefetcher', 'batched_index_loader', 'build_bucketized_loader',
+           'build_dataloader', 'build_dataset', 'collate', 'load_datalist']

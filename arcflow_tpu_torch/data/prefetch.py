@@ -4,7 +4,8 @@ Counterpart of ``arcflow_tpu/data/prefetch.py:Prefetcher``: batches are
 made on a worker thread while the device runs the previous step. The
 worker puts with a timeout, so ``close()`` stops a producer blocked on a
 full queue instead of leaving it alive, holding the iterator and its staged
-batches.
+batches. ``batched_index_loader`` turns a sampler's index batches into
+collated batches on such a queue.
 """
 
 from __future__ import annotations
@@ -62,3 +63,19 @@ class Prefetcher:
         if isinstance(item, Exception):
             raise item
         return item
+
+
+def batched_index_loader(dataset, sampler_iter, prefetch_depth: int = 2):
+    """Batches of indices -> collated sample batches on a ``Prefetcher``,
+    through the dataset's batched ``getitems`` where it has one."""
+    from .builder import collate
+
+    def gen():
+        for idx in sampler_iter:
+            if hasattr(dataset, 'getitems'):
+                samples = dataset.getitems([int(i) for i in idx])
+            else:
+                samples = [dataset[int(i)] for i in idx]
+            yield collate(samples)
+
+    return Prefetcher(gen(), depth=prefetch_depth)

@@ -65,6 +65,18 @@ def check_fixed(**fields):
                              f'{got!r}')
 
 
+def run_block(block: nn.Module, index: int, dropout_seed: Optional[int],
+              checkpointing: bool, *args):
+    """Run ``block(*args)`` with its dropout generator, under activation
+    checkpointing when ``checkpointing`` is on and autograd records."""
+    def run(seed, *a):
+        return block(*a, generator=dropout_generator(seed, index,
+                                                     a[0].device))
+    if checkpointing and torch.is_grad_enabled():
+        return checkpoint(run, dropout_seed, *args, use_reentrant=False)
+    return run(dropout_seed, *args)
+
+
 def dropout_generator(seed: Optional[int], index: int, device
                       ) -> Optional[torch.Generator]:
     """The generator of block ``index``'s LoRA dropout for a forward with
@@ -209,6 +221,9 @@ class FluxBackbone(nn.Module):
                  guidance_embeds: bool = True, pretrained=None,
                  pretrained_adapter=None, device=None, dtype=None):
         super().__init__()
+        # a checkpoint loads through the training composition, which takes
+        # these keys off the config (models/latent_diffusion.py), or through
+        # ArcFluxPipeline.from_pretrained; a denoiser built alone has none
         check_fixed(patch_size=(patch_size, 2),
                     guidance_embeds=(guidance_embeds, True),
                     pretrained=(pretrained, None),
@@ -234,17 +249,6 @@ class FluxBackbone(nn.Module):
             FluxSingleBlock(inner, num_attention_heads, attention_head_dim,
                             **lora, **kw)
             for _ in range(num_single_layers)])
-
-    def _block(self, block: nn.Module, index: int,
-               dropout_seed: Optional[int], *args):
-        """Run ``block(*args)`` with its dropout generator, under activation
-        checkpointing when ``checkpointing`` is on and autograd records."""
-        def run(seed, *a):
-            return block(*a, generator=dropout_generator(seed, index,
-                                                         a[0].device))
-        if self.checkpointing and torch.is_grad_enabled():
-            return checkpoint(run, dropout_seed, *args, use_reentrant=False)
-        return run(dropout_seed, *args)
 
     def trunk(self, packed: torch.Tensor, t: torch.Tensor,
               encoder_hidden_states: torch.Tensor,
@@ -283,12 +287,12 @@ class FluxBackbone(nn.Module):
         rope = rope_frequencies(torch.cat([txt_ids, img_ids], dim=0),
                                 self.axes_dims_rope)
         for i, block in enumerate(self.joint_blocks):
-            img, txt = self._block(block, i, dropout_seed, img, txt, rope,
-                                   temb, mask)
+            img, txt = run_block(block, i, dropout_seed, self.checkpointing,
+                                 img, txt, rope, temb, mask)
         hidden = torch.cat([txt, img], dim=1)
         for i, block in enumerate(self.single_blocks, len(self.joint_blocks)):
-            hidden = self._block(block, i, dropout_seed, hidden, rope, temb,
-                                 mask)
+            hidden = run_block(block, i, dropout_seed, self.checkpointing,
+                               hidden, rope, temb, mask)
         img = hidden[:, txt.shape[1]:]
         if isinstance(sp, SequenceParallel):
             img = sp.gather(img)

@@ -1,7 +1,9 @@
-"""Qwen-Image MM-DiT trunk and the ArcQwen student with its mixture heads.
+"""Qwen-Image MM-DiT trunk, the teacher with its u head and the ArcQwen
+student with its mixture heads.
 
 Counterpart of ``arcflow_tpu/models/qwen.py`` (``QwenJointBlock``,
-``make_qwen_img_ids``, ``QwenBackbone``, ``ArcQwenImageTransformer2DModel``):
+``make_qwen_img_ids``, ``QwenBackbone``, ``QwenImageTransformer2DModel``,
+``ArcQwenImageTransformer2DModel``):
 60 dual-stream joint blocks (no single-stream stage) in an
 ``nn.ModuleList`` named ``transformer_blocks``, RMSNorm on the raw text
 stream, a timestep-only embedder (no pooled text, no guidance embeds),
@@ -10,9 +12,10 @@ mask in every block's joint attention. The heads are ArcFlux's
 (``flux.py:ArcFlowHeads``). Under sequence parallelism the trunk shards its
 tokens as the FLUX trunk does, and the text mask with the text tokens, so
 each rank's key mask is [txt_mask_r, ones(img_r)]; a stream that ``sp``
-does not divide is padded with masked tokens, as in the FLUX trunk. The
-teacher
-``QwenImageTransformer2DModel`` and MoE wait for the training slices.
+does not divide is padded with masked tokens, as in the FLUX trunk.
+Training: activation checkpointing and the per-block LoRA dropout
+generators are the FLUX trunk's (``flux.py:run_block``). MoE waits for its
+slice.
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ from ..parallel.mesh import (SequenceParallel, pad_tokens, stream_padding,
                              token_validity)
 from ..registry import MODULES
 from .flux import (ArcFlowHeads, FluxJointBlock, MLPEmbedder, check_fixed,
-                   make_img_ids, patchify)
-from .layers import LoRADense, RMSNorm, rope_frequencies, timestep_sinusoidal
+                   dropout_generator, make_img_ids, patchify, run_block,
+                   unpatchify)
+from .layers import (AdaLayerNormContinuous, LoRADense, RMSNorm,
+                     rope_frequencies, timestep_sinusoidal)
 
 
 class QwenJointBlock(FluxJointBlock):
@@ -38,13 +43,14 @@ class QwenJointBlock(FluxJointBlock):
 
     def forward(self, img, txt, rope, temb,
                 txt_mask: Optional[torch.Tensor] = None,
-                img_valid: Optional[torch.Tensor] = None):
+                img_valid: Optional[torch.Tensor] = None, generator=None):
         mask = None
         if txt_mask is not None or img_valid is not None:
             key_mask = torch.cat([token_validity(txt, 0, txt_mask),
                                   token_validity(img, 0, img_valid)], dim=1)
             mask = key_mask[:, None, None, :]          # (B, 1, 1, S_kv)
-        return super().forward(img, txt, rope, temb, mask=mask)
+        return super().forward(img, txt, rope, temb, mask=mask,
+                               generator=generator)
 
 
 def make_qwen_img_ids(h_tokens: int, w_tokens: int, device=None
@@ -68,14 +74,19 @@ class QwenBackbone(nn.Module):
                  joint_attention_dim: int = 3584,
                  axes_dims_rope: Sequence[int] = (16, 56, 56),
                  max_text_len: Optional[int] = None, lora_rank: int = 0,
+                 lora_dropout: float = 0.0, checkpointing: bool = True,
                  patch_size: int = 2, pretrained=None,
                  pretrained_adapter=None, device=None, dtype=None):
         super().__init__()
+        # loaded by the training composition or from_pretrained (see
+        # flux.py:FluxBackbone)
         check_fixed(patch_size=(patch_size, 2), pretrained=(pretrained, None),
                     pretrained_adapter=(pretrained_adapter, None))
         self.in_channels = in_channels
         self.axes_dims_rope = tuple(axes_dims_rope)
         self.max_text_len = max_text_len
+        self.lora_dropout = lora_dropout
+        self.checkpointing = checkpointing
         self.sequence_parallel = None
         self.dtype = dtype if dtype is not None else torch.get_default_dtype()
         inner = num_attention_heads * attention_head_dim
@@ -84,18 +95,19 @@ class QwenBackbone(nn.Module):
         self.img_in = LoRADense(in_channels, inner, **kw)
         self.txt_norm = RMSNorm(joint_attention_dim, **kw)
         self.txt_in = LoRADense(joint_attention_dim, inner, **kw)
-        self.timestep_embedder = MLPEmbedder(256, inner, lora_rank=lora_rank,
-                                             **kw)
+        lora = dict(lora_rank=lora_rank, lora_dropout=lora_dropout)
+        self.timestep_embedder = MLPEmbedder(256, inner, **lora, **kw)
         self.transformer_blocks = nn.ModuleList([
             QwenJointBlock(inner, num_attention_heads, attention_head_dim,
-                           lora_rank=lora_rank, **kw)
+                           **lora, **kw)
             for _ in range(num_layers)])
 
     def trunk(self, packed: torch.Tensor, t: torch.Tensor,
               encoder_hidden_states: torch.Tensor,
               encoder_hidden_states_mask: Optional[torch.Tensor],
-              img_ids: torch.Tensor):
-        """packed (B, N_img, in_channels) -> (hidden (B, N_img, D), temb)."""
+              img_ids: torch.Tensor, dropout_seed: Optional[int] = None):
+        """packed (B, N_img, in_channels) -> (hidden (B, N_img, D), temb).
+        ``dropout_seed`` turns the LoRA dropout on (training)."""
         dt = self.dtype
         if self.max_text_len is not None and \
                 encoder_hidden_states.shape[1] > self.max_text_len:
@@ -125,24 +137,43 @@ class QwenBackbone(nn.Module):
                 img_valid = sp.shard(img_valid)
         img = self.img_in(packed.to(dt))
         txt = self.txt_in(self.txt_norm(encoder_hidden_states.to(dt)))
+        n_blocks = len(self.transformer_blocks)
         temb = self.timestep_embedder(
-            timestep_sinusoidal(t.float() * 1000.0, 256).to(dt))
+            timestep_sinusoidal(t.float() * 1000.0, 256).to(dt),
+            dropout_generator(dropout_seed, n_blocks, packed.device))
         txt_ids = torch.zeros((txt.shape[1], 3), dtype=img_ids.dtype,
                               device=img_ids.device)
         rope = rope_frequencies(torch.cat([txt_ids, img_ids], dim=0),
                                 self.axes_dims_rope)
-        for block in self.transformer_blocks:
-            img, txt = block(img, txt, rope, temb, encoder_hidden_states_mask,
-                             img_valid)
+        if encoder_hidden_states_mask is not None:
+            encoder_hidden_states_mask = encoder_hidden_states_mask.bool()
+        for i, block in enumerate(self.transformer_blocks):
+            img, txt = run_block(block, i, dropout_seed, self.checkpointing,
+                                 img, txt, rope, temb,
+                                 encoder_hidden_states_mask, img_valid)
         if isinstance(sp, SequenceParallel):
             img = sp.gather(img)
         return img[:, :n_img], temb
 
 
+    def _tokens(self, hidden_states, t, encoder_hidden_states,
+                encoder_hidden_states_mask, dropout_seed):
+        """The trunk on a latent (B, H, W, C): (hidden, temb)."""
+        _, h, w, _ = hidden_states.shape
+        p = self.patch_size
+        img_ids = make_qwen_img_ids(h // p, w // p,
+                                    device=hidden_states.device)
+        return self.trunk(patchify(hidden_states, p), t,
+                          encoder_hidden_states, encoder_hidden_states_mask,
+                          img_ids, dropout_seed)
+
+
 @MODULES.register_module()
 class ArcQwenImageTransformer2DModel(ArcFlowHeads, QwenBackbone):
     """Qwen trunk + the three ArcFlow mixture heads; the output contract is
-    ArcFlux's (``flux.py:ArcFlowHeads``)."""
+    ArcFlux's (``flux.py:ArcFlowHeads``). Qwen-Image has no guidance embeds:
+    the training composition passes no ``guidance`` (the JAX module
+    swallows it in ``**kwargs``)."""
 
     def __init__(self, num_gaussians: int = 16, device=None, dtype=None,
                  **kwargs):
@@ -151,13 +182,38 @@ class ArcQwenImageTransformer2DModel(ArcFlowHeads, QwenBackbone):
 
     def forward(self, hidden_states: torch.Tensor, t: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
-                encoder_hidden_states_mask: Optional[torch.Tensor] = None
-                ) -> dict:
+                encoder_hidden_states_mask: Optional[torch.Tensor] = None,
+                dropout_seed: Optional[int] = None) -> dict:
         b, h, w, _ = hidden_states.shape
-        p = self.patch_size
-        img_ids = make_qwen_img_ids(h // p, w // p,
-                                    device=hidden_states.device)
-        hidden, temb = self.trunk(patchify(hidden_states, p), t,
-                                  encoder_hidden_states,
-                                  encoder_hidden_states_mask, img_ids)
+        hidden, temb = self._tokens(hidden_states, t, encoder_hidden_states,
+                                    encoder_hidden_states_mask, dropout_seed)
         return self._heads(hidden, temb, b, h, w)
+
+
+@MODULES.register_module()
+class QwenImageTransformer2DModel(QwenBackbone):
+    """The teacher: the Qwen trunk + ``norm_out`` and the fp32 ``proj_out``
+    u head (JAX ``qwen.py:177-198``); returns u (B, H, W, C) in fp32."""
+
+    def __init__(self, device=None, dtype=None, **kwargs):
+        super().__init__(device=device, dtype=dtype, **kwargs)
+        self.init_head(device=device, dtype=dtype)
+
+    def init_head(self, device=None, dtype=None):
+        """(Re)make ``norm_out`` and ``proj_out``. The training composition
+        builds the teacher's trunk without storage (it borrows the
+        student's) and only this head on the device."""
+        self.norm_out = AdaLayerNormContinuous(self.inner_dim, device=device,
+                                               dtype=dtype)
+        self.proj_out = LoRADense(self.inner_dim, self.in_channels,
+                                  device=device, dtype=torch.float32)
+
+    def forward(self, hidden_states: torch.Tensor, t: torch.Tensor,
+                encoder_hidden_states: torch.Tensor,
+                encoder_hidden_states_mask: Optional[torch.Tensor] = None,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        _, h, w, _ = hidden_states.shape
+        hidden, temb = self._tokens(hidden_states, t, encoder_hidden_states,
+                                    encoder_hidden_states_mask, dropout_seed)
+        out = self.proj_out(self.norm_out(hidden, temb).float())
+        return unpatchify(out, h, w, self.patch_size)

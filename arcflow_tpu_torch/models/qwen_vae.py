@@ -1,18 +1,19 @@
-"""Qwen-Image VAE decoder (the Wan 2.1 VAE in image mode).
+"""Qwen-Image VAE (the Wan 2.1 VAE in image mode).
 
 Counterpart of ``arcflow_tpu/models/qwen_vae.py`` (``WanRMSNorm``,
 ``WanResidualBlock``, ``WanAttentionBlock``, ``WanMidBlock``,
-``WanUpsample``, ``QwenVAEUpBlock``, ``QwenVAEDecoder`` and
-``PretrainedVAEQwenImage.decode``). On a single frame the Wan 3-D causal
-VAE reduces exactly to a 2-D network with temporally sliced kernels, which
-is what the JAX package holds and what is ported. The public layout is the
-JAX package's, channel last: ``decode`` takes (B, h, w, z) latents and
-returns (B, 8h, 8w, 3) images; inside, the convs run NCHW. The mid-block
-attention is plain torch (XLA in the JAX package, no kernel).
-``from_pretrained`` loads the decoder half of a diffusers
-AutoencoderKLQwenImage folder (``pipelines/convert.py:
-diffusers_qwen_vae_to_torch``). The encoder and the quant conv wait for
-their slice.
+``WanDownsample``, ``WanUpsample``, ``QwenVAEEncoder``, ``QwenVAEUpBlock``,
+``QwenVAEDecoder`` and ``PretrainedVAEQwenImage.encode``/``decode``). On a
+single frame the Wan 3-D causal VAE reduces exactly to a 2-D network with
+temporally sliced kernels, which is what the JAX package holds and what is
+ported. The public layout is the JAX package's, channel last: ``encode``
+takes (B, H, W, 3) images and returns (B, H/8, W/8, z) latents, ``decode``
+the reverse; inside, the convs run NCHW. The mid-block attention is plain
+torch (XLA in the JAX package, no kernel). ``from_pretrained`` loads a
+diffusers AutoencoderKLQwenImage folder (``pipelines/convert.py:
+diffusers_qwen_vae_to_torch``), the halves the module has; the encoder and
+``quant_conv`` are built only when asked (``with_encoder``), as in
+``vae.py``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..registry import MODULES
-from .vae import _conv, _run, load_vae_folder, torch_dtype
+from .vae import (_conv, _run, flax_init_, load_vae_folder, posterior,
+                  torch_dtype)
 
 
 class WanRMSNorm(nn.Module):
@@ -96,6 +98,19 @@ class WanMidBlock(nn.Module):
         return self.resnets_1(self.attentions_0(self.resnets_0(x)))
 
 
+class WanDownsample(nn.Module):
+    """Zero pad (0, 1, 0, 1), then a 3x3 conv of stride 2 at the same width
+    (the temporal path is skipped on a first frame)."""
+
+    def __init__(self, dim: int, device=None, dtype=None):
+        super().__init__()
+        self.resample_conv = flax_init_(nn.Conv2d(
+            dim, dim, 3, stride=2, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _run(self.resample_conv, F.pad(x, (0, 1, 0, 1)))
+
+
 class WanUpsample(nn.Module):
     """Nearest 2x, then a 3x3 conv to dim // 2 (Wan's upsample halves the
     width)."""
@@ -107,6 +122,42 @@ class WanUpsample(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _run(self.resample_conv,
                     F.interpolate(x, scale_factor=2.0, mode='nearest'))
+
+
+class QwenVAEEncoder(nn.Module):
+    """RGB (B, 3, H, W) -> moments (B, 2 z, H/8, W/8): widths base * [1,
+    *dim_mult], a flat ``down_blocks_i`` list in diffusers' order
+    (num_res_blocks resnets per stage, a downsample after each but the
+    last), the mid block, RMS norm, SiLU and the out conv."""
+
+    def __init__(self, base_dim: int = 96, z_dim: int = 16,
+                 dim_mult: Sequence[int] = (1, 2, 4, 4),
+                 num_res_blocks: int = 2, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        dims = [base_dim * u for u in (1,) + tuple(dim_mult)]
+        self.conv_in = _conv(3, dims[0], 3, **kw)
+        self.num_down = 0
+        for i, (in_dim, out_dim) in enumerate(zip(dims[:-1], dims[1:])):
+            for _ in range(num_res_blocks):
+                self.add_module(f'down_blocks_{self.num_down}',
+                                WanResidualBlock(in_dim, out_dim, **kw))
+                self.num_down += 1
+                in_dim = out_dim
+            if i != len(dim_mult) - 1:
+                self.add_module(f'down_blocks_{self.num_down}',
+                                WanDownsample(out_dim, **kw))
+                self.num_down += 1
+        self.mid_block = WanMidBlock(dims[-1], **kw)
+        self.norm_out = WanRMSNorm(dims[-1], device)
+        self.conv_out = _conv(dims[-1], 2 * z_dim, 3, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = _run(self.conv_in, x)
+        for i in range(self.num_down):
+            h = getattr(self, f'down_blocks_{i}')(h)
+        h = self.mid_block(h)
+        return _run(self.conv_out, F.silu(self.norm_out(h)))
 
 
 class QwenVAEUpBlock(nn.Module):
@@ -160,17 +211,20 @@ class QwenVAEDecoder(nn.Module):
 
 @MODULES.register_module()
 class PretrainedVAEQwenImage(nn.Module):
-    """Qwen-Image VAE decode: per-channel latent denormalization
+    """Qwen-Image VAE. ``decode``: per-channel latent denormalization
     z * latents_std + latents_mean, the post-quant 1x1 conv, then the
-    decoder. ``from_pretrained`` (+ ``subfolder``) loads a diffusers
+    decoder. ``encode`` (with ``with_encoder``): the encoder, the quant 1x1
+    conv, the posterior's mean or a draw, then (z - latents_mean) /
+    latents_std. ``from_pretrained`` (+ ``subfolder``) loads a diffusers
     folder's weights; its ``config.json`` fields come in as constructor
-    arguments. Encoder-side options are taken and ignored."""
+    arguments. Other options of the JAX wrapper are taken and ignored."""
 
     def __init__(self, base_dim: int = 96, z_dim: int = 16,
                  dim_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, out_channels: int = 3,
                  latents_mean: Optional[Sequence[float]] = None,
                  latents_std: Optional[Sequence[float]] = None,
+                 with_encoder: bool = False,
                  from_pretrained: Optional[str] = None, subfolder: str = '',
                  device=None, dtype=None, **kwargs):
         super().__init__()
@@ -183,6 +237,11 @@ class PretrainedVAEQwenImage(nn.Module):
         # constants of the checkpoint's config, not weights
         self.register_buffer('latents_mean', mean, persistent=False)
         self.register_buffer('latents_std', std, persistent=False)
+        self.encoder = QwenVAEEncoder(base_dim, z_dim, dim_mult,
+                                      num_res_blocks, device=device,
+                                      dtype=dtype) if with_encoder else None
+        self.quant_conv = _conv(2 * z_dim, 2 * z_dim, 1, device, dtype) \
+            if with_encoder else None
         self.decoder = QwenVAEDecoder(base_dim, z_dim, dim_mult,
                                       num_res_blocks, out_channels,
                                       device=device, dtype=dtype)
@@ -191,6 +250,18 @@ class PretrainedVAEQwenImage(nn.Module):
             from ..pipelines.convert import diffusers_qwen_vae_to_torch
             load_vae_folder(self, os.path.join(from_pretrained, subfolder),
                             diffusers_qwen_vae_to_torch, 'qwen vae')
+
+    def encode(self, images: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Images (B, H, W, 3) in [-1, 1] -> normalized latents
+        (B, H/8, W/8, z), fp32: the posterior's mean, or a draw from
+        ``generator`` when one is given."""
+        if self.encoder is None:
+            raise RuntimeError('decoder-only VAE')
+        moments = _run(self.quant_conv,
+                       self.encoder(images.permute(0, 3, 1, 2)))
+        z = posterior(moments, generator).permute(0, 2, 3, 1)
+        return (z - self.latents_mean) / self.latents_std
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Normalized latents (B, h, w, z) -> images (B, 8h, 8w, 3) in

@@ -1,15 +1,18 @@
-"""AutoencoderKL decoder (SD/FLUX-style VAE) and its latent denormalization.
+"""AutoencoderKL (SD/FLUX-style VAE) and its latent (de)normalization.
 
 Counterpart of ``arcflow_tpu/models/vae.py`` (``ResnetBlock``, ``AttnBlock``,
-``Upsample``, ``Decoder`` and ``PretrainedVAE._denormalize``/``decode``).
-The public layout is the JAX package's, channel last: ``decode`` takes
-(B, h, w, C) latents and returns (B, H, W, 3) images; inside, the convs run
-NCHW. GroupNorms compute in fp32, as in the JAX package. Convs and linears
-are drawn as flax's ``nn.Conv``/``nn.Dense`` defaults draw them (truncated
-LeCun normal, zero bias: ``flax_init_``). ``from_pretrained`` loads the
-decoder half of a diffusers AutoencoderKL folder
-(``pipelines/convert.py:diffusers_vae_to_torch``). The encoder and
-``quant_conv`` wait for their slice.
+``Downsample``, ``Upsample``, ``Encoder``, ``Decoder`` and
+``PretrainedVAE._normalize``/``encode``/``_denormalize``/``decode``).
+The public layout is the JAX package's, channel last: ``encode`` takes
+(B, H, W, 3) images and returns (B, H/8, W/8, C) latents, ``decode`` the
+reverse; inside, the convs run NCHW. GroupNorms compute in fp32, as in the
+JAX package. Convs and linears are drawn as flax's ``nn.Conv``/``nn.Dense``
+defaults draw them (truncated LeCun normal, zero bias: ``flax_init_``).
+``from_pretrained`` loads a diffusers AutoencoderKL folder
+(``pipelines/convert.py:diffusers_vae_to_torch``), the halves the module
+has. The JAX wrapper always holds both halves; the port builds the encoder
+(and ``quant_conv``) only when asked (``with_encoder``), so a serving
+pipeline keeps the decoder alone.
 """
 
 from __future__ import annotations
@@ -100,6 +103,19 @@ class AttnBlock(nn.Module):
         return x + out
 
 
+class Downsample(nn.Module):
+    """Zero pad (0, 1, 0, 1), then a 3x3 conv of stride 2 (diffusers'
+    ``Downsample2D``)."""
+
+    def __init__(self, channels: int, device=None, dtype=None):
+        super().__init__()
+        self.conv = flax_init_(nn.Conv2d(channels, channels, 3, stride=2,
+                                         device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _run(self.conv, F.pad(x, (0, 1, 0, 1)))
+
+
 class Upsample(nn.Module):
     def __init__(self, channels: int, device=None, dtype=None):
         super().__init__()
@@ -108,6 +124,57 @@ class Upsample(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _run(self.conv, F.interpolate(x, scale_factor=2.0,
                                              mode='nearest'))
+
+
+class Encoder(nn.Module):
+    """RGB images (B, 3, H, W) -> moments (B, 2 C, H/8, W/8) = [mean,
+    logvar]: layers_per_block resnets per level and a 2x downsample
+    between levels, the mid block, then GroupNorm, SiLU and the out conv."""
+
+    def __init__(self, latent_channels: int = 16,
+                 block_out_channels: Sequence[int] = (128, 256, 512, 512),
+                 layers_per_block: int = 2, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        ch = list(block_out_channels)
+        self.conv_in = _conv(3, ch[0], 3, **kw)
+        self.down_names = []
+        prev = ch[0]
+        for i, c in enumerate(ch):
+            for j in range(layers_per_block):
+                self.add_module(f'down_{i}_res_{j}',
+                                ResnetBlock(prev, c, **kw))
+                self.down_names.append(f'down_{i}_res_{j}')
+                prev = c
+            if i < len(ch) - 1:
+                self.add_module(f'down_{i}_ds', Downsample(c, **kw))
+                self.down_names.append(f'down_{i}_ds')
+        self.mid_res_1 = ResnetBlock(ch[-1], ch[-1], **kw)
+        self.mid_attn = AttnBlock(ch[-1], **kw)
+        self.mid_res_2 = ResnetBlock(ch[-1], ch[-1], **kw)
+        self.conv_norm_out = GroupNorm32(ch[-1], device)
+        self.conv_out = _conv(ch[-1], 2 * latent_channels, 3, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = _run(self.conv_in, x)
+        for name in self.down_names:
+            h = getattr(self, name)(h)
+        h = self.mid_res_2(self.mid_attn(self.mid_res_1(h)))
+        return _run(self.conv_out, F.silu(self.conv_norm_out(h)))
+
+
+def posterior(moments: torch.Tensor,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The latent of (B, 2C, h, w) moments [mean, logvar]: a draw
+    mean + exp(logvar / 2, logvar clipped to [-30, 20]) eps with eps from
+    ``generator``, or the mean without one (JAX ``encode`` with and without
+    ``rng``); fp32."""
+    mean, logvar = moments.chunk(2, dim=1)
+    if generator is None:
+        return mean.float()
+    eps = torch.randn(mean.shape, generator=generator, device=mean.device,
+                      dtype=mean.dtype)
+    return (mean + torch.exp(0.5 * logvar.clamp(-30, 20)) * eps).float()
 
 
 class Decoder(nn.Module):
@@ -153,13 +220,14 @@ def torch_dtype(dtype):
 
 def load_vae_folder(module: nn.Module, path: str, convert,
                     what: str = 'vae') -> None:
-    """Load a diffusers VAE folder's decoder half into ``module`` (its
-    ``state_dict`` keys, cast to their dtypes): the top-level parts the
-    module lacks (the encoder, quant convs it was built without) are
-    dropped as in JAX; any other missing or unexpected key raises the JAX
-    error."""
+    """Load a diffusers VAE folder into ``module`` (its ``state_dict``
+    keys, cast to their dtypes): the top-level parts the module lacks (the
+    encoder, quant convs it was built without) are dropped as in JAX; any
+    other missing or unexpected key raises the JAX error."""
     from ..pipelines.convert import graft_pretrained, load_safetensors_state
-    converted, _ = convert(load_safetensors_state(path))
+    converted, _ = convert(load_safetensors_state(path),
+                           encoder=getattr(module, 'encoder', None)
+                           is not None)
     own = module.state_dict()
     tops = {k.partition('.')[0] for k in own}
     converted = {k: v for k, v in converted.items()
@@ -173,15 +241,17 @@ def load_vae_folder(module: nn.Module, path: str, convert,
 
 @MODULES.register_module()
 class PretrainedVAE(nn.Module):
-    """AutoencoderKL decode with diffusers scaling semantics (JAX
-    ``PretrainedVAE``): z = z' / scaling_factor + shift_factor (the FLUX
-    VAE's constants), or the per-channel ``latents_mean`` / ``latents_std``
-    when given, the 1x1 ``post_quant_conv`` of SD-family VAEs
-    (``use_post_quant_conv``), then the decoder. ``from_pretrained`` (+
-    ``subfolder``) loads a diffusers folder's weights; the folder's
-    ``config.json`` fields come in as constructor arguments
-    (``ArcFluxPipeline._load_vae_folder``). Encoder-side options are taken
-    and ignored."""
+    """AutoencoderKL with diffusers scaling semantics (JAX
+    ``PretrainedVAE``). ``decode``: z = z' / scaling_factor + shift_factor
+    (the FLUX VAE's constants), or the per-channel ``latents_mean`` /
+    ``latents_std`` when given, the 1x1 ``post_quant_conv`` of SD-family
+    VAEs (``use_post_quant_conv``), then the decoder. ``encode`` (with
+    ``with_encoder``): the encoder, the 1x1 ``quant_conv``
+    (``use_quant_conv``), the posterior's mean or a draw, then the inverse
+    normalization. ``from_pretrained`` (+ ``subfolder``) loads a diffusers
+    folder's weights; the folder's ``config.json`` fields come in as
+    constructor arguments (``ArcFluxPipeline._load_vae_folder``). Other
+    options of the JAX wrapper are taken and ignored."""
 
     def __init__(self, latent_channels: int = 16,
                  block_out_channels: Sequence[int] = (128, 256, 512, 512),
@@ -189,7 +259,9 @@ class PretrainedVAE(nn.Module):
                  shift_factor: float = 0.1159,
                  latents_mean: Optional[Sequence[float]] = None,
                  latents_std: Optional[Sequence[float]] = None,
+                 use_quant_conv: bool = False,
                  use_post_quant_conv: bool = False,
+                 with_encoder: bool = False, with_decoder: bool = True,
                  from_pretrained: Optional[str] = None, subfolder: str = '',
                  device=None, dtype=None, **kwargs):
         super().__init__()
@@ -201,15 +273,28 @@ class PretrainedVAE(nn.Module):
             else torch.tensor(latents_mean, **f32)
         self.latents_std = None if latents_std is None \
             else torch.tensor(latents_std, **f32)
+        self.encoder = Encoder(latent_channels, block_out_channels,
+                               layers_per_block, device=device, dtype=dtype) \
+            if with_encoder else None
+        self.quant_conv = _conv(2 * latent_channels, 2 * latent_channels, 1,
+                                device, dtype) \
+            if with_encoder and use_quant_conv else None
         self.decoder = Decoder(latent_channels, block_out_channels,
-                               layers_per_block, device=device, dtype=dtype)
+                               layers_per_block, device=device, dtype=dtype) \
+            if with_decoder else None
         self.post_quant_conv = _conv(latent_channels, latent_channels, 1,
                                      device, dtype) \
-            if use_post_quant_conv else None
+            if with_decoder and use_post_quant_conv else None
         if from_pretrained is not None:
             from ..pipelines.convert import diffusers_vae_to_torch
             load_vae_folder(self, os.path.join(from_pretrained, subfolder),
                             diffusers_vae_to_torch)
+
+    def _normalize(self, z: torch.Tensor) -> torch.Tensor:
+        if self.latents_mean is not None:
+            return (z - self.latents_mean.to(z.device)) \
+                / self.latents_std.to(z.device)
+        return (z - self.shift_factor) * self.scaling_factor
 
     def _denormalize(self, z: torch.Tensor) -> torch.Tensor:
         if self.latents_mean is not None:
@@ -217,9 +302,24 @@ class PretrainedVAE(nn.Module):
                 + self.latents_mean.to(z.device)
         return z / self.scaling_factor + self.shift_factor
 
+    def encode(self, images: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Images (B, H, W, 3) in [-1, 1] -> normalized latents
+        (B, H/8, W/8, C), fp32: the posterior's mean, or a draw from
+        ``generator`` when one is given."""
+        if self.encoder is None:
+            raise RuntimeError('decoder-only VAE')
+        moments = self.encoder(images.permute(0, 3, 1, 2))
+        if self.quant_conv is not None:
+            moments = _run(self.quant_conv, moments)
+        z = posterior(moments, generator).permute(0, 2, 3, 1)
+        return self._normalize(z)
+
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Normalized latents (B, h, w, C) -> images (B, 8h, 8w, 3) in
         [-1, 1], fp32."""
+        if self.decoder is None:
+            raise RuntimeError('encoder-only VAE')
         z = self._denormalize(latents.float()).permute(0, 3, 1, 2)
         if self.post_quant_conv is not None:
             z = _run(self.post_quant_conv, z)
@@ -229,8 +329,18 @@ class PretrainedVAE(nn.Module):
 @MODULES.register_module()
 class PretrainedVAEDecoder(PretrainedVAE):
     """The decoder-only VAE of the training configs (JAX
-    ``PretrainedVAEDecoder``); the port's ``PretrainedVAE`` has no encoder
-    yet, so the two are the same module."""
+    ``PretrainedVAEDecoder``)."""
 
-    def encode(self, *args, **kwargs):
-        raise RuntimeError('decoder-only VAE')
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **dict(kwargs, with_encoder=False,
+                                       with_decoder=True))
+
+
+@MODULES.register_module()
+class PretrainedVAEEncoder(PretrainedVAE):
+    """The encoder-only VAE of latent cachers (JAX
+    ``PretrainedVAEEncoder``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **dict(kwargs, with_encoder=True,
+                                       with_decoder=False))

@@ -115,20 +115,28 @@ def load_jax_latent_diffusion(model, trainable: Mapping, frozen: Mapping):
     """Load the (trainable, frozen) pair of the JAX
     ``LatentDiffusionTextImage.init_params`` into the port's composition,
     each part with ``strict=True``: the student from the frozen ``base``
-    overlaid with the ``diffusion`` adapter, and the teacher's head from
-    ``teacher_head`` (its trunk is the student's). Values are cast to each
-    parameter's storage dtype."""
+    overlaid with the ``diffusion`` adapter and, for a quantized trunk, the
+    ``base_quant`` collection; the teacher's head from ``teacher_head``
+    (its trunk is the student's), or the untied teacher from
+    ``teacher_full`` with ``teacher_quant``. The port's composition must be
+    quantized as the JAX one is (the same ``frozen_quant``). Values are cast
+    to each tensor's storage dtype."""
     model.diffusion.denoising.load_state_dict(
         jax_params_to_torch(merge_params(frozen['base'],
-                                         trainable['diffusion'])),
+                                         trainable['diffusion']),
+                            frozen.get('base_quant')),
         strict=True)
     from ..models.latent_diffusion import TEACHER_HEAD_KEYS
-    if model.teacher is not None:
-        t_model = model.teacher.denoising
-        head = nn.ModuleDict({k: getattr(t_model, k)
-                              for k in TEACHER_HEAD_KEYS})
-        head.load_state_dict(jax_params_to_torch(frozen['teacher_head']),
-                             strict=True)
+    if model.teacher is None:
+        return
+    t_model = model.teacher.denoising
+    if 'teacher_full' in frozen:
+        t_model.load_state_dict(jax_params_to_torch(
+            frozen['teacher_full'], frozen.get('teacher_quant')), strict=True)
+        return
+    head = nn.ModuleDict({k: getattr(t_model, k) for k in TEACHER_HEAD_KEYS})
+    head.load_state_dict(jax_params_to_torch(frozen['teacher_head']),
+                         strict=True)
 
 
 # ---------------------------------------------------------------------------
@@ -506,8 +514,13 @@ _QWEN_VAE_NAME_RULES = [
     (r'\.mid_block\.attentions\.0\.', '.mid_block.attentions_0.'),
     (r'\.resample\.1\.', '.resample_conv.'),
 ]
-# the decoder side, the part of a VAE the port has
+# the decoder half of a VAE, and the encoder half
 _DECODER_PREFIXES = ('decoder.', 'post_quant_conv.')
+_ENCODER_PREFIXES = ('encoder.', 'quant_conv.')
+
+
+def _vae_prefixes(encoder: bool):
+    return _DECODER_PREFIXES + (_ENCODER_PREFIXES if encoder else ())
 
 
 def _rename(key: str, rules) -> str:
@@ -516,18 +529,19 @@ def _rename(key: str, rules) -> str:
     return key
 
 
-def diffusers_vae_to_torch(state: State
+def diffusers_vae_to_torch(state: State, encoder: bool = False
                            ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """A diffusers AutoencoderKL state -> (the port's ``PretrainedVAE``
-    decoder keys, the rest): the decoder half of JAX
-    ``torch_vae_to_flax``, values as they are (conv (o, i, h, w), linear
-    (out, in) and GroupNorm weights are the port's layout). The encoder and
-    ``quant_conv`` wait for their slice and come back unused."""
+    keys, the rest): JAX ``torch_vae_to_flax``, values as they are (conv
+    (o, i, h, w), linear (out, in) and GroupNorm weights are the port's
+    layout). The decoder half always; the encoder and ``quant_conv`` with
+    ``encoder``, else they come back unused."""
+    prefixes = _vae_prefixes(encoder)
     out, unused = {}, {}
     for key, v in state.items():
         v = _tensor(v)
         leaf = key.rpartition('.')[2]
-        if key.startswith(_DECODER_PREFIXES) and (
+        if key.startswith(prefixes) and (
                 leaf == 'bias' or leaf == 'weight' and (
                     v.ndim in (2, 4) or _is_vae_norm(key))):
             out[_rename(key, _VAE_NAME_RULES)] = v
@@ -542,23 +556,25 @@ def _is_vae_norm(key: str) -> bool:
                       'norm_out')
 
 
-def diffusers_qwen_vae_to_torch(state: State
+def diffusers_qwen_vae_to_torch(state: State, encoder: bool = False
                                 ) -> Tuple[Dict[str, Tensor],
                                            Dict[str, Tensor]]:
     """A diffusers AutoencoderKLQwenImage (Wan 3-D causal) state -> (the
-    port's ``PretrainedVAEQwenImage`` decoder keys, the rest): the decoder
-    half of JAX ``torch_qwen_vae_to_flax``. A causal 3-D kernel (o, i, t,
-    h, w) keeps its last temporal slice (on one frame the causal padding
-    shows the earlier slices only zeros), ``time_conv`` weights are
-    skipped (never applied to a first frame) and the Wan RMSNorm gamma
-    flattens to (c,). The encoder and ``quant_conv`` come back unused."""
+    port's ``PretrainedVAEQwenImage`` keys, the rest): JAX
+    ``torch_qwen_vae_to_flax``. A causal 3-D kernel (o, i, t, h, w) keeps
+    its last temporal slice (on one frame the causal padding shows the
+    earlier slices only zeros), ``time_conv`` weights are skipped (never
+    applied to a first frame) and the Wan RMSNorm gamma flattens to (c,).
+    The decoder half always; the encoder and ``quant_conv`` with
+    ``encoder``, else they come back unused."""
+    prefixes = _vae_prefixes(encoder)
     out, unused = {}, {}
     for key, v in state.items():
         v = _tensor(v)
         leaf = key.rpartition('.')[2]
-        if '.time_conv.' in key and key.startswith('decoder.'):
+        if '.time_conv.' in key and key.startswith(prefixes):
             continue
-        if not key.startswith(_DECODER_PREFIXES) or \
+        if not key.startswith(prefixes) or \
                 leaf not in ('gamma', 'weight', 'bias'):
             unused[key] = v
             continue

@@ -1,10 +1,11 @@
 """Exponential moving average of the trainable parameters, run at the end
 of each train step.
 
-Counterpart of ``arcflow_tpu/runner/ema.py`` for the one policy every config
-sets: lerp with Karras momentum ``beta = (1 - 1/t)^(gamma + 1)``,
-``t = iter + 1 - start_iter``, copy-through before ``start_iter``, an update
-every iteration. The EMA tensors are updated in place.
+Counterpart of ``arcflow_tpu/runner/ema.py`` for lerp with an update every
+iteration: Karras momentum ``beta = (1 - 1/t)^(gamma + 1)``,
+``t = iter + 1 - start_iter`` (what every config sets), or a fixed
+``momentum`` (the JAX trainer's default without an EMA hook);
+copy-through before ``start_iter``. The EMA tensors are updated in place.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import torch
 class EmaConfig:
     gamma: float = 7.0    # karras exponent
     start_iter: int = 0
+    momentum_policy: str = 'karras'    # 'karras' | 'fixed'
+    momentum: float = 0.999            # the 'fixed' policy's beta
 
     @classmethod
     def from_hook_cfg(cls, hook_cfg: dict) -> 'EmaConfig':
@@ -40,7 +43,9 @@ class EmaConfig:
 
 
 def ema_momentum(cfg: EmaConfig, iteration: int) -> float:
-    """Karras momentum beta at ``iteration``."""
+    """Momentum beta at ``iteration``: the fixed one, or Karras'."""
+    if cfg.momentum_policy == 'fixed':
+        return cfg.momentum
     t = float(max(iteration + 1 - cfg.start_iter, 1))
     return (1.0 - 1.0 / t) ** (cfg.gamma + 1.0)
 

@@ -30,10 +30,12 @@ from .train_state import TrainState
 
 def to_device(batch, device):
     """A batch (nested dicts of numpy arrays or tensors) on ``device``;
-    host numpy arrays go through pinned memory on the card."""
+    host numpy arrays go through pinned memory on the card. Arrays of
+    strings or objects (the prompts a collated batch stacks) and other
+    values stay as they are."""
     if isinstance(batch, dict):
         return {k: to_device(v, device) for k, v in batch.items()}
-    if isinstance(batch, np.ndarray):
+    if isinstance(batch, np.ndarray) and batch.dtype.kind not in 'USO':
         batch = torch.from_numpy(batch)
         if batch.device.type != torch.device(device).type \
                 and torch.device(device).type == 'cuda':

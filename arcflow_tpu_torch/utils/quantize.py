@@ -90,14 +90,27 @@ def quantize_kernel_int4(kernel: torch.Tensor, group_size: int = 128):
     return pack_int4(q, group_size), scale
 
 
+def _stack_len(module: nn.Module, name: str) -> int:
+    """The length of the ``nn.ModuleList`` that layer ``name`` of
+    ``module`` sits in (a scanned stack of the JAX package), else 1."""
+    parts = name.split('.')
+    for i in range(1, len(parts)):
+        if parts[i].isdigit():
+            parent = module.get_submodule('.'.join(parts[:i]))
+            if isinstance(parent, nn.ModuleList):
+                return len(parent)
+    return 1
+
+
 def _skip(key: str, layer: nn.Module, min_size: int,
-          group_size: Optional[int] = None) -> bool:
+          group_size: Optional[int], stack: int) -> bool:
     """The JAX skip rules: the adapter surface, kernels below ``min_size``
-    and, for int4 (``group_size``), inputs that do not split into groups."""
+    (counting ``stack`` copies) and, for int4 (``group_size``), inputs that
+    do not split into groups."""
     w = layer.weight
     return (any(s in key for s in _SKIP_SUBSTRINGS)
             or any(key.startswith(p) for p in _SKIP_PREFIXES)
-            or w.numel() < min_size
+            or w.numel() * stack < min_size
             or (group_size is not None
                 and (w.shape[1] % group_size != 0 or group_size % 2 != 0)))
 
@@ -119,14 +132,14 @@ def quantize_weights_int8(module: nn.Module, min_size: int = 2 ** 16,
     ``kernel_scale`` buffers, one layer at a time, so a bf16 trunk never
     needs room for a second copy of itself. ``act_quant`` selects w8a8
     (per-token int8 activations, an int8 x int8 -> int32 product) over
-    weight-only int8. ``min_size`` counts one layer's kernel; the JAX
-    package counts a scanned stack of them, which decides differently only
-    for a block kernel smaller than ``min_size`` whose stack is not.
-    Returns the names of the quantized layers.
+    weight-only int8. ``min_size`` counts a stack as the JAX package counts
+    a scanned one: a layer inside an ``nn.ModuleList`` counts its kernel
+    times the list's length. Returns the names of the quantized layers.
     """
     done = []
     for name, layer in list(_float_layers(module)):
-        if _skip(f'{name}.kernel', layer, min_size):
+        if _skip(f'{name}.kernel', layer, min_size, None,
+                 _stack_len(module, name)):
             continue
         with torch.no_grad():
             kernel, scale = quantize_kernel_int8(layer.weight.t())
@@ -148,14 +161,14 @@ def quantize_weights_int4(module: nn.Module, min_size: int = 2 ** 16,
     ``kernel_packed4`` and ``kernel_scale4`` buffers, one layer at a time,
     so a bf16 trunk never needs room for a second copy of itself.
     ``act_quant`` selects w4a8 (per-token int8 activations through the
-    grouped-matmul kernel) over weight-only int4. ``min_size`` counts one
-    layer's kernel; the JAX package counts a scanned stack of them, which
-    decides differently only for a block kernel smaller than ``min_size``
-    whose stack is not. Returns the names of the quantized layers.
+    grouped-matmul kernel) over weight-only int4. ``min_size`` counts a
+    stack as ``quantize_weights_int8`` does. Returns the names of the
+    quantized layers.
     """
     done = []
     for name, layer in list(_float_layers(module)):
-        if _skip(f'{name}.kernel', layer, min_size, group_size):
+        if _skip(f'{name}.kernel', layer, min_size, group_size,
+                 _stack_len(module, name)):
             continue
         with torch.no_grad():
             packed, scale = quantize_kernel_int4(layer.weight.t(), group_size)

@@ -161,6 +161,42 @@ line each, and any failure exits non-zero:
     arcflow_tpu_torch.inference_flux`` on the FLUX folder in a subprocess,
     which must exit 0 and write a PNG.
 
+27. (after phase 17, last with 28-30) Qwen training at reduced depth (1
+    joint block) and full width:
+    ``configs/qwen/arcqwen_2nfe_k16_int8trunk.py`` through
+    ``Config`` and ``MODELS`` (int8 frozen trunk, LoRA 256, the teacher's
+    CFG at batch 2), one ``LatentDiffusionTextImage.loss`` + backward
+    through the masked attention kernels (384 of 512 text tokens valid,
+    the negative prompt's 128), then the same weights and draws through
+    the plain versions, as phase 10; then K3 on the key-padded FLUX shape
+    (4480 of 4608 keys valid) against its plain version, timed beside the
+    plain version and SDPA's masked backward;
+28. Qwen training at full geometry: the Qwen-Image 20B distillation of
+    that config (60 blocks, K=16, LoRA 256 with dropout 0.05,
+    checkpointing, the trunk in int8 and bf16 and shared with the tied
+    teacher, CFG 4.0, nfe 2, 4 intermediate states; 968,551,548 adapter
+    parameters, 844 int8 layers) with random weights from a seed, 3
+    ``train_step``s on one batch: finite losses and grad norms, the adapter
+    moved, the frozen trunk bit-identical, the teacher's trunk in the
+    student's storage, the EMA equal to the adapter, exactly 12 x 60
+    forward and 2 x 60 backward attention launches per step; s per warm
+    step, peak memory, then a ``torch.profiler`` split of one warm step;
+28r. (right after phase 28, on its model and state) 2 iterations through
+    ``IterBasedRunner`` with the config's log hooks, the loss quartiles and
+    ``IterTimerHook(sync=True)``: the same launches per iteration, finite
+    logged losses, s per iteration against the bare step;
+29. both VAE encoders at their published widths (the FLUX AutoencoderKL
+    ``Encoder`` and the Wan ``QwenVAEEncoder``), random bf16 weights from
+    a seed, a 1024x1024 image to (1, 128, 128, 16): finite, the same on
+    repeats, s per encode and peak memory;
+30. ``python -m arcflow_tpu_torch.train`` on the card in
+    a subprocess: the int8-trunk Qwen config cut to 2 joint blocks, an
+    ``ImagePrompt`` in prompt mode over prompts in two ``size_idx``
+    buckets of two resolutions, 1024^2 and 768^2 (the bucketized loader,
+    one iteration of each), the native Qwen2.5-VL-7B decoder at
+    its published width cut to 2 layers with phase 25's toy tokenizer run
+    inside the loss; two iterations, finite, logged on the card.
+
 ``python3 chip_smoke.py --ranks 4`` (four cards) instead spawns 4 NCCL
 ranks and serves FLUX-12B through ``pipe.shard({'sp': 4})`` in ring and in
 Ulysses mode, against one card and against ``LocalRing(4)``.
@@ -194,7 +230,7 @@ import torch.nn.functional as F
 
 from arcflow_tpu_torch import MODELS, Config
 from arcflow_tpu_torch.apis import build_model_from_cfg, ema_config_from_cfg
-from arcflow_tpu_torch.data import CheckerboardData
+from arcflow_tpu_torch.data import BucketizedBatchSampler, CheckerboardData
 from arcflow_tpu_torch.models import (ArcFluxTransformer2DModel,
                                       ArcQwenImageTransformer2DModel,
                                       Diffusion2D, PretrainedVAE,
@@ -254,9 +290,48 @@ RUNNER_ITERS, RUNNER_SIGTERM_AFTER = 3, 2
 CKPT_DISK_MARGIN = 2 ** 30
 # DiT forwards per train step: nfe student forwards with grad, nfe x
 # num_intermediate_states teacher forwards, and the nfe student forwards
-# recomputed block by block in the backward
+# recomputed block by block in the backward. The Qwen teacher's CFG runs
+# the negative and the positive prompt as one batch of 2, one forward, so
+# the counts hold for it too: 12 x 60 K2 and 2 x 60 K3 launches per
+# Qwen-Image 20B step
 TRAIN_FORWARDS = 2 + 2 * 4 + 2
 TRAIN_BACKWARDS = 2
+# Qwen-Image 20B ArcFlow distillation with an int8 frozen trunk (phases
+# 27-30): configs/qwen/arcqwen_2nfe_k16_int8trunk.py through the port's
+# Config and MODELS, every parallel.mesh axis set to 1 (one card) and
+# total_iters its only overrides
+QWEN_TRAIN_CONFIG = 'configs/qwen/arcqwen_2nfe_k16_int8trunk.py'
+# (trainable, frozen) parameters it builds. The fp32 adapter: LoRA rank 256
+# on the four MLP projections of each of the 60 blocks (60 x 4 x 256 x
+# 15,360 = 943.7 M) and on the timestep embedder (2.4 M), the three heads
+# (3.5 M) and norm_out (18.9 M). The frozen trunk: 20,405,747,712 int8
+# kernel elements in 844 layers (14 per block, img_in, txt_in, the two
+# timestep-embedder linears), their fp32 scales, the bf16 rest and the
+# teacher's bf16 head (norm_out, proj_out)
+QWEN_TRAIN_PARAMS = (968_551_548, 20_435_942_976)
+QWEN_INT8_LAYERS = 14 * 60 + 4
+# the negative prompt's valid text tokens (the prompt's: QWEN_TXT_VALID)
+QWEN_NEG_VALID = 128
+# with one joint block the timestep embedder's LoRA is the adapter upstream
+# of an attention (it feeds the block's modulations)
+QWEN_UPSTREAM_OF_ATTENTION = ('timestep_embedder.',)
+# phase 27's bound on the kernels' error over the attention backward's
+# share of those gradients. The share is one path (the block's
+# modulations) through two backward calls (the NFE steps), each of whose
+# dq, dk and dv carry the kernels' bf16 rounding of P and dS (a few 1e-3
+# by relative L2, phase 9); summed into four LoRA tensors whose signal
+# partly cancels across tokens, it read up to 2.7e-2 on a sound run
+# (NVIDIA H100 80GB HBM3, 700 W), above phase 10's 2e-2, which bounds a
+# share that several blocks carry. The planted dq-zeroed fault must still
+# break this bound.
+QWEN_SHARE_REL_L2 = 5e-2
+# phase 28r: iterations of phase 28's state through the runner
+QWEN_RUNNER_ITERS = 2
+# phase 30: the CLI's run, depth cut to this; one bucket of prompts per
+# resolution, each one global batch, so the two iterations are one epoch
+# and train each resolution once
+QWEN_CLI_LAYERS, QWEN_CLI_ITERS = 2, 2
+QWEN_CLI_SIZES = (1024, 768)
 # profiler windows kernel_ms runs before it gives up on missing records
 KERNEL_MS_WINDOWS = 6
 # H100 SXM dense peaks and memory rate (NVIDIA's data sheet), for the bound
@@ -534,16 +609,20 @@ def kernel_ms(fn, name, iters):
     (per call, of every kernel the call runs, with ``name`` None), over
     ``iters`` calls of ``fn`` under ``torch.profiler`` after two warm-up
     calls: the device's own time where a call is too short for CUDA events
-    around it to see past the host's launch cost. The profiler now and then
-    drops kernel records of such short calls (24 of 50 in one window on a
-    busy host): the window runs again, up to ``KERNEL_MS_WINDOWS`` times,
-    and then a named kernel's mean is taken over the window that recorded
-    the most of its launches, if they are at least half."""
+    around it to see past the host's launch cost. The profiler drops kernel
+    records of such short calls in every window once the process has run
+    large traces (the model phases' profiles, up to 168k kernels in phase
+    28; see ``profiler_drop_probe.py``): phase 15 kept 23 of 50 in each
+    window after the FLUX phases. Each kept record is one launch's device time, so
+    a named kernel's mean is taken over the records kept across windows,
+    run until they number ``iters``, up to ``KERNEL_MS_WINDOWS`` windows;
+    the per-call sum (``name`` None) needs a window that kept whole
+    calls."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    best = []
+    kept = []
     for _ in range(KERNEL_MS_WINDOWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -557,11 +636,13 @@ def kernel_ms(fn, name, iters):
             return sum(us) / iters / 1e3
         if name is not None and len(us) == iters:
             return sum(us) / len(us) / 1e3
-        best = max(best, us, key=len)
-    if name is not None and 2 * len(best) >= iters:
-        return sum(best) / len(best) / 1e3
-    raise AssertionError(f'the profiler saw at most {len(best)} kernel '
-                         f'records of {name or "the call"} in {iters} calls')
+        if name is not None:
+            kept += us
+            if len(kept) >= iters:
+                return sum(kept) / len(kept) / 1e3
+    raise AssertionError(f'the profiler kept {len(kept)} kernel records of '
+                         f'{name or "whole calls"} over {KERNEL_MS_WINDOWS} '
+                         f'windows of {iters} calls')
 
 
 def ptxas_usage(kernel):
@@ -1277,21 +1358,29 @@ def flux_train_batch(generator, cfg):
                 prompt_embed_kwargs=flux_inputs(generator))
 
 
-def phase_train_reduced():
-    g = torch.Generator(device='cuda').manual_seed(SEED + 7)
-    cfg = flux_train_config(num_layers=1, num_single_layers=1)
-    model = flux_train_model(g, cfg)
-    batch = flux_train_batch(g, cfg)
+def train_slice_vs_plain(model, batch, upstream_keys, want, seed,
+                         share_bound=BWD_REL_L2):
+    """One ``model.loss`` + backward through the attention kernels, then
+    the same weights and draws (a generator seeded with ``seed``) through
+    the plain versions: loss and adapter gradients by relative L2 within
+    TRAIN_SLICE_REL_L2. Then the backward alone, under the kernels'
+    forward: for each adapter tensor upstream of an attention
+    (``upstream_keys``), the kernels' error over the share of its gradient
+    the attention backward carries (plain minus zeroed) within
+    ``share_bound``, and a planted fault (the plain backward with dq
+    zeroed) must break that bound. ``want`` is the (forward, backward)
+    launch count of one loss. Returns the readings."""
     adapter = model.init_params()[0]['diffusion']
 
     def run():
         for p in adapter.values():
             p.grad = None
-        draws = torch.Generator(device='cuda').manual_seed(SEED + 8)
+        draws = torch.Generator(device='cuda').manual_seed(seed)
         loss, _ = model.loss(batch, draws, running_status=dict(iteration=0))
         loss.backward()
         torch.cuda.synchronize()
-        return loss.item(), {n: p.grad.float().clone()
+        return loss.item(), {n: (p.grad if p.grad is not None
+                                 else torch.zeros_like(p)).float().clone()
                              for n, p in adapter.items()}
 
     def plain_fwd(q, k, v, kv_valid=None, return_lse=False):
@@ -1313,7 +1402,6 @@ def phase_train_reduced():
     before = (attn.LAUNCHES, attn.BWD_LAUNCHES)
     loss_k, grads_k = run()
     counts = (attn.LAUNCHES - before[0], attn.BWD_LAUNCHES - before[1])
-    want = (TRAIN_FORWARDS * 2, TRAIN_BACKWARDS * 2)
     if counts != want:
         raise AssertionError(f'launches (forward, backward) {counts}, '
                              f'want {want}')
@@ -1328,9 +1416,10 @@ def phase_train_reduced():
     flat_k = torch.cat([t.flatten() for t in grads_k.values()])
     flat_p = torch.cat([t.flatten() for t in grads_p.values()])
     rel_grad = rel_l2(flat_k, flat_p)
-    per = {n: rel_l2(grads_k[n], grads_p[n]) for n in grads_k}
+    per = {n: rel_l2(grads_k[n], grads_p[n]) for n in grads_k
+           if grads_p[n].any()}
     worst = max(per, key=per.get)
-    upstream = [n for n in per if n.startswith(UPSTREAM_OF_ATTENTION)]
+    upstream = [n for n in per if n.startswith(upstream_keys)]
     if not upstream:
         raise AssertionError('no adapter tensor upstream of an attention')
     share = {n: (grads_pb[n] - grads_0[n]).norm().item() for n in upstream}
@@ -1344,24 +1433,36 @@ def phase_train_reduced():
     if max(rel_loss, rel_grad) > TRAIN_SLICE_REL_L2 or flat_p.norm() == 0:
         raise AssertionError(f'loss rel {rel_loss:.3e}, adapter gradients '
                              f'rel L2 {rel_grad:.3e} > {TRAIN_SLICE_REL_L2}')
-    if not min(share.values()) > 0 or err[worst_up] > BWD_REL_L2:
+    if not min(share.values()) > 0 or err[worst_up] > share_bound:
         raise AssertionError(f'backward error over its share {err} > '
-                             f'{BWD_REL_L2}, shares {share}')
-    if max(fault.values()) <= BWD_REL_L2:
+                             f'{share_bound}, shares {share}, planted fault '
+                             f'{fault}')
+    if max(fault.values()) <= share_bound:
         raise AssertionError(f'dq zeroed kept every tensor upstream of an '
-                             f'attention within {BWD_REL_L2}: {fault}')
+                             f'attention within {share_bound}: {fault}')
+    return (f'loss {loss_k:.6e} vs plain {loss_p:.6e}, rel {rel_loss:.3e} '
+            f'| adapter gradients ({len(per)} nonzero tensors) rel L2 '
+            f'{rel_grad:.3e} (bound {TRAIN_SLICE_REL_L2}), worst tensor '
+            f'{worst} {per[worst]:.3e} | backward alone, {len(upstream)} '
+            f'tensors upstream of an attention, error over the attention '
+            f'backward\'s share: worst {worst_up} {err[worst_up]:.3e} (bound '
+            f'{share_bound}), that share '
+            f'{share[worst_up] / grads_pb[worst_up].norm().item():.3e} of its '
+            f'gradient | planted fault, dq zeroed: {fault[least_fault]:.3e} '
+            f'({least_fault}) to {max(fault.values()):.3e} | launches forward '
+            f'{counts[0]}, backward {counts[1]}')
+
+
+def phase_train_reduced():
+    g = torch.Generator(device='cuda').manual_seed(SEED + 7)
+    cfg = flux_train_config(num_layers=1, num_single_layers=1)
+    model = flux_train_model(g, cfg)
+    batch = flux_train_batch(g, cfg)
+    readings = train_slice_vs_plain(
+        model, batch, UPSTREAM_OF_ATTENTION,
+        (TRAIN_FORWARDS * 2, TRAIN_BACKWARDS * 2), SEED + 8)
     log(f'phase 10 FLUX training reduced slice (1+1 blocks, full width, '
-        f'bf16 trunk, LoRA 256): ok | loss {loss_k:.6e} vs plain '
-        f'{loss_p:.6e}, rel {rel_loss:.3e} | adapter gradients '
-        f'({len(per)} tensors) rel L2 {rel_grad:.3e} (bound '
-        f'{TRAIN_SLICE_REL_L2}), worst tensor {worst} {per[worst]:.3e} | '
-        f'backward alone, {len(upstream)} tensors upstream of an attention, '
-        f'error over the attention backward\'s share: worst {worst_up} '
-        f'{err[worst_up]:.3e} (bound {BWD_REL_L2}), that share '
-        f'{share[worst_up] / grads_pb[worst_up].norm().item():.3e} of its '
-        f'gradient | planted fault, dq zeroed: {fault[least_fault]:.3e} '
-        f'({least_fault}) to {max(fault.values()):.3e} | launches forward '
-        f'{counts[0]}, backward {counts[1]}')
+        f'bf16 trunk, LoRA 256): ok | {readings}')
 
 
 def phase_train_full():
@@ -3217,6 +3318,30 @@ def adapter_of(model, generator):
     return out
 
 
+def write_qwen_text_folder(root, generator, tok, layers):
+    """The Qwen2.5-VL-7B decoder at its published width, cut to ``layers``
+    layers, random bf16 weights, as a diffusers pipeline's
+    ``text_encoder/`` (a Qwen2.5-VL config and safetensors) with ``tok`` in
+    ``tokenizer/``. Returns the tower."""
+    text = qwen_text_tower(generator, num_layers=layers)
+    write_json(os.path.join(root, 'text_encoder', 'config.json'),
+               dict(architectures=['Qwen2_5_VLForConditionalGeneration'],
+                    text_config=dict(
+                        vocab_size=QWEN25_7B['vocab_size'],
+                        hidden_size=QWEN25_7B['hidden_size'],
+                        num_hidden_layers=layers,
+                        num_attention_heads=QWEN25_7B['num_heads'],
+                        num_key_value_heads=QWEN25_7B['num_kv_heads'],
+                        intermediate_size=QWEN25_7B['intermediate_size'],
+                        rope_theta=QWEN25_7B['rope_theta'],
+                        rms_norm_eps=QWEN25_7B['rms_norm_eps'])))
+    save_safetensors({'model.language_model.' + k: v
+                      for k, v in text.state_dict().items()},
+                     os.path.join(root, 'text_encoder', 'model.safetensors'))
+    tok.save_pretrained(os.path.join(root, 'tokenizer'))
+    return text
+
+
 def write_pipeline_folder(root, family, generator):
     """A diffusers pipeline folder at the family's widths, depth cut
     (PRETRAINED_*), random weights, and the modules it was written from
@@ -3276,24 +3401,8 @@ def write_pipeline_folder(root, family, generator):
         towers = dict(clip=clip, t5=t5)
         sched = dict(shift=3.0, use_dynamic_shifting=True)
     else:
-        text = qwen_text_tower(generator,
-                               num_layers=PRETRAINED_QWEN_TEXT_LAYERS)
-        write_json(os.path.join(root, 'text_encoder', 'config.json'),
-                   dict(architectures=['Qwen2_5_VLForConditionalGeneration'],
-                        text_config=dict(
-                            vocab_size=QWEN25_7B['vocab_size'],
-                            hidden_size=QWEN25_7B['hidden_size'],
-                            num_hidden_layers=PRETRAINED_QWEN_TEXT_LAYERS,
-                            num_attention_heads=QWEN25_7B['num_heads'],
-                            num_key_value_heads=QWEN25_7B['num_kv_heads'],
-                            intermediate_size=QWEN25_7B['intermediate_size'],
-                            rope_theta=QWEN25_7B['rope_theta'],
-                            rms_norm_eps=QWEN25_7B['rms_norm_eps'])))
-        save_safetensors({'model.language_model.' + k: v
-                          for k, v in text.state_dict().items()},
-                         os.path.join(root, 'text_encoder',
-                                      'model.safetensors'))
-        tok.save_pretrained(os.path.join(root, 'tokenizer'))
+        text = write_qwen_text_folder(root, generator, tok,
+                                      PRETRAINED_QWEN_TEXT_LAYERS)
         index.update(text_encoder=['transformers',
                                    'Qwen2_5_VLForConditionalGeneration'],
                      tokenizer=['transformers', 'Qwen2Tokenizer'])
@@ -3427,6 +3536,441 @@ def run_cli(model_dir, adapter, work):
     return dict(s=wall, png_bytes=os.path.getsize(out))
 
 
+# ---- phases 27-30: Qwen-Image distillation training ------------------------
+
+def qwen_train_config(**net):
+    """The Qwen int8-trunk config through the port's ``Config``: every
+    ``parallel.mesh`` axis set to 1 (one card) and ``total_iters``, ``net``
+    cutting the depth of the student and of the teacher alike."""
+    cfg = Config.fromfile(QWEN_TRAIN_CONFIG)
+    opts = {'parallel.mesh': {k: 1 for k in cfg.parallel.mesh},
+            'total_iters': RUNNER_ITERS}
+    for k, v in net.items():
+        opts[f'model.diffusion.denoising.{k}'] = v
+        opts[f'model.teacher.denoising.{k}'] = v
+    cfg.merge_from_dict(opts)
+    return cfg
+
+
+def qwen_train_model(generator, cfg):
+    """The Qwen distillation composition of ``cfg`` built through
+    ``MODELS`` on the card, with random weights: normal(0.02) on every
+    weight matrix of the student (trunk and adapter), drawn before the
+    composition quantizes its trunk, and of the teacher's head."""
+    from arcflow_tpu_torch.models import LatentDiffusionTextImage
+    quantize = LatentDiffusionTextImage._quantize
+
+    def randomized(self, module):
+        randomize_(module, generator)
+        return quantize(self, module)
+    with mock.patch.object(LatentDiffusionTextImage, '_quantize', randomized):
+        model = MODELS.build(cfg.model, default_args=dict(
+            train_cfg=cfg.train_cfg, test_cfg=cfg.test_cfg, device='cuda',
+            dtype=torch.bfloat16))
+    teacher = model.teacher.denoising
+    randomize_(torch.nn.ModuleList([teacher.norm_out, teacher.proj_out]),
+               generator)
+    return model
+
+
+def qwen_embeds(generator, valid):
+    """Random Qwen2.5-VL prompt embeds (1, 512, 3584) and the int64 text
+    mask the loader gives, its first ``valid`` tokens valid."""
+    mask = torch.arange(QWEN_TXT, device='cuda')[None] < valid
+    return dict(
+        encoder_hidden_states=torch.randn(1, QWEN_TXT, 3584,
+                                          generator=generator, device='cuda',
+                                          dtype=torch.bfloat16),
+        encoder_hidden_states_mask=mask.long())
+
+
+def qwen_train_batch(generator, cfg):
+    """One batch of 1: random latents (only their shape and device are
+    used: the data-free loss starts from noise), the prompt's embeds (384
+    of 512 tokens valid) and the negative prompt's (128 valid), which the
+    teacher's CFG takes."""
+    return dict(latents=torch.randn(1, *cfg.model.latent_shape,
+                                    generator=generator, device='cuda'),
+                prompt_embed_kwargs=qwen_embeds(generator, QWEN_TXT_VALID),
+                negative_prompt_embed_kwargs=qwen_embeds(generator,
+                                                         QWEN_NEG_VALID))
+
+
+def tied_trunk_mismatches(model):
+    """Names of the tied teacher's trunk tensors (its head aside) that do
+    not lie in the student's storage."""
+    student = model.diffusion.denoising.state_dict(keep_vars=True)
+    teacher = model.teacher.denoising.state_dict(keep_vars=True)
+    return [n for n, t in teacher.items()
+            if not n.startswith(('proj_out.', 'norm_out.'))
+            and (n not in student or t.data_ptr() != student[n].data_ptr())]
+
+
+def masked_bwd_timing(g):
+    """K3 on the Qwen path's key-padded attention at the FLUX shape, its
+    key mask laid out as the joint blocks lay it out: 512 text keys of
+    which the first 384 are valid, then 4096 image keys (4480 of 4608
+    valid). Against its plain version, then the kernels, the plain version
+    and SDPA's masked backward timed."""
+    q, k, v, do = (torch.randn(FLUX_SHAPE, generator=g, device='cuda',
+                               dtype=torch.bfloat16) for _ in range(4))
+    keys = torch.arange(FLUX_SHAPE[1], device='cuda')
+    kv_valid = ((keys < QWEN_TXT_VALID) | (keys >= QWEN_TXT))[None].expand(
+        FLUX_SHAPE[0], -1).contiguous()
+    if int(kv_valid[0].sum()) != QWEN_VALID_KEYS:
+        raise AssertionError(f'{int(kv_valid[0].sum())} valid keys')
+    o, lse = attn.flash_attention_fwd(q, k, v, kv_valid, return_lse=True)
+    got = attn.flash_attention_bwd(q, k, v, o, do, lse, kv_valid)
+    want = attn.attention_bwd_ref(q, k, v, o, do, lse, kv_valid)
+    rels = [rel_l2(x, y) for x, y in zip(got, want)]
+    if max(rels) > BWD_REL_L2 or got[1][:, ~kv_valid[0]].any():
+        raise AssertionError(f'masked K3: rel L2 dq/dk/dv {rels} > '
+                             f'{BWD_REL_L2}, or a masked key got a gradient')
+    err = max((x.float() - y.float()).abs().max().item()
+              for x, y in zip(got, want))
+    del got, want
+    ms = cuda_ms(lambda: attn.flash_attention_bwd(q, k, v, o, do, lse,
+                                                  kv_valid), 10)
+    plain_ms = cuda_ms(lambda: attn.attention_bwd_ref(q, k, v, o, do, lse,
+                                                      kv_valid), 3)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = sdpa(*leaves, kv_valid)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), 10)
+    bound_ms, bound_by = attention_bound(FLUX_SHAPE, QWEN_VALID_KEYS,
+                                         backward=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                rel_l2=rels, valid_keys=QWEN_VALID_KEYS,
+                shape=list(FLUX_SHAPE))
+
+
+def phase_qwen_train_reduced():
+    g = torch.Generator(device='cuda').manual_seed(SEED + 27)
+    masked = masked_bwd_timing(g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = qwen_train_config(num_layers=1)
+    model = qwen_train_model(g, cfg)
+    batch = qwen_train_batch(g, cfg)
+    readings = train_slice_vs_plain(
+        model, batch, QWEN_UPSTREAM_OF_ATTENTION,
+        (TRAIN_FORWARDS, TRAIN_BACKWARDS), SEED + 28, QWEN_SHARE_REL_L2)
+    del model, batch
+    log(f'phase 27 Qwen training reduced slice (1 joint block, full width, '
+        f'int8 trunk, LoRA 256, CFG teacher at batch 2, {QWEN_TXT_VALID} of '
+        f'{QWEN_TXT} text tokens valid): ok | {readings} | K3 key-padded at '
+        f'{tuple(FLUX_SHAPE)} with {QWEN_VALID_KEYS} keys valid (the text '
+        f'keys {QWEN_TXT_VALID}-{QWEN_TXT - 1} masked): rel L2 dq/dk/dv '
+        + '/'.join(f'{r:.2e}' for r in masked['rel_l2'])
+        + f' vs plain, kernels {masked["ms"]:.4f} ms, '
+        f'plain fp32 {masked["plain_ms"]:.4f} ms, SDPA masked backward '
+        f'{masked["library_ms"]:.4f} ms, bound {masked["bound_ms"]:.4f} ms '
+        f'({masked["bound_by"]}, {100 * masked["bound_ms"] / masked["ms"]:.1f}'
+        f'% of it)')
+    return masked
+
+
+def phase_qwen_train_full():
+    g = torch.Generator(device='cuda').manual_seed(SEED + 29)
+    t0 = time.perf_counter()
+    cfg = qwen_train_config()
+    model = qwen_train_model(g, cfg)
+    trainable, frozen = model.init_params()
+    n_params = (count_params(trainable), count_params(frozen))
+    n_int8 = sum(isinstance(m, LoRADense) and m.is_int8 and not m.act_quant
+                 for m in model.diffusion.denoising.modules())
+    if n_params != QWEN_TRAIN_PARAMS or n_int8 != QWEN_INT8_LAYERS:
+        raise AssertionError(f'{QWEN_TRAIN_CONFIG} built (trainable, frozen) '
+                             f'{n_params} parameters and {n_int8} int8 '
+                             f'layers, want {QWEN_TRAIN_PARAMS}, '
+                             f'{QWEN_INT8_LAYERS}')
+    if tied_trunk_mismatches(model):
+        raise AssertionError(f'teacher tensors outside the student\'s '
+                             f'storage: {tied_trunk_mismatches(model)[:5]}')
+    optimizers = build_optimizers(dict(cfg.optimizer), trainable)
+    state = TrainState.create(
+        torch.Generator(device='cuda').manual_seed(SEED + 30), trainable,
+        frozen, optimizers, ema_keys=model.ema_keys)
+    step = build_train_step(model, optimizers, model.train_cfg,
+                            ema_config_from_cfg(cfg))
+    batch = qwen_train_batch(g, cfg)
+    adapter = trainable['diffusion']
+    start = {n: p.detach().clone() for n, p in adapter.items()}
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    resident_build = torch.cuda.memory_allocated() / 2 ** 30
+    frozen_host = {n: t.detach().cpu() for n, t in flatten(frozen).items()}
+    n_blocks = cfg.model.diffusion.denoising.num_layers
+    want = (TRAIN_FORWARDS * n_blocks, TRAIN_BACKWARDS * n_blocks)
+
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(3):
+        attn.LAUNCHES = attn.BWD_LAUNCHES = 0   # the main path's counted run
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, logs = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        launches = (attn.LAUNCHES, attn.BWD_LAUNCHES)
+        if launches != want:
+            raise AssertionError(f'step {state.step}: launches (forward, '
+                                 f'backward) {launches}, want {want}')
+        loss, gnorm = float(logs['loss']), logs['diffusion_grad_norm']
+        if not (torch.isfinite(torch.tensor([loss, gnorm])).all()
+                and logs['diffusion_skipped'] == 0.0):
+            raise AssertionError(f'step {state.step}: loss {loss}, grad '
+                                 f'norm {gnorm}, skipped '
+                                 f'{logs["diffusion_skipped"]}')
+        if not all(torch.equal(state.ema['diffusion'][n], p)
+                   for n, p in adapter.items()):
+            raise AssertionError(f'step {state.step}: the EMA is not the '
+                                 f'adapter before start_iter')
+        steps.append(dict(s=dt, loss=loss, grad_norm=gnorm,
+                          step0=float(logs['loss_diffusion_step0']),
+                          step1=float(logs['loss_diffusion_step1'])))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    resident_gib = torch.cuda.memory_allocated() / 2 ** 30
+    moved = sum(not torch.equal(p, start[n]) for n, p in adapter.items())
+    if moved == 0:
+        raise AssertionError('the adapter did not move')
+    changed = [n for n, t in flatten(frozen).items()
+               if not torch.equal(t.cpu(), frozen_host[n])]
+    if changed or tied_trunk_mismatches(model):
+        raise AssertionError(f'frozen tensors changed: {changed[:5]}, or the '
+                             f'teacher left the student\'s storage')
+    del frozen_host, start
+    wall, busy, by_name = profile_split(lambda: step(state, batch))
+    families = split_families(by_name)
+    total = sum(ms for ms, _, _ in families.values())
+    warm = sum(st['s'] for st in steps[1:]) / len(steps[1:])
+    int8_gb = sum(t.numel() for t in frozen['base'].values()
+                  if t.dtype == torch.int8) / 1e9
+    log(f'phase 28 Qwen training full slice (Qwen-Image 20B ArcFlow '
+        f'distillation of {QWEN_TRAIN_CONFIG} through Config and MODELS, '
+        f'{count_params(frozen) / 1e9:.2f}B frozen ({n_int8} int8 layers, '
+        f'{int8_gb:.2f} GB of int8 kernels) + {count_params(trainable)} fp32 '
+        f'adapter parameters, teacher tied to the student\'s int8 trunk, CFG '
+        f'4.0 at batch 2, batch 1, 1024x1024, {QWEN_TXT_VALID} of '
+        f'{QWEN_TXT} text tokens valid, nfe 2, 4 intermediate states, LoRA '
+        f'dropout 0.05, checkpointing): ok | '
+        + ' ; '.join(f'step {i + 1}: {st["s"]:.3f} s, loss {st["loss"]:.5e} '
+                     f'(NFE steps {st["step0"]:.4e} + {st["step1"]:.4e}), '
+                     f'grad norm {st["grad_norm"]:.4e}'
+                     for i, st in enumerate(steps))
+        + f' | warm {warm:.4f} s per step | launches per step forward '
+        f'{launches[0]}, backward {launches[1]} | {moved} of '
+        f'{len(adapter)} adapter tensors moved, frozen trunk bit-identical, '
+        f'the teacher\'s trunk the student\'s storage, EMA = adapter | build '
+        f'{t_build:.1f} s, resident after build {resident_build:.2f} GiB | '
+        f'peak memory {peak_gib:.2f} GiB, resident {resident_gib:.2f} GiB')
+    log(f'phase 28 profile (one warm step): wall {wall:.4f} s, device busy '
+        f'{busy:.4f} s, idle share {1 - busy / wall:.4f}, {len(by_name)} '
+        f'kernel names | by family: ' + ' ; '.join(
+            f'{f} {ms:.2f} ms {100 * ms / total:.1f}% x{calls} (largest: '
+            f'{top_name[:60]})'
+            for f, (ms, calls, top_name) in sorted(families.items(),
+                                                   key=lambda kv: -kv[1][0])))
+    return dict(forward=launches[0], backward=launches[1], warm_s=warm,
+                peak_gib=peak_gib), dict(
+        cfg=cfg, model=model, state=state, step=step, batch=batch, warm=warm,
+        n_blocks=n_blocks)
+
+
+def phase_qwen_train_runner(run):
+    """Phase 28's model and state for QWEN_RUNNER_ITERS iterations through
+    ``IterBasedRunner`` with the config's log hooks (interval 1), the loss
+    quartiles and ``IterTimerHook(sync=True)``; no checkpoint."""
+    cfg, state = run['cfg'], run['state']
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix='qwen-runner-', dir=_build.BUILD_DIR)
+    try:
+        start = state.step
+        counter, timings = LaunchesPerIter(), Timings()
+        hooks = build_hooks(dict(cfg.log_config, interval=1), extra_hooks=[
+            counter, timings, QuartileLossLoggerHook(
+                total_timesteps=cfg.model.diffusion.num_timesteps),
+            IterTimerHook(interval=1, sync=True)])
+        runner = IterBasedRunner(
+            run['model'], state, run['step'], itertools.repeat(run['batch']),
+            start + QWEN_RUNNER_ITERS, work_dir=work, hooks=hooks,
+            device='cuda')
+        attn.LAUNCHES = attn.BWD_LAUNCHES = 0   # the main path's counted run
+        runner.run()
+        want = (TRAIN_FORWARDS * run['n_blocks'],
+                TRAIN_BACKWARDS * run['n_blocks'])
+        if runner.iter - start != QWEN_RUNNER_ITERS or \
+                counter.per_iter != [want] * QWEN_RUNNER_ITERS:
+            raise AssertionError(f'{runner.iter - start} iterations, '
+                                 f'launches per iteration {counter.per_iter}, '
+                                 f'want {want}')
+        with open(os.path.join(work, 'metrics.jsonl')) as f:
+            rows = [json.loads(line) for line in f]
+        if len(rows) != QWEN_RUNNER_ITERS or not all(
+                math.isfinite(r['loss']) for r in rows):
+            raise AssertionError(f'the runner logged {rows}')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    per_iter = [r['time_iter'] for r in timings.rows]
+    host_ms = [1e3 * (r['time_iter'] - r['time_step']) for r in timings.rows]
+    log(f'phase 28r Qwen-Image 20B through IterBasedRunner (phase 28 model '
+        f'and state, {len(hooks)} hooks: '
+        f'{", ".join(type(h).__name__ for h in hooks)}): ok | launches per '
+        f'iteration {counter.per_iter} | s per iteration through the runner '
+        + ', '.join(f'{x:.4f}' for x in per_iter)
+        + f' (phase 28 bare warm step {run["warm"]:.4f} s) | runner host '
+        f'time per iteration (iteration minus synced step) '
+        + ', '.join(f'{x:.3f}' for x in host_ms) + ' ms | losses '
+        + ', '.join(f'{r["loss"]:.5e}' for r in rows))
+    return dict(forward=counter.per_iter[-1][0],
+                backward=counter.per_iter[-1][1])
+
+
+def phase_vae_encoders():
+    """Both encoders at their published widths, random bf16 weights (the
+    flax-default init from a seeded generator), a 1024^2 image."""
+    from arcflow_tpu_torch.models import PretrainedVAEEncoder
+    g = torch.Generator(device='cuda').manual_seed(SEED + 31)
+    img = torch.rand(1, 1024, 1024, 3, generator=g, device='cuda') * 2 - 1
+    parts = []
+    for name, build in (
+            ('FLUX AutoencoderKL Encoder',
+             lambda: PretrainedVAEEncoder(dtype=torch.bfloat16)),
+            ('Wan QwenVAEEncoder', lambda: PretrainedVAEQwenImage(
+                dtype=torch.bfloat16, with_encoder=True))):
+        with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+            torch.manual_seed(SEED + 32)
+            with torch.device('cuda'):
+                vae = build()
+        n = sum(p.numel() for n_, p in vae.named_parameters()
+                if n_.startswith(('encoder.', 'quant_conv.')))
+        with torch.inference_mode():
+            torch.cuda.reset_peak_memory_stats()
+            z, t_cold = synced(lambda: vae.encode(img))
+            runs = [synced(lambda: vae.encode(img)) for _ in range(3)]
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if tuple(z.shape) != (1, 128, 128, 16) or not torch.isfinite(z).all():
+            raise AssertionError(f'{name}: latents {tuple(z.shape)}, finite '
+                                 f'{torch.isfinite(z).all().item()}')
+        if not all(torch.equal(z, r) for r, _ in runs):
+            raise AssertionError(f'{name}: a repeat differs')
+        warm = min(t for _, t in runs)
+        parts.append(f'{name} ({n / 1e6:.1f}M params): latents '
+                     f'{tuple(z.shape)} finite, std {z.float().std():.4f}, '
+                     f'the same on 3 repeats | cold {t_cold:.4f} s, warm '
+                     f'{warm:.4f} s per encode | peak memory {peak:.2f} GiB')
+        del vae, z, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f'phase 29 VAE encoders (1024x1024 -> 128x128x16, bf16): ok | '
+        + ' ; '.join(parts))
+
+
+QWEN_CLI_CONFIG = """\
+_base_ = [{base!r}]
+name = 'qwen_train_cli'
+parallel = dict(mesh=dict({mesh}))
+model = dict(
+    diffusion=dict(denoising=dict(num_layers={layers})),
+    teacher=dict(denoising=dict(num_layers={layers})),
+    text_encoder=dict(type='PretrainedQwenImageTextEncoder',
+                      pretrained={text!r}, tokenizer_path={tok!r},
+                      pad_seq_len={pad}, dtype='bfloat16'))
+data = dict(train=dict(_delete_=True, type='ImagePrompt',
+                       prompts_path={prompts!r}, latent_size=(128, 128, 16),
+                       negative_prompt=''))
+checkpoint_config = dict(out_dir={ckpt!r})
+log_config = dict(interval=1)
+total_iters = {iters}
+"""
+
+
+def phase_qwen_train_cli():
+    """``python -m arcflow_tpu_torch.train`` on the card in a subprocess:
+    the int8-trunk Qwen config at full width cut to QWEN_CLI_LAYERS joint
+    blocks, its data an ImagePrompt in prompt mode over a jsonl of prompts
+    in two size_idx buckets of QWEN_CLI_SIZES (so the bucketized loader is
+    taken, and each iteration trains one resolution: the port's sampler for
+    the CLI's seed 0 gives their order), and the native Qwen2.5-VL-7B
+    decoder at its published width cut to 2 layers with phase 25's toy
+    tokenizer, run inside the loss for the prompt and the (empty) negative
+    prompt."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix='qwen-cli-', dir=_build.BUILD_DIR)
+    try:
+        g = torch.Generator(device='cuda').manual_seed(SEED + 33)
+        text = write_qwen_text_folder(work, g, toy_tokenizer(),
+                                      PRETRAINED_QWEN_TEXT_LAYERS)
+        del text
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = Config.fromfile(QWEN_TRAIN_CONFIG)
+        batch = base.data.train_dataloader.samples_per_gpu
+        bucket_ids = [i % len(QWEN_CLI_SIZES)
+                      for i in range(batch * len(QWEN_CLI_SIZES))]
+        prompts = os.path.join(work, 'prompts.jsonl')
+        with open(prompts, 'w') as f:
+            for i, b in enumerate(bucket_ids):
+                f.write(json.dumps({'prompt': f'{PROMPT}, take {i}',
+                                    'size_idx': b,
+                                    'height': QWEN_CLI_SIZES[b],
+                                    'width': QWEN_CLI_SIZES[b]}) + '\n')
+        order = [QWEN_CLI_SIZES[bucket_ids[int(g[0])]] for g in
+                 BucketizedBatchSampler(bucket_ids, batch).epoch_batches(0)]
+        if sorted(order) != sorted(QWEN_CLI_SIZES):
+            raise AssertionError(f'the epoch draws sizes {order}')
+        cfg_path = os.path.join(work, 'qwen_train_cli.py')
+        with open(cfg_path, 'w') as f:
+            f.write(QWEN_CLI_CONFIG.format(
+                base=os.path.abspath(QWEN_TRAIN_CONFIG),
+                mesh=', '.join(f'{k}=1' for k in base.parallel.mesh),
+                layers=QWEN_CLI_LAYERS, text=os.path.join(work,
+                                                          'text_encoder'),
+                tok=os.path.join(work, 'tokenizer'), pad=QWEN_TXT,
+                prompts=prompts, ckpt=os.path.join(work, 'checkpoints'),
+                iters=QWEN_CLI_ITERS))
+        t = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, '-m', 'arcflow_tpu_torch.train', cfg_path,
+             '--work-dir', os.path.join(work, 'run'), '--no-resume'],
+            capture_output=True, text=True, timeout=CLI_TIMEOUT)
+        wall = time.perf_counter() - t
+        out = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise AssertionError(f'the Qwen CLI exited {res.returncode}:\n'
+                                 f'{out[-3000:]}')
+        if not re.search(r'INFO device: cuda', out):
+            raise AssertionError(f'the Qwen CLI did not train on the card:\n'
+                                 f'{out[-3000:]}')
+        with open(os.path.join(work, 'run', 'metrics.jsonl')) as f:
+            rows = [json.loads(line) for line in f]
+        if [r['iter'] for r in rows] != list(range(1, QWEN_CLI_ITERS + 1)) \
+                or not all(math.isfinite(r['loss'])
+                           and math.isfinite(r['diffusion_grad_norm'])
+                           for r in rows):
+            raise AssertionError(f'the Qwen CLI logged {rows}')
+        params = re.search(r'trainable params: ([0-9,]+); frozen params: '
+                           r'([0-9,]+)', out)
+        cfg = Config.fromfile(cfg_path)
+        log(f'phase 30 Qwen training through python -m '
+            f'arcflow_tpu_torch.train on the card ({QWEN_TRAIN_CONFIG} cut '
+            f'to {QWEN_CLI_LAYERS} joint blocks, ImagePrompt in prompt mode, '
+            f'2 size_idx buckets -> the bucketized loader, iterations at '
+            f'{" then ".join(f"{hw}^2" for hw in order)}, samples_per_gpu '
+            f'{cfg.data.train_dataloader.samples_per_gpu} in chunks of '
+            f'{cfg.train_cfg.grad_accum_batch_size}, the native Qwen2.5-VL-7B '
+            f'decoder cut to {PRETRAINED_QWEN_TEXT_LAYERS} layers inside the '
+            f'loss): ok | params (trainable, frozen) '
+            f'{params.groups() if params else "not logged"} | '
+            + ' ; '.join(f'iter {r["iter"]}: loss {r["loss"]:.5e}, grad norm '
+                         f'{r["diffusion_grad_norm"]:.4e}, skipped '
+                         f'{r.get("diffusion_skipped")}' for r in rows)
+            + f' | child {wall:.1f} s')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     if sys.argv[1:2] == ['--ranks']:
         return main_ranks(int(sys.argv[2]))
@@ -3484,15 +4028,38 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_local_ring_slices()
+    # the Qwen training phases last. Phase 28's profile of one 20B step
+    # (about 168k kernel records) leaves every later torch.profiler window
+    # of this process dropping kernel records (profiler_drop_probe.py: a
+    # few of 50 after one trace of 170k-250k tiny kernels; phase 15 kept 8
+    # of 50 in each of its windows when it ran after phase 28), so no phase
+    # that reads profile_split (which sums every record of one call) may
+    # come after it; kernel_ms pools the records kept over its windows
+    gc.collect()
+    torch.cuda.empty_cache()
+    masked_bwd = phase_qwen_train_reduced()
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen_train, qwen_run = phase_qwen_train_full()
+    qwen_runner = phase_qwen_train_runner(qwen_run)
+    del qwen_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_vae_encoders()
+    phase_qwen_train_cli()
     fwd = attn_timed['unmasked']
     ff_in = w4a8_timed[0]
     fwd_by_path = {'flux': flux_launches, 'qwen': qwen_launches['attention'],
                    'flux_prompt': flux_prompt['launches']['attention'],
                    'qwen_prompt': qwen_prompt['launches']['attention'],
                    'flux_train': train_launches['forward'],
-                   'flux_train_runner': runner_launches['forward']}
+                   'flux_train_runner': runner_launches['forward'],
+                   'qwen_train': qwen_train['forward'],
+                   'qwen_train_runner': qwen_runner['forward']}
     bwd_by_path = {'flux_train': train_launches['backward'],
-                   'flux_train_runner': runner_launches['backward']}
+                   'flux_train_runner': runner_launches['backward'],
+                   'qwen_train': qwen_train['backward'],
+                   'qwen_train_runner': qwen_runner['backward']}
     print(json.dumps({'kernels': [
         {'name': 'attention_fwd', 'route': 'cuda',
          'source': 'arcflow_tpu_torch/csrc/attention_fwd.cu',
@@ -3524,7 +4091,8 @@ def main():
          'max_abs_err': bwd['max_abs_err'], 'max_rel_l2': bwd['max_rel_l2'],
          'ms': bwd['ms'], 'plain_ms': bwd['plain_ms'],
          'bound_ms': bwd['bound_ms'], 'bound_by': bwd['bound_by'],
-         'library_ms': bwd['library_ms'], 'shape': list(FLUX_SHAPE)},
+         'library_ms': bwd['library_ms'], 'shape': list(FLUX_SHAPE),
+         'masked': masked_bwd},
         {'name': 'gm_inverse_cdf', 'route': 'cuda',
          'source': 'arcflow_tpu_torch/csrc/gm_inverse_cdf.cu',
          'replaces': 'arcflow_tpu/ops/gm/inverse_cdf.py:70',

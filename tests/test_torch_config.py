@@ -151,12 +151,6 @@ def test_refusals_stay_explicit(cfg, match):
         MODULES.build(cfg)
 
 
-def test_latent_diffusion_refuses_an_untied_teacher():
-    with pytest.raises(ValueError, match='ties the teacher'):
-        MODELS.build(dict(type='LatentDiffusionTextImage', diffusion=None,
-                          tie_teacher=False))
-
-
 def test_flux_config_builds_through_the_registry():
     """configs/flux/arcflux_2nfe_k16.py through the port's MODELS, cut to
     2 + 2 blocks of 2 x 16 on the CPU: the student is an ArcFlow data-free

@@ -372,13 +372,14 @@ def test_policy_dropout_and_detach():
 
 
 def test_loss_checks_the_batch_against_the_config():
-    """Latents and prompt embeds that do not fit ``latent_shape``,
-    ``text_embed_dim`` or ``pooled_dim`` are refused before any forward."""
+    """Latents and prompt embeds that do not fit ``latent_shape``'s
+    channels, ``text_embed_dim`` or ``pooled_dim`` are refused before any
+    forward (latents of another height and width train, as in JAX)."""
     model = port_model(model_cfg())
     batch = _port_batch(make_batch())
     embeds = batch['prompt_embed_kwargs']
     for bad, match in [
-            (dict(batch, latents=batch['latents'][:, :4]), 'latents'),
+            (dict(batch, latents=batch['latents'][..., :2]), 'latents'),
             (dict(batch, prompt_embed_kwargs=dict(
                 embeds, pooled_projections=embeds['pooled_projections'][:, :8]
             )), 'prompt_embed_kwargs')]:
