@@ -2,12 +2,23 @@
 
 Counterpart of ``arcflow_tpu/apis/train.py`` (``train_model``,
 ``ema_config_from_cfg``): build the model through ``MODELS`` on the
-device, the optimizers and the state, auto-resume from the latest
-checkpoint with the loader fast-forwarded to the resumed step (the
-bucketized loader for a dataset of more than one resolution bucket, as in
-JAX), add the hooks and run. A ``parallel.mesh`` with an axis above 1 is
-refused (the port's mesh training waits for its slice), as is the host
-offload of the cold state (the H100 holds it).
+device, shard it over the config's mesh, build the optimizers and the
+state, auto-resume from the latest checkpoint with the loader
+fast-forwarded to the resumed step (the bucketized loader for a dataset of
+more than one resolution bucket, as in JAX), add the hooks and run.
+
+``parallel`` (``configs/flux/_mesh_train.py``, ``_multihost_train.py``):
+``mesh`` over the ``data`` and ``fsdp`` axes (one -1 inferred from the
+world size) and ``dcn_mesh`` lay the ranks out as JAX does
+(``parallel/mesh.py:make_mesh``); the model is sharded over ``fsdp`` and
+replicated over ``data`` (``parallel/fsdp.py:shard_model``), and each rank
+trains on ``samples_per_gpu`` rows of a global batch of ``samples_per_gpu
+x |data| x |fsdp|``. A mesh of one device runs the same code (in a
+process group of one, started here and ended on return). ``fsdp_axis``
+must be 'fsdp'; ``min_shard_size`` does not apply (FSDP2 shards every
+parameter). A ``tensor_axis``, the ``tensor`` / ``pipe`` / ``expert``
+axes and ``sp`` training are refused by name, as is the host offload of
+the cold state (the H100 holds it).
 """
 
 from __future__ import annotations
@@ -16,12 +27,15 @@ import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 import numpy as np
 
 from ..config import Config
 from ..data import (Prefetcher, build_bucketized_loader, build_dataloader,
                     build_dataset)
+from ..parallel.fsdp import shard_model
+from ..parallel.mesh import batch_ranks, make_mesh, setup_distributed
 from ..registry import MODELS
 from ..runner import (CheckpointHook, CheckpointManager, EmaConfig,
                       EvalHook, IterBasedRunner, ProfilerHook,
@@ -45,22 +59,50 @@ def ema_config_from_cfg(cfg: Config) -> EmaConfig:
     return EmaConfig(momentum_policy='fixed', momentum=0.999)
 
 
-def _check_parallel(cfg: Config):
-    mesh = dict((cfg.get('parallel') or {}).get('mesh') or {})
-    if any(v != 1 for v in mesh.values()):
+def parallel_from_cfg(cfg: Config) -> Optional[dict]:
+    """``make_mesh``'s arguments from ``cfg.parallel`` (None without a
+    ``mesh``); what the port does not train with is refused by name."""
+    parallel = dict(cfg.get('parallel') or {})
+    if not parallel.get('mesh'):
+        return None
+    if parallel.get('tensor_axis'):
         raise NotImplementedError(
-            f'parallel.mesh {mesh}: the port trains on one device; its '
-            f'data/fsdp/tensor mesh waits for ROADMAP.md queue A item 5 '
-            f'(set every axis to 1, or drop parallel)')
+            f'parallel.tensor_axis {parallel["tensor_axis"]!r}: the tensor '
+            f'axis waits for ROADMAP.md queue A item 5.2')
+    if parallel.get('fsdp_axis', 'fsdp') != 'fsdp':
+        raise ValueError(f'parallel.fsdp_axis must be "fsdp", got '
+                         f'{parallel["fsdp_axis"]!r}')
+    return dict(axes=dict(parallel['mesh']),
+                dcn_axes=dict(parallel.get('dcn_mesh') or {}) or None)
 
 
 def train_model(cfg: Config, work_dir: Optional[str] = None,
                 resume: bool = True, seed: int = 0,
                 max_iters: Optional[int] = None, device='cuda'):
     """Train ``cfg`` on ``device`` (the card unless the caller asks for the
-    CPU); returns (state, model)."""
-    _check_parallel(cfg)
+    CPU), over the config's mesh where it has one; returns (state,
+    model). Under ``torch.distributed`` (every rank calls it) each rank
+    trains on its own card (``cuda:{LOCAL_RANK}``)."""
+    mesh_args = parallel_from_cfg(cfg)
     device = torch.device(device)
+    started = mesh_args is not None and not dist.is_initialized()
+    if started:
+        setup_distributed(device.type)
+    try:
+        if mesh_args is None and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            raise ValueError(f'{dist.get_world_size()} processes and no '
+                             f'parallel.mesh: set one (e.g. data=-1)')
+        mesh = None if mesh_args is None else make_mesh(**mesh_args)
+        if device.type == 'cuda' and dist.is_initialized():
+            device = torch.device('cuda', torch.cuda.current_device())
+        return _train(cfg, work_dir, resume, seed, max_iters, device, mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(cfg, work_dir, resume, seed, max_iters, device, mesh):
     work_dir = work_dir or cfg.get('work_dir', 'work_dirs/default')
     os.makedirs(work_dir, exist_ok=True)
     logger = build_logger(work_dir)
@@ -75,6 +117,10 @@ def train_model(cfg: Config, work_dir: Optional[str] = None,
                                   'offload) is not ported')
     torch.manual_seed(seed)
     model = build_model_from_cfg(cfg, device=device)
+    if mesh is not None:
+        shard_model(model, mesh)
+        logger.info(f'mesh parallelism: '
+                    f'{dict(zip(mesh.mesh_dim_names, mesh.shape))}')
     trainable, frozen = model.init_params()
     logger.info(f'trainable params: {count_params(trainable):,}; '
                 f'frozen params: {count_params(frozen):,}')
@@ -112,16 +158,27 @@ def train_model(cfg: Config, work_dir: Optional[str] = None,
     train_step = build_train_step(
         model, optimizers, train_cfg=train_cfg,
         ema_cfg=ema_config_from_cfg(cfg) if model.ema_keys else None,
-        grad_accum_steps=grad_accum_steps)
+        grad_accum_steps=grad_accum_steps, mesh=mesh)
 
+    # samples_per_gpu is per rank, as in the reference's per-GPU loaders:
+    # rank r of the batch ranks loads its rows of the global batch (those
+    # of each micro-batch under accumulation, data.samplers.rank_rows)
+    rank, num_replicas = batch_ranks(mesh) if mesh is not None else (0, 1)
+    deal = dict(num_replicas=num_replicas, rank=rank)
+    if grad_accum_steps > 1:
+        deal['chunk'] = samples_per_gpu // grad_accum_steps
+    # batches are staged on the rank's card by the loader's worker
+    stage = device if device.type == 'cuda' else None
     dataset = build_dataset(data_cfg['train'])
     if getattr(dataset, 'bucket_ids', None) is not None and \
             len(np.unique(dataset.bucket_ids)) > 1:
-        loader = build_bucketized_loader(dataset, samples_per_gpu, seed=seed,
-                                         start_iter=state.step)
+        loader = build_bucketized_loader(
+            dataset, samples_per_gpu, seed=seed, start_iter=state.step,
+            device=stage, **deal)
     else:
         loader = Prefetcher(build_dataloader(
-            dataset, samples_per_gpu, seed=seed, start_iter=state.step))
+            dataset, samples_per_gpu, seed=seed, start_iter=state.step,
+            **deal), device=stage)
 
     extra_hooks = [QuartileLossLoggerHook(
         total_timesteps=cfg.model.diffusion.get('num_timesteps', 1000)),

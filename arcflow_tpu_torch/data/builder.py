@@ -4,17 +4,20 @@ Counterpart of ``arcflow_tpu/data/builder.py``: every batch's randomness
 derives from ``np.random.default_rng([seed, iteration, rank])``, so a run
 resumed at iteration N draws the batches a straight run draws there,
 without replaying N batches, and the port's batches are bitwise the JAX
-package's for the same seed, ``start_iter`` and rank. Batches are numpy on
-the host; the runner moves them to the model's device.
+package's for the same seed, ``start_iter`` and rank. Over several ranks
+each loads its ``samples_per_gpu`` rows with ``num_replicas`` and
+``rank``, as each JAX process loads its slice. Batches are numpy on the
+host; the runner moves them to the rank's device.
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 
 from ..registry import DATASETS
+from .samplers import rank_rows
 
 
 def build_dataset(cfg):
@@ -38,12 +41,16 @@ def collate(samples) -> dict:
 
 def build_dataloader(dataset, samples_per_gpu: int, seed: int = 0,
                      start_iter: int = 0, shuffle: bool = True,
-                     num_replicas: int = 1, rank: int = 0) -> Iterator[dict]:
+                     num_replicas: int = 1, rank: int = 0,
+                     chunk: Optional[int] = None) -> Iterator[dict]:
     """Infinite iterator of dict batches (numpy, host memory) from
     iteration ``start_iter`` on. A dataset with ``batch(rng, n)`` (the
     synthetic ones) makes each batch itself; a map-style dataset is sampled
     by index, at random or, without ``shuffle``, in order across the
-    ``num_replicas`` ranks."""
+    ``num_replicas`` ranks, each taking its rows of the global batch
+    (``samplers.rank_rows``; ``chunk`` is the micro-batch of gradient
+    accumulation)."""
+    rows = rank_rows(rank, num_replicas, samples_per_gpu, chunk)
     if isinstance(dataset, dict):
         dataset = build_dataset(dataset)
 
@@ -58,8 +65,7 @@ def build_dataloader(dataset, samples_per_gpu: int, seed: int = 0,
                 if shuffle:
                     idx = rng.integers(0, n, size=samples_per_gpu)
                 else:
-                    base = (it * num_replicas + rank) * samples_per_gpu
-                    idx = (base + np.arange(samples_per_gpu)) % n
+                    idx = (it * num_replicas * samples_per_gpu + rows) % n
                 yield collate([dataset[int(i)] for i in idx])
             it += 1
 

@@ -1,7 +1,8 @@
 """Background batch prefetching.
 
 Counterpart of ``arcflow_tpu/data/prefetch.py:Prefetcher``: batches are
-made on a worker thread while the device runs the previous step. The
+made on a worker thread while the device runs the previous step, and, given
+a card, staged on it there (JAX's worker ``device_put``s them). The
 worker puts with a timeout, so ``close()`` stops a producer blocked on a
 full queue instead of leaving it alive, holding the iterator and its staged
 batches. ``batched_index_loader`` turns a sampler's index batches into
@@ -10,16 +11,24 @@ collated batches on such a queue.
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 from typing import Iterator
 
 
 class Prefetcher:
-    """Wraps a batch iterator with an N-deep background queue."""
+    """Wraps a batch iterator with an N-deep background queue. With
+    ``device`` the worker moves each batch there (``runner.to_device``:
+    through pinned memory, a copy that does not block, on the device's
+    default stream, which the step's kernels follow)."""
 
-    def __init__(self, it: Iterator, depth: int = 2):
+    def __init__(self, it: Iterator, depth: int = 2, device=None):
         self._it = it
+        self._stage = None
+        if device is not None:
+            from ..runner.runner import to_device
+            self._stage = functools.partial(to_device, device=device)
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._done = object()
         self._stop = threading.Event()
@@ -29,6 +38,8 @@ class Prefetcher:
     def _worker(self):
         try:
             for item in self._it:
+                if self._stage is not None:
+                    item = self._stage(item)
                 while not self._stop.is_set():
                     try:
                         self._q.put(item, timeout=0.2)
@@ -65,9 +76,11 @@ class Prefetcher:
         return item
 
 
-def batched_index_loader(dataset, sampler_iter, prefetch_depth: int = 2):
-    """Batches of indices -> collated sample batches on a ``Prefetcher``,
-    through the dataset's batched ``getitems`` where it has one."""
+def batched_index_loader(dataset, sampler_iter, prefetch_depth: int = 2,
+                         device=None):
+    """Batches of indices -> collated sample batches on a ``Prefetcher``
+    (staged on ``device``, where given), through the dataset's batched
+    ``getitems`` where it has one."""
     from .builder import collate
 
     def gen():
@@ -78,4 +91,4 @@ def batched_index_loader(dataset, sampler_iter, prefetch_depth: int = 2):
                 samples = [dataset[int(i)] for i in idx]
             yield collate(samples)
 
-    return Prefetcher(gen(), depth=prefetch_depth)
+    return Prefetcher(gen(), depth=prefetch_depth, device=device)

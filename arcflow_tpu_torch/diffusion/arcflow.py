@@ -30,6 +30,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import batch_draw
 from ..registry import MODULES
 from .gaussian_flow import GaussianFlow
 from .integrator import momentum_integration, policy_average_u
@@ -108,13 +109,14 @@ class ArcFlowImitationBase(GaussianFlow):
 
         # student-portion and teacher-portion interval draws
         free_span = segment_size - window_size                       # (B,)
-        s_draw = torch.rand((bs, n_states), generator=generator, device=dev)
+        s_draw = batch_draw(torch.rand, (bs, n_states), generator=generator,
+                            device=dev)
         s_draw = s_draw * ((1.0 - teacher_ratio) * free_span)[:, None]
         s_sorted = torch.sort(s_draw, dim=-1).values
         zeros = torch.zeros((bs, 1), dtype=f32, device=dev)
         student_intervals = torch.diff(s_sorted, dim=-1, prepend=zeros)
-        t_draw = torch.rand((bs, n_states - 1), generator=generator,
-                            device=dev)
+        t_draw = batch_draw(torch.rand, (bs, n_states - 1),
+                            generator=generator, device=dev)
         t_sorted = torch.sort(t_draw, dim=-1).values
         teacher_intervals = torch.diff(t_sorted, dim=-1, prepend=zeros,
                                        append=torch.ones_like(zeros))
@@ -252,8 +254,8 @@ class ArcFlowImitation(ArcFlowImitationBase):
         dropout_seed = self._maybe_dropout_seed(generator)
         raw_t_src, sigma_t_src, t_src, segment_size = self.sample_t(
             generator, x_0.shape[0], seq_len=seq_len, device=x_0.device)
-        noise = torch.randn(x_0.shape, generator=generator,
-                            dtype=torch.float32, device=x_0.device)
+        noise = batch_draw(torch.randn, x_0.shape, generator=generator,
+                           dtype=torch.float32, device=x_0.device)
         x_t_src = self.sample_forward_diffusion(x_0, t_src, noise)[0]
         denoising_output = self.pred(x_t_src, t_src,
                                      dropout_seed=dropout_seed, **kwargs)
@@ -290,8 +292,8 @@ class ArcFlowImitationDataFree(ArcFlowImitation):
         """Step states seeded with pure noise at raw t = 1 (``x_0`` gives
         only the shape and device)."""
         teacher_ratio, log_vars = self._teacher_ratio(running_status)
-        x_t_src = torch.randn(x_0.shape, generator=generator,
-                              dtype=torch.float32, device=x_0.device)
+        x_t_src = batch_draw(torch.randn, x_0.shape, generator=generator,
+                             dtype=torch.float32, device=x_0.device)
         step_states = dict(
             step_id=0, terminate=False, teacher_ratio=teacher_ratio,
             x_t_src=x_t_src,

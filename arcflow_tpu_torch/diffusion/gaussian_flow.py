@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import batch_draw
 from ..registry import MODULES, SCHEDULERS
 
 
@@ -107,8 +108,8 @@ class GaussianFlow:
                                   x_t_src: torch.Tensor, sigma_src,
                                   sigma_tgt) -> torch.Tensor:
         trans, _ = self.forward_transition(x_t_src, sigma_src, sigma_tgt)
-        noise = torch.randn(x_t_src.shape, generator=generator,
-                            device=x_t_src.device, dtype=torch.float32)
+        noise = batch_draw(torch.randn, x_t_src.shape, generator=generator,
+                           device=x_t_src.device, dtype=torch.float32)
         return trans['mean'] + noise * torch.sqrt(trans['var'].clamp_min(0.0))
 
     def pred(self, x_t: torch.Tensor, t, dropout_seed: Optional[int] = None,
@@ -157,8 +158,8 @@ class GaussianFlow:
         dropout_seed = self._maybe_dropout_seed(generator)
         t = self.timestep_sampler(generator, b, seq_len=seq_len,
                                   device=x_0.device)
-        noise = torch.randn(x_0.shape, generator=generator,
-                            device=x_0.device, dtype=torch.float32)
+        noise = batch_draw(torch.randn, x_0.shape, generator=generator,
+                           device=x_0.device, dtype=torch.float32)
         x_t = self.sample_forward_diffusion(x_0, t, noise)[0]
         out = self.pred(x_t, t, dropout_seed=dropout_seed, **kwargs)
         loss, log_info = self.loss(out, x_0, noise, t)

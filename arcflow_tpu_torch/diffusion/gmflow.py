@@ -29,6 +29,7 @@ import torch
 from ..ops.gm import (gm_mul_iso_gaussian, gm_samples_to_gaussian_samples,
                       gm_to_iso_gaussian, gm_to_mean, gm_to_sample,
                       iso_gaussian_mul_iso_gaussian)
+from ..parallel.mesh import batch_draw
 from ..registry import MODULES
 from .gaussian_flow import GaussianFlow, _bview, denoiser_args
 
@@ -220,8 +221,8 @@ class GMFlow(GaussianFlow):
         t_low = torch.minimum(t_high * (1 - trans_ratio),
                               t_high - eps).clamp_min(0.0)
 
-        noise_0 = torch.randn(x_0.shape, generator=generator,
-                              device=x_0.device, dtype=torch.float32)
+        noise_0 = batch_draw(torch.randn, x_0.shape, generator=generator,
+                             device=x_0.device, dtype=torch.float32)
         x_t_low = self.sample_forward_diffusion(x_0, t_low, noise_0)[0]
         x_t_high = self.sample_forward_transition(
             generator, x_t_low, t_low / self.num_timesteps,

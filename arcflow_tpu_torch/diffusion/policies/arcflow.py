@@ -19,6 +19,8 @@ import dataclasses
 
 import torch
 
+from ...parallel.mesh import batch_draw
+
 
 def _bshape(a: torch.Tensor, ndim: int) -> torch.Tensor:
     """Reshape a (B,)-vector for broadcasting against a rank-``ndim`` tensor."""
@@ -97,7 +99,7 @@ class ArcFlowPolicy:
             return self
         b, k = self.logweights.shape[:2]
         mask_shape = (b, k) + (1,) * (self.logweights.dim() - 2)
-        drop = torch.rand(mask_shape, generator=generator,
+        drop = batch_draw(torch.rand, mask_shape, generator=generator,
                           device=self.logweights.device) < p
         drop = drop & ~drop.all(dim=1, keepdim=True)
         return dataclasses.replace(

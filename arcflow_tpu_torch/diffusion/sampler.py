@@ -17,6 +17,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ..parallel.mesh import batch_draw
 from ..registry import MODULES
 
 Scalar = Union[float, torch.Tensor]
@@ -70,12 +71,12 @@ class ContinuousTimeStepSampler:
                 raise ValueError('raw_t_range does not apply to '
                                  'logit-normal sampling')
             t = torch.sigmoid(self.logit_normal_mean + self.logit_normal_std
-                              * torch.randn((batch_size,), **kw))
+                              * batch_draw(torch.randn, (batch_size,), **kw))
         elif raw_t_range is not None:
             hi, lo = raw_t_range
-            t = torch.rand((batch_size,), **kw) * (hi - lo) + lo
+            t = batch_draw(torch.rand, (batch_size,), **kw) * (hi - lo) + lo
         else:
-            t = 1.0 - torch.rand((batch_size,), **kw)
+            t = 1.0 - batch_draw(torch.rand, (batch_size,), **kw)
         if warp_t:
             t = self.warp_t(t, seq_len=seq_len)
         if scale_t:

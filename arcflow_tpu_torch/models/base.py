@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..diffusion.arcflow import multistep_train_loss
+from ..parallel.fsdp import is_sharded, local
 from ..registry import MODELS, MODULES
 
 
@@ -48,20 +49,39 @@ class BaseModel:
         """Trainable submodule keys that keep an EMA copy."""
         return ()
 
+    def fsdp_modules(self) -> Dict[str, nn.Module]:
+        """The modules whose parameters the loss trains or reads, which
+        ``parallel.shard_model`` shards: the denoisers of the student's
+        diffusion and of the teacher, where there is one."""
+        return {k: flow.denoising for k in ('diffusion', 'teacher')
+                if (flow := getattr(self, k, None)) is not None}
+
 
 @contextlib.contextmanager
 def swapped_params(module: nn.Module, tensors: Dict[str, torch.Tensor]):
     """Run ``module`` with ``tensors`` (e.g. the EMA copy) in place of its
-    parameters of those names, then put its own back."""
+    parameters of those names, then put its own back. A sharded parameter
+    (FSDP2 gathers from its own storage) takes the tensor's shard by a
+    copy into it."""
     params = dict(module.named_parameters())
-    own = {n: params[n].data for n in tensors}
+    sharded = {n for n in tensors if is_sharded(params[n])}
+    own = {n: local(params[n]).clone() if n in sharded else params[n].data
+           for n in tensors}
     try:
-        for n, t in tensors.items():
-            params[n].data = t
+        with torch.no_grad():
+            for n, t in tensors.items():
+                if n in sharded:
+                    local(params[n]).copy_(local(t))
+                else:
+                    params[n].data = t
         yield module
     finally:
-        for n, t in own.items():
-            params[n].data = t
+        with torch.no_grad():
+            for n, t in own.items():
+                if n in sharded:
+                    local(params[n]).copy_(t)
+                else:
+                    params[n].data = t
 
 
 def _with_data_shape(cfg, data_shape):

@@ -11,9 +11,11 @@ order, as in the JAX package.
 
 Training: with ``checkpointing`` each block keeps only its inputs and is run
 again in the backward (``torch.utils.checkpoint``, the JAX ``nn.remat``),
-and the LoRA dropout of block ``i`` draws from a generator seeded from
-``(dropout_seed, i)`` (JAX ``jax.random.fold_in(key, i)``). The seed is an
-input of the checkpointed function, so the recompute draws the same masks.
+and the LoRA dropout of block ``i`` draws row r of the global batch from a
+generator seeded from ``(dropout_seed, i, r)`` (JAX
+``jax.random.fold_in(key, i)``; the row makes the masks the same on any
+mesh). The seed is an input of the checkpointed function, so the recompute
+draws the same masks.
 
 Sequence parallelism (serving): with a ``parallel.SequenceParallel`` state
 (``sequence_parallel``, set by ``parallel.set_sequence_parallel``) each rank
@@ -34,15 +36,15 @@ fill inputs, MoE and pipeline parallelism wait for their slices.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.mesh import (SequenceParallel, pad_tokens, stream_padding,
-                             token_validity)
+from ..parallel.mesh import (SequenceParallel, global_rows, pad_tokens,
+                             stream_padding, token_validity)
 from ..registry import MODULES
 from .layers import (AdaLayerNormContinuous, AdaLayerNormZero,
                      AdaLayerNormZeroSingle, FeedForward, JointAttention,
@@ -67,26 +69,35 @@ def check_fixed(**fields):
 
 def run_block(block: nn.Module, index: int, dropout_seed: Optional[int],
               checkpointing: bool, *args):
-    """Run ``block(*args)`` with its dropout generator, under activation
+    """Run ``block(*args)`` with its dropout generators, under activation
     checkpointing when ``checkpointing`` is on and autograd records."""
+    rows = global_rows(args[0].shape[0])
+
     def run(seed, *a):
-        return block(*a, generator=dropout_generator(seed, index,
+        return block(*a, generator=dropout_generator(seed, index, rows,
                                                      a[0].device))
     if checkpointing and torch.is_grad_enabled():
         return checkpoint(run, dropout_seed, *args, use_reentrant=False)
     return run(dropout_seed, *args)
 
 
-def dropout_generator(seed: Optional[int], index: int, device
-                      ) -> Optional[torch.Generator]:
-    """The generator of block ``index``'s LoRA dropout for a forward with
-    ``seed`` (None: no dropout): a function of both, so a recompute of the
-    block draws what its first run drew."""
+def dropout_generator(seed: Optional[int], index: int, rows: range, device
+                      ) -> Optional[List[torch.Generator]]:
+    """The generators of block ``index``'s LoRA dropout for a forward with
+    ``seed`` (None: no dropout), one for each of ``rows``, the rows of the
+    global batch (``parallel.mesh.global_rows``): a function of the three,
+    so a recompute of the block draws what its first run drew, and a row
+    draws its masks alike on one device and on any mesh, where each rank
+    draws its own rows only."""
     if seed is None:
         return None
-    g = torch.Generator(device=device)
-    g.manual_seed((seed * 0x9E3779B1 + index + 1) % 2 ** 63)
-    return g
+    gens = []
+    for r in rows:
+        g = torch.Generator(device=device)
+        g.manual_seed((seed * 0x9E3779B1 + (index + 1) * 0x85EBCA77
+                       + r * 0xC2B2AE3D) % 2 ** 63)
+        gens.append(g)
+    return gens
 
 
 class MLPEmbedder(nn.Module):
@@ -283,7 +294,9 @@ class FluxBackbone(nn.Module):
         txt = self.context_embedder(encoder_hidden_states)
         temb = self.time_text_embed(
             t.float() * 1000.0, pooled_projections, guidance.float() * 1000.0,
-            generator=dropout_generator(dropout_seed, n_blocks, packed.device))
+            generator=dropout_generator(dropout_seed, n_blocks,
+                                        global_rows(packed.shape[0]),
+                                        packed.device))
         rope = rope_frequencies(torch.cat([txt_ids, img_ids], dim=0),
                                 self.axes_dims_rope)
         for i, block in enumerate(self.joint_blocks):

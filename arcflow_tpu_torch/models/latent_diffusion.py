@@ -12,18 +12,19 @@ and its weight economy:
   ('int8' or 'int4'), quantized weight-only once at init through
   ``utils/quantize.py`` (the JAX skip rules, ``frozen_quant_min_size``
   counted over a block stack as JAX counts its scanned stacks);
-* the tied teacher has no LoRA and its own frozen head
-  (``TEACHER_HEAD_KEYS``); every other teacher tensor IS the student's
-  frozen tensor, quantized buffers included, so the trunk is in memory
-  once (the JAX dict overlay, ``latent_diffusion.py:256-273``). With
+* the tied teacher has its own frozen head (``TEACHER_HEAD_KEYS``); its
+  trunk IS the student's trunk modules, quantized buffers included, run
+  with their LoRA off (``lora_disabled``), so the trunk is in memory once
+  (the JAX dict overlay, ``latent_diffusion.py:256-273``). With
   ``tie_teacher=False`` the teacher is whole and its own
   (``frozen['teacher_full']``), quantized on its own.
 
 Configs are the JAX package's dicts, built through ``MODULES``: the
 student on ``device`` (the card unless the caller says otherwise), the tied
-teacher's trunk on the meta device, as it borrows the student's tensors;
-both compute in ``dtype``. ``pretrained`` / ``pretrained_adapter`` on the
-student's denoising config and ``pretrained`` / ``pretrained_lora`` /
+teacher on the meta device but for its head, as it takes the student's
+trunk modules; both compute in ``dtype``. ``pretrained`` /
+``pretrained_adapter`` on the student's denoising config and
+``pretrained`` / ``pretrained_lora`` /
 ``pretrained_lora_scale`` on the teacher's load diffusers-key checkpoints
 at construction (the JAX package loads them in ``init_params``; the port's
 modules hold their weights). The K-way means head's bias noise comes from
@@ -52,32 +53,34 @@ from ..registry import MODELS, MODULES
 from ..utils.pytree import name_matches
 from .base import BaseModel, swapped_params
 from .flux import ARCFLUX_ADAPTER_KEYS
-from .layers import LoRADense
+from .layers import lora_disabled
 
 # the teacher's own head; the rest of it is the student's frozen trunk
 TEACHER_HEAD_KEYS = ('proj_out', 'norm_out')
-# the buffers a quantized LoRADense holds in place of its weight
-QUANT_BUFFERS = ('kernel', 'kernel_scale', 'kernel_packed4', 'kernel_scale4')
 
 
-def _tie(t_module: nn.Module, s_module: nn.Module, path: str):
-    """Give ``t_module`` the tensors of its student twin: each parameter,
-    and a quantized layer's buffers in place of its weight."""
-    for name in list(t_module._parameters):
-        p = t_module._parameters[name]
-        shared = s_module._parameters.get(name)
-        if shared is not None and shared.shape == p.shape:
-            t_module._parameters[name] = shared
-        elif (name == 'weight' and isinstance(s_module, LoRADense)
-              and s_module.is_quantized):
-            del t_module._parameters[name]
-            for b in QUANT_BUFFERS:
-                if b in s_module._buffers:
-                    t_module.register_buffer(b, s_module._buffers[b])
-            t_module.act_quant = s_module.act_quant
-        else:
-            raise ValueError(f'teacher parameter {path}{name} has no frozen '
-                             f'student twin')
+def _share_trunk(teacher: nn.Module, student: nn.Module):
+    """Make the tied teacher's trunk the student's own modules (its head,
+    ``TEACHER_HEAD_KEYS``, stays its own): the trunk is in memory once,
+    quantized or not, and sharding the student shards it for both. Each
+    teacher child must have a student twin of the same module types and
+    parameter shapes (a quantized twin holds no ``weight``); the teacher
+    runs them under ``lora_disabled``."""
+    def kinds(m):
+        return [(n, type(x)) for n, x in m.named_modules()]
+    for name, child in list(teacher.named_children()):
+        if name in TEACHER_HEAD_KEYS:
+            continue
+        twin = getattr(student, name, None)
+        ok = isinstance(twin, nn.Module) and kinds(twin) == kinds(child)
+        if ok:
+            shapes = {n: p.shape for n, p in twin.named_parameters()}
+            ok = all(shapes.get(n, p.shape) == p.shape
+                     for n, p in child.named_parameters())
+        if not ok:
+            raise ValueError(f'teacher module {name} has no frozen student '
+                             f'twin')
+        setattr(teacher, name, twin)
 
 
 def _pop_pretrained(cfg: Optional[dict], *keys):
@@ -144,11 +147,12 @@ class LatentDiffusionTextImage(BaseModel):
             dtype=dtype))
         student = self.diffusion.denoising
         self.family = student.family
-        self._adapter = {}
+        self._adapter = set()
         for name, p in student.named_parameters():
             if name_matches(name, ARCFLUX_ADAPTER_KEYS):
                 p.data = p.data.float()
-                self._adapter[name] = p.requires_grad_(True)
+                p.requires_grad_(True)
+                self._adapter.add(name)
             else:
                 p.data = p.data.to(self.frozen_dtype)
                 p.requires_grad_(False)
@@ -156,11 +160,8 @@ class LatentDiffusionTextImage(BaseModel):
         if self.pretrained is not None:
             converted = self._load_student(student)
         self._quantize(student)
-        self._base = {n: t for n, t in student.state_dict(
-            keep_vars=True).items() if n not in self._adapter}
 
         self.teacher = None
-        self._teacher_frozen = {}
         if teacher:
             self._build_teacher(teacher, converted, device, dtype)
         self.vae = MODULES.build(vae, default_args=dict(device=device)) \
@@ -251,7 +252,7 @@ class LatentDiffusionTextImage(BaseModel):
 
     def _build_teacher(self, teacher: dict, converted, device, dtype):
         if self.tie_teacher:
-            # the trunk without storage: it borrows the student's below
+            # the trunk without storage: the student's replaces it below
             self.teacher = MODULES.build(teacher, default_args=dict(
                 device='meta', dtype=dtype))
             t_model = self.teacher.denoising
@@ -283,31 +284,32 @@ class LatentDiffusionTextImage(BaseModel):
                 self._graft(t_model, t_converted, 'teacher')
         if not self.tie_teacher:
             self._quantize(t_model)
-            self._teacher_frozen = dict(t_model.state_dict(keep_vars=True))
             return
-        student = self.diffusion.denoising
-        for path, module in t_model.named_modules():
-            if name_matches(path, TEACHER_HEAD_KEYS, exact_prefix=True):
-                continue
-            _tie(module, student.get_submodule(path),
-                 f'{path}.' if path else '')
-        self._teacher_frozen = {
-            n: t for n, t in t_model.state_dict(keep_vars=True).items()
-            if name_matches(n, TEACHER_HEAD_KEYS, exact_prefix=True)}
+        _share_trunk(t_model, self.diffusion.denoising)
 
     @property
     def ema_keys(self):
         return ('diffusion',) if self.diffusion_use_ema else ()
 
     def init_params(self):
-        """(trainable, frozen): the fp32 adapter; the student's frozen
-        trunk (its quantized buffers in place of the quantized weights) and
-        the tied teacher's head, or the untied teacher whole."""
-        frozen = {'base': dict(self._base)}
+        """(trainable, frozen) of the live modules (after
+        ``parallel.shard_model``, their sharded parameters): the fp32
+        adapter; the student's frozen trunk (its quantized buffers in place
+        of the quantized weights) and the tied teacher's head, or the
+        untied teacher whole."""
+        student = self.diffusion.denoising.state_dict(keep_vars=True)
+        trainable = {n: t for n, t in student.items() if n in self._adapter}
+        frozen = {'base': {n: t for n, t in student.items()
+                           if n not in self._adapter}}
         if self.teacher is not None:
-            key = 'teacher_head' if self.tie_teacher else 'teacher_full'
-            frozen[key] = dict(self._teacher_frozen)
-        return {'diffusion': dict(self._adapter)}, frozen
+            teacher = self.teacher.denoising.state_dict(keep_vars=True)
+            if self.tie_teacher:
+                frozen['teacher_head'] = {
+                    n: t for n, t in teacher.items()
+                    if name_matches(n, TEACHER_HEAD_KEYS, exact_prefix=True)}
+            else:
+                frozen['teacher_full'] = teacher
+        return {'diffusion': trainable}, frozen
 
     # ---- batch plumbing ------------------------------------------------------
     def _prompt_embeds(self, batch: dict, negative: bool = False
@@ -388,7 +390,9 @@ class LatentDiffusionTextImage(BaseModel):
             pos['encoder_hidden_states'].device))
 
         def fn(x_t, t):
-            return self.teacher.forward_u(x_t, t, guidance_scale=gs, **kwargs)
+            with lora_disabled(self.teacher.denoising):
+                return self.teacher.forward_u(x_t, t, guidance_scale=gs,
+                                              **kwargs)
         return fn
 
     # ---- training ---------------------------------------------------------------

@@ -31,6 +31,7 @@ waits for its slice.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -129,7 +130,8 @@ class LoRADense(nn.Linear):
     made in fp32; every parameter is cast to the compute dtype ``self.dtype``
     per call. ``lora_dropout`` drops the adapter branch's input only (peft's
     LoRA dropout, JAX ``layers.py:210-213``), and only when ``forward`` gets
-    a ``generator``.
+    a ``generator``: one for the whole input, or one per row
+    (``uniform_rows``).
 
     The kernel is drawn as flax draws it (``lecun_normal_``), the bias is
     zero. After ``quantize_weights_int8`` or ``quantize_weights_int4`` the
@@ -137,7 +139,8 @@ class LoRADense(nn.Linear):
     ``kernel_scale`` or the ``kernel_packed4`` / ``kernel_scale4`` buffers
     (JAX names and shapes), and ``act_quant`` selects w8a8 or w4a8 over the
     weight-only mode. The bias and the LoRA branch are added after the
-    quantized product.
+    quantized product. Under ``lora_disabled`` the layer is its base alone
+    (the tied teacher runs the student's sharded modules so).
     """
 
     def __init__(self, in_features: int, out_features: int,
@@ -147,6 +150,7 @@ class LoRADense(nn.Linear):
                          dtype=dtype)
         self.dtype = self.weight.dtype           # compute dtype
         self.act_quant = False
+        self.lora_enabled = True
         self.lora_rank = lora_rank
         self.lora_dropout = lora_dropout
         if lora_rank > 0:
@@ -190,14 +194,41 @@ class LoRADense(nn.Linear):
         else:
             x = x.to(dt)
             y = F.linear(x, self.weight.to(dt), bias)
-        if self.lora_rank > 0:
+        if self.lora_rank > 0 and self.lora_enabled:
             if self.lora_dropout > 0.0 and generator is not None:
                 keep_prob = 1.0 - self.lora_dropout
-                keep = torch.rand(x.shape, generator=generator,
-                                  device=x.device) < keep_prob
+                keep = uniform_rows(x, generator) < keep_prob
                 x = torch.where(keep, x / keep_prob, 0.0)
             y = y + (x @ self.lora_a.to(dt)) @ self.lora_b.to(dt)
         return y
+
+
+def uniform_rows(x: torch.Tensor, generator) -> torch.Tensor:
+    """Uniform draws of ``x``'s shape on its device: from ``generator``, or,
+    given a sequence of generators (one per row, ``flux.dropout_generator``),
+    row i of them from generator i."""
+    if isinstance(generator, torch.Generator):
+        return torch.rand(x.shape, generator=generator, device=x.device)
+    if len(generator) != x.shape[0]:
+        raise ValueError(f'{len(generator)} dropout generators for '
+                         f'{x.shape[0]} rows')
+    return torch.stack([torch.rand(x.shape[1:], generator=g,
+                                   device=x.device) for g in generator])
+
+
+@contextlib.contextmanager
+def lora_disabled(module: nn.Module):
+    """Run ``module``'s ``LoRADense`` layers without their LoRA branch
+    within the block."""
+    layers = [m for m in module.modules()
+              if isinstance(m, LoRADense) and m.lora_enabled]
+    for m in layers:
+        m.lora_enabled = False
+    try:
+        yield module
+    finally:
+        for m in layers:
+            m.lora_enabled = True
 
 
 def _zero_dense(in_features: int, out_features: int, device=None, dtype=None

@@ -25,8 +25,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..parallel.mesh import (SequenceParallel, pad_tokens, stream_padding,
-                             token_validity)
+from ..parallel.mesh import (SequenceParallel, global_rows, pad_tokens,
+                             stream_padding, token_validity)
 from ..registry import MODULES
 from .flux import (ArcFlowHeads, FluxJointBlock, MLPEmbedder, check_fixed,
                    dropout_generator, make_img_ids, patchify, run_block,
@@ -140,7 +140,8 @@ class QwenBackbone(nn.Module):
         n_blocks = len(self.transformer_blocks)
         temb = self.timestep_embedder(
             timestep_sinusoidal(t.float() * 1000.0, 256).to(dt),
-            dropout_generator(dropout_seed, n_blocks, packed.device))
+            dropout_generator(dropout_seed, n_blocks,
+                              global_rows(packed.shape[0]), packed.device))
         txt_ids = torch.zeros((txt.shape[1], 3), dtype=img_ids.dtype,
                               device=img_ids.device)
         rope = rope_frequencies(torch.cat([txt_ids, img_ids], dim=0),

@@ -152,7 +152,7 @@ class ToyArcFlowDenoiser(_ToyMLPTrunk):
             raise NotImplementedError(
                 'ToyArcFlowDenoiser(moe_experts > 0) needs MoEFeedForward, '
                 'which the port does not have yet (ROADMAP.md queue A '
-                'item 5)')
+                'item 5.5)')
         super().__init__(out_channels, hidden, time_embed_dim, num_timesteps,
                          fourier_freqs, data_shape, device, dtype)
         k, c, w = num_gaussians, out_channels, self.width

@@ -5,7 +5,9 @@
 ``mesh.setup_distributed`` reads, a free local port for the rendezvous, and
 a bound on the time it waits: past it the ranks are killed and it raises,
 so a hung collective cannot hang the caller. ``fn`` must be importable (a
-module-level function).
+module-level function). ``apply_dist_params`` reads a config's
+``dist_params`` (JAX's keys) into the variables ``setup_distributed``
+reads.
 """
 
 from __future__ import annotations
@@ -13,8 +15,37 @@ from __future__ import annotations
 import os
 import socket
 import time
+from typing import Optional
 
 import torch.multiprocessing as mp
+
+
+def apply_dist_params(dist_params: Optional[dict]) -> int:
+    """Set the ``torch.distributed`` variables from a config's
+    ``dist_params`` as JAX reads them (``arcflow_tpu/parallel/mesh.py:
+    31-58``): ``num_processes`` -> ``WORLD_SIZE``, ``process_id`` ->
+    ``RANK``, ``coordinator_address`` 'host:port' -> ``MASTER_ADDR`` and
+    ``MASTER_PORT``, ``local_device_ids`` (one id: one card per process)
+    -> ``LOCAL_RANK``. A key the config leaves out keeps what the launcher
+    (``torch.distributed.run``, ``spawn``) set. Returns the world size."""
+    cfg = dict(dist_params or {})
+    env = {}
+    if cfg.get('num_processes') is not None:
+        env['WORLD_SIZE'] = cfg['num_processes']
+    if cfg.get('process_id') is not None:
+        env['RANK'] = cfg['process_id']
+    if cfg.get('coordinator_address'):
+        host, _, port = str(cfg['coordinator_address']).rpartition(':')
+        env.update(MASTER_ADDR=host, MASTER_PORT=port)
+    ids = cfg.get('local_device_ids')
+    if ids is not None:
+        ids = [ids] if isinstance(ids, int) else list(ids)
+        if len(ids) != 1:
+            raise ValueError(f'local_device_ids {ids}: the port runs one '
+                             f'card per process')
+        env['LOCAL_RANK'] = ids[0]
+    os.environ.update({k: str(v) for k, v in env.items()})
+    return int(os.environ.get('WORLD_SIZE', 1))
 
 
 def _free_port() -> int:

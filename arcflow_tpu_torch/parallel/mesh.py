@@ -1,40 +1,63 @@
-"""Process groups and the sequence-parallel (``sp``) state.
+"""Process groups, the device mesh and the sequence-parallel (``sp``) state.
 
-Counterpart of the ``sp`` part of ``arcflow_tpu/parallel/mesh.py``:
-``setup_distributed`` (its lines 31-58) starts the process group,
-``make_mesh`` (61-110) takes only the ``sp`` axis, and one explicit
-``SequenceParallel`` object, held by the transformer's attention modules and
-its trunk, replaces the process-global activation state ``_ACT`` (245-306).
-Its helpers cut the tokens into this rank's shard and gather them back
-(JAX ``shard_activation('residual')``), and move attention between token
-shards and head shards for the Ulysses layout (JAX ``heads_partition``,
-379-405). The ``data``, ``fsdp``, ``tensor``, ``pipe`` and ``expert`` axes
-wait for their slices (ROADMAP A12).
+Counterpart of ``arcflow_tpu/parallel/mesh.py``: ``setup_distributed``
+(its lines 31-58) starts the process group; ``make_mesh`` (61-110) lays
+the ranks out on the ``data`` and ``fsdp`` axes as a 2-D ``DeviceMesh``
+(the JAX mesh's axes, sizes and device order, ``-1`` and ``dcn_axes``
+included) or takes the ``sp`` axis alone for serving; ``batch_axes`` /
+``batch_ranks`` (165-172) say over which ranks the batch is split and
+where this rank's rows lie; ``batch_draw`` draws a step's per-sample
+randomness for the global batch and keeps this rank's rows, as GSPMD
+splits JAX's one-key draw, and ``global_rows`` numbers this rank's rows
+in the global batch. One explicit ``SequenceParallel`` object, held
+by the transformer's attention modules and its trunk, replaces the
+process-global activation state ``_ACT`` (245-306). Its helpers cut the
+tokens into this rank's shard and gather them back (JAX
+``shard_activation('residual')``), and move attention between token shards
+and head shards for the Ulysses layout (JAX ``heads_partition``, 379-405).
+The ``tensor``, ``pipe`` and ``expert`` axes wait for their slices
+(ROADMAP.md queue A item 5, what is left of A12).
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 import os
 from datetime import timedelta
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 
 SP_MODES = ('ring', 'ulysses')
+# the axes a training mesh takes, in the DeviceMesh's dimension order:
+# replicated over data, sharded over fsdp (HSDP)
+TRAIN_AXES = ('data', 'fsdp')
+# axes of the JAX mesh that wait for their slice, with the ROADMAP.md
+# queue A item that ports each
+WAITING_AXES = {'tensor': '5.2', 'pipe': '5.4', 'expert': '5.5'}
 
 
 def setup_distributed(device: Optional[str] = None, timeout: float = 600.0
                       ) -> torch.device:
     """Start the default process group from ``RANK``, ``WORLD_SIZE``,
     ``MASTER_ADDR``, ``MASTER_PORT`` and ``LOCAL_RANK`` (the variables
-    ``parallel/launch.py:spawn`` and ``torchrun`` set) and return this
-    rank's device: NCCL on ``cuda:{LOCAL_RANK}``, or gloo on the CPU when
-    ``device='cpu'``. Without a CUDA device and without ``device='cpu'`` it
-    raises. ``timeout`` (seconds) bounds every collective."""
-    rank = int(os.environ['RANK'])
-    world = int(os.environ['WORLD_SIZE'])
+    ``parallel/launch.py:spawn`` and ``torch.distributed.run`` set) and
+    return this rank's device: NCCL on ``cuda:{LOCAL_RANK}``, or gloo on
+    the CPU when ``device='cpu'``. Without ``WORLD_SIZE`` it starts a
+    group of this one process on an in-memory store (a mesh of one device
+    needs a group too). Without a CUDA device and without ``device='cpu'``
+    it raises. ``timeout`` (seconds) bounds every collective."""
+    if 'WORLD_SIZE' in os.environ:
+        rank = int(os.environ['RANK'])
+        world = int(os.environ['WORLD_SIZE'])
+        init = dict(init_method='env://')
+    else:
+        rank, world = 0, 1
+        init = dict(store=dist.HashStore())
     if device == 'cpu':
         backend, dev = 'gloo', torch.device('cpu')
     elif device is None or device == 'cuda':
@@ -46,27 +69,162 @@ def setup_distributed(device: Optional[str] = None, timeout: float = 600.0
         torch.cuda.set_device(dev)
     else:
         raise ValueError(f'device must be "cuda" or "cpu", got {device!r}')
-    dist.init_process_group(backend, init_method='env://', rank=rank,
-                            world_size=world,
-                            timeout=timedelta(seconds=timeout))
+    dist.init_process_group(backend, rank=rank, world_size=world,
+                            timeout=timedelta(seconds=timeout), **init)
     return dev
 
 
-def make_mesh(axes: Dict[str, int]) -> Dict[str, Optional[dist.ProcessGroup]]:
-    """{'sp': n} -> {'sp': the process group of the n ranks}. The axis must
-    span every process (-1 takes them all); a one-process ``sp`` of 1 has
-    no group. Any other axis raises."""
-    other = sorted(set(axes) - {'sp'})
-    if other:
-        raise NotImplementedError(f'mesh axes {other} are not ported yet '
-                                  f'(ROADMAP A12); only sp is')
+def mesh_shape(axes: Dict[str, int], n_devices: int,
+               dcn_axes: Optional[Dict[str, int]] = None
+               ) -> Dict[str, int]:
+    """The axis sizes JAX's ``make_mesh`` gives ``axes`` on ``n_devices``
+    (its lines 78-107): one ``-1`` takes ``n_devices`` over the product of
+    the other sizes and of the ``dcn_axes`` sizes (floor division, as
+    JAX: a mesh that does not divide comes out with a wrong product and
+    is refused); an axis named in ``dcn_axes`` has size dcn x ici. A
+    product other than ``n_devices`` raises ``ValueError`` with JAX's
+    message."""
+    names = list(axes)
+    sizes = [int(v) for v in axes.values()]
+    if -1 in sizes:
+        known = math.prod(s for s in sizes if s != -1)
+        if dcn_axes:
+            known *= math.prod(dcn_axes.values())
+        sizes[sizes.index(-1)] = n_devices // known
+    if dcn_axes:
+        ici = tuple(sizes)
+        dcn = tuple(int(dcn_axes.get(n, 1)) for n in names)
+        if math.prod(ici) * math.prod(dcn) != n_devices:
+            raise ValueError(f'ici {ici} x dcn {dcn} != {n_devices} devices')
+        sizes = [d * i for d, i in zip(dcn, ici)]
+    elif math.prod(sizes) != n_devices:
+        raise ValueError(f'mesh {dict(zip(names, sizes))} != {n_devices} '
+                         f'devices')
+    return dict(zip(names, sizes))
+
+
+def make_mesh(axes: Dict[str, int],
+              dcn_axes: Optional[Dict[str, int]] = None):
+    """The ranks laid out on ``axes``.
+
+    * ``{'data': d, 'fsdp': f}`` (either may be left out, one may be -1,
+      ``dcn_axes`` as in JAX) -> a 2-D ``DeviceMesh`` with dimensions
+      ('data', 'fsdp') over every process of the default group (start it
+      with ``setup_distributed``; NCCL gives a mesh on the card, gloo one
+      on the CPU). Rank r sits where JAX puts device r: the ranks in
+      order, reshaped to the sizes in the order ``axes`` names them, with
+      a dcn factor outermost within its axis. A product of sizes other
+      than the world size raises as JAX's does (``mesh_shape``).
+    * ``{'sp': n}`` alone -> {'sp': the process group of the n ranks},
+      as before: the axis must span every process (-1 takes them all); a
+      one-process ``sp`` of 1 has no group.
+
+    ``sp`` above 1 beside ``data``/``fsdp`` (training under ``sp``) and the
+    ``tensor``, ``pipe`` and ``expert`` axes raise ``NotImplementedError``,
+    naming the ROADMAP item that ports them."""
+    waiting = sorted(set(axes) & set(WAITING_AXES))
+    if waiting:
+        raise NotImplementedError(
+            f'mesh axes {waiting} are not ported yet (ROADMAP A12, now '
+            f'ROADMAP.md queue A item '
+            f'{", ".join(WAITING_AXES[a] for a in waiting)}); the port takes '
+            f'data, fsdp and sp')
+    unknown = sorted(set(axes) - set(TRAIN_AXES) - {'sp'})
+    if unknown:
+        raise ValueError(f'unknown mesh axes {unknown}')
     world = dist.get_world_size() if dist.is_initialized() else 1
-    n = axes.get('sp', 1)
-    n = world if n == -1 else n
-    if n != world:
-        raise ValueError(f'sp={n} must span every process ({world}); start '
-                         f'them with setup_distributed')
-    return {'sp': dist.group.WORLD if dist.is_initialized() else None}
+    if set(axes) <= {'sp'}:
+        n = axes.get('sp', 1)
+        n = world if n == -1 else n
+        if n != world:
+            raise ValueError(f'sp={n} must span every process ({world}); '
+                             f'start them with setup_distributed')
+        return {'sp': dist.group.WORLD if dist.is_initialized() else None}
+    train_axes = {k: v for k, v in axes.items() if k != 'sp'}
+    sizes = mesh_shape(train_axes, world, dcn_axes)
+    sp = axes.get('sp', 1)
+    if sp not in (1, -1) or (sp == -1 and world > 1):
+        raise NotImplementedError(
+            'training under sp (the ring and Ulysses backward) is not ported '
+            'yet (ROADMAP.md queue A item 5.3)')
+    if not dist.is_initialized():
+        raise RuntimeError('a data/fsdp mesh needs a process group: start '
+                           'it with setup_distributed (one process too)')
+    device_type = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+    return DeviceMesh(device_type, mesh_ranks(sizes),
+                      mesh_dim_names=TRAIN_AXES)
+
+
+def mesh_ranks(sizes: Dict[str, int]) -> torch.Tensor:
+    """The ranks on the ('data', 'fsdp') grid for ``mesh_shape``'s
+    ``sizes``: 0 .. n-1 reshaped to the sizes in their given order, as JAX
+    places its devices, then ordered (data, fsdp); an axis left out has
+    size 1."""
+    ranks = torch.arange(math.prod(sizes.values())).reshape(
+        tuple(sizes.values()))
+    ranks = ranks.permute([list(sizes).index(a) for a in TRAIN_AXES
+                           if a in sizes])
+    return ranks.reshape(tuple(sizes.get(a, 1) for a in TRAIN_AXES))
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """The mesh axes the batch is split over: ``data`` and ``fsdp`` (JAX
+    ``batch_axes``: FSDP ranks hold different parameter shards and see
+    different rows too)."""
+    return tuple(a for a in TRAIN_AXES if a in mesh.mesh_dim_names)
+
+
+def batch_order(mesh) -> Sequence[int]:
+    """The ranks in the order of the rows they hold: the (data, fsdp)
+    grid read row by row, as JAX lays out ``P(('data', 'fsdp'))``."""
+    return mesh.mesh.flatten().tolist()
+
+
+def batch_ranks(mesh) -> Tuple[int, int]:
+    """(this rank's index among the batch ranks, their count): its rows
+    of a global batch of n x b are [index x b, (index + 1) x b)."""
+    order = batch_order(mesh)
+    return order.index(dist.get_rank()), len(order)
+
+
+# This process's (index, count) in the global batch while a sharded step
+# runs (``batch_rows``): read by the per-sample draws of the loss
+# (``batch_draw``) and by the LoRA dropout's per-row generators
+# (``global_rows``), so the model's and the diffusion's signatures stay the
+# JAX package's.
+_BATCH_ROWS = (0, 1)
+
+
+@contextlib.contextmanager
+def batch_rows(index: int, count: int):
+    """Within the block, ``batch_draw`` draws for a global batch of
+    ``count`` x the local rows and keeps block ``index`` of them, and
+    ``global_rows`` numbers the local rows so."""
+    global _BATCH_ROWS
+    prev, _BATCH_ROWS = _BATCH_ROWS, (index, count)
+    try:
+        yield
+    finally:
+        _BATCH_ROWS = prev
+
+
+def global_rows(b: int) -> range:
+    """The rows of the global batch that this rank's ``b`` rows are."""
+    index, _ = _BATCH_ROWS
+    return range(index * b, (index + 1) * b)
+
+
+def batch_draw(fn, shape: Sequence[int], **kwargs) -> torch.Tensor:
+    """``fn(shape, **kwargs)`` (``torch.rand`` or ``torch.randn``) for a
+    draw with one row per sample: inside ``batch_rows(i, n)`` the draw of
+    the whole batch (n x ``shape[0]`` rows) from the shared generator, of
+    which block i is returned, so every rank advances its generator alike
+    and a sample draws what it draws on one device."""
+    index, count = _BATCH_ROWS
+    if count == 1:
+        return fn(tuple(shape), **kwargs)
+    b = shape[0]
+    return fn((b * count, *shape[1:]), **kwargs).narrow(0, index * b, b)
 
 
 class SequenceParallel:

@@ -21,7 +21,8 @@ gives such a row 0 instead (``ring_attention.py:183-190, 203``); the port
 does not copy that.
 
 Inference only: the backward (the JAX package rematerializes it through its
-plain tier) waits for training under ``sp`` (ROADMAP A12).
+plain tier) waits for training under ``sp`` (ROADMAP A12, now ROADMAP.md
+queue A item 5.3).
 """
 
 from __future__ import annotations
@@ -58,7 +59,8 @@ def check_no_autograd(*tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             'sequence-parallel attention is inference only: training under '
-            'sp waits for its backward (ROADMAP A12)')
+            'sp waits for its backward (ROADMAP A12, now ROADMAP.md queue A '
+            'item 5.3)')
 
 
 def _block_stats(v, kv_valid):

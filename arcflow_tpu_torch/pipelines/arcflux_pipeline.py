@@ -311,9 +311,15 @@ class ArcFluxPipeline:
         Returns the mesh ({'sp': process group})."""
         if min_size is not None:
             raise NotImplementedError(
-                'min_size sizes weight sharding, which waits for the fsdp and '
-                'tensor axes (ROADMAP A12): with sp alone the weights stay '
-                'replicated')
+                'min_size sizes weight sharding, which in serving waits for '
+                'its slice (ROADMAP A12, now ROADMAP.md queue A item 5.6): '
+                'with sp alone the weights stay replicated')
+        other = sorted(set(mesh_axes) - {'sp'})
+        if other:
+            raise NotImplementedError(
+                f'mesh axes {other}: serving takes only sp; weight sharding '
+                f'in serving waits for ROADMAP.md queue A item 5.6 (training '
+                f'takes data and fsdp)')
         mesh = make_mesh(dict(mesh_axes))
         group = mesh['sp']
         sp = None

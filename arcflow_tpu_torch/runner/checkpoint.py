@@ -26,6 +26,15 @@ checkpoint is one ``torch.save`` of plain tensors, ints and the optimizers'
 
 Paths: a plain directory, or ``tmp:name`` under the process's temporary
 directory. Remote (``s3://``) mirrors are not ported.
+
+Over several ranks (``torch.distributed``) the format stays the same, so
+a checkpoint does not depend on the layout it was written from: every rank
+joins the gather of each sharded tensor (a ``DTensor``, ``parallel/
+fsdp.py``) to one full tensor, one tensor at a time, which rank 0 copies
+to the host and writes; ``restore`` loads the full tensors on every rank
+and copies each rank's shard into its live tensor. Rank 0 alone makes,
+cleans and prunes the directory; the ranks meet at a barrier before each
+save, after the last and before a restore, so they see one directory.
 """
 
 from __future__ import annotations
@@ -39,7 +48,9 @@ import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.fsdp import DTensor, is_sharded, local, shard_of
 from .train_state import TrainState
 
 STATE_FILE = 'state.pt'
@@ -68,13 +79,27 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier():
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _host(dtype: Optional[torch.dtype] = None):
     """Tensor -> a host copy of it (cast first to ``dtype`` when it is a
-    float tensor and one is given); other values pass."""
+    float tensor and one is given); other values pass. A sharded tensor is
+    gathered first, with every rank taking part; only rank 0 keeps it."""
     def leaf(x):
         if not isinstance(x, torch.Tensor):
             return x
         x = x.detach()
+        if is_sharded(x):
+            x = x.full_tensor()
+        if _rank() != 0:
+            return None
         if dtype is not None and x.is_floating_point():
             x = x.to(dtype)
         return x.to('cpu', copy=True)
@@ -89,6 +114,24 @@ def _optimizer_to_host(sd: dict, dtype: Optional[torch.dtype]) -> dict:
              for i, s in sd['state'].items()}
     return dict(state=state,
                 param_groups=copy.deepcopy(sd['param_groups']))
+
+
+def _shard_optimizer_state(sd: dict, tx: torch.optim.Optimizer) -> dict:
+    """A saved optimizer ``state_dict`` (full tensors) with each slot of
+    a sharded parameter's shape cut to this rank's shard of it, as a
+    ``DTensor`` laid out like the parameter."""
+    params = [p for g in tx.param_groups for p in g['params']]
+    for i, st in sd['state'].items():
+        p = params[int(i)]
+        if not is_sharded(p):
+            continue
+        for k, v in st.items():
+            if isinstance(v, torch.Tensor) and v.shape == p.shape:
+                st[k] = DTensor.from_local(
+                    shard_of(v, p).to(local(p).device), p.device_mesh,
+                    p.placements, run_check=False, shape=p.shape,
+                    stride=p.stride())
+    return sd
 
 
 def _list_steps(directory: str):
@@ -134,11 +177,13 @@ class CheckpointManager:
                  ckpt_fp16_ema: bool = False, ckpt_bf16_optim: bool = False,
                  async_save: bool = True):
         self.directory = os.path.abspath(resolve_checkpoint_dir(directory))
-        os.makedirs(self.directory, exist_ok=True)
-        for d in os.listdir(self.directory):
-            if d.startswith(_PARTIAL):      # a save killed half way
-                shutil.rmtree(os.path.join(self.directory, d),
-                              ignore_errors=True)
+        if _rank() == 0:
+            os.makedirs(self.directory, exist_ok=True)
+            for d in os.listdir(self.directory):
+                if d.startswith(_PARTIAL):      # a save killed half way
+                    shutil.rmtree(os.path.join(self.directory, d),
+                                  ignore_errors=True)
+        _barrier()
         self.interval = interval
         self.must_save_interval = must_save_interval
         self.max_keep_ckpts = max_keep_ckpts
@@ -211,6 +256,8 @@ class CheckpointManager:
         t0 = time.perf_counter()
         tree = self._to_host(state)
         self.last_save = dict(step=step, stage_s=time.perf_counter() - t0)
+        if _rank() != 0:
+            return True
         if self.async_save:
             self._thread = threading.Thread(target=self._write_guarded,
                                             args=(tree,), daemon=False)
@@ -220,10 +267,12 @@ class CheckpointManager:
         return True
 
     def wait(self):
-        """Join the write in flight; raise its error if it failed."""
+        """Join the write in flight (and meet the other ranks); raise its
+        error if it failed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError('checkpoint write failed') from err
@@ -261,9 +310,10 @@ class CheckpointManager:
                         raise KeyError(f'{what}.{k}: the checkpoint holds '
                                        f'other tensors than the live state')
                     for n, t in sub.items():
-                        t.copy_(saved[k][n])
+                        local(t).copy_(shard_of(saved[k][n], t))
         for k, tx in state.optimizers.items():
-            tx.load_state_dict(raw['optimizers'][k])
+            tx.load_state_dict(_shard_optimizer_state(raw['optimizers'][k],
+                                                      tx))
         state.generator.set_state(raw['generator'])
         state.step = int(raw['step'])
         self.last_restore_s = time.perf_counter() - t0

@@ -5,7 +5,9 @@ Counterpart of ``arcflow_tpu/runner/ema.py`` for lerp with an update every
 iteration: Karras momentum ``beta = (1 - 1/t)^(gamma + 1)``,
 ``t = iter + 1 - start_iter`` (what every config sets), or a fixed
 ``momentum`` (the JAX trainer's default without an EMA hook);
-copy-through before ``start_iter``. The EMA tensors are updated in place.
+copy-through before ``start_iter``. The EMA tensors are updated in place;
+sharded ones (``DTensor``s like their parameters, ``parallel/fsdp.py``)
+on this rank's shards.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import dataclasses
 from typing import Dict
 
 import torch
+
+from ..parallel.fsdp import local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,8 +60,9 @@ def ema_update(cfg: EmaConfig, ema_params: Dict[str, torch.Tensor],
                ) -> Dict[str, torch.Tensor]:
     """One EMA step on ``ema_params``, in place: a copy of ``new_params``
     before ``start_iter``, ``e * beta + p * (1 - beta)`` after."""
-    es = list(ema_params.values())
-    ps = [new_params[k].detach().to(e.dtype) for k, e in ema_params.items()]
+    es = [local(e) for e in ema_params.values()]
+    ps = [local(new_params[k].detach()).to(e.dtype)
+          for k, e in zip(ema_params, es)]
     if iteration < cfg.start_iter:
         torch._foreach_copy_(es, ps)
     else:

@@ -7,7 +7,10 @@ Counterpart of ``arcflow_tpu/runner/hooks.py``. A hook reads the runner
 and JSON loggers read the log buffer's scalars on the host only on their
 interval; the loss quartiles read the per-sample losses every iteration,
 as in JAX. The tensorboard and wandb logger hooks, and EvalHook's image and
-CLIP branch, are not ported.
+CLIP branch, are not ported. Over several ranks every hook runs on every
+rank (the checkpoint and the evaluation gather the shards), and only rank
+0 writes: the log lines, ``metrics.jsonl``, the evaluation samples and
+the profiler trace.
 """
 
 from __future__ import annotations
@@ -20,8 +23,13 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..registry import HOOKS
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _scalars(log_buffer: dict) -> dict:
@@ -130,6 +138,8 @@ class JsonLoggerHook(Hook):
         self._fh = None
 
     def before_run(self, runner):
+        if _rank() != 0:
+            return
         os.makedirs(runner.work_dir, exist_ok=True)
         self._fh = open(os.path.join(runner.work_dir, 'metrics.jsonl'), 'a',
                         encoding='utf-8')
@@ -270,11 +280,13 @@ class EvalHook(Hook):
                                       'ported (ROADMAP.md queue A item 7)')
         arr = (out['pred_latents'] if isinstance(out, dict) else out)
         arr = arr.detach().float().cpu().numpy()
+        runner.log_buffer['eval_sample_std'] = float(arr.std())
+        if _rank() != 0:
+            return
         out_dir = os.path.join(runner.work_dir, 'eval')
         os.makedirs(out_dir, exist_ok=True)
         np.savez(os.path.join(out_dir, f'iter_{runner.iter}.npz'),
                  samples=arr)
-        runner.log_buffer['eval_sample_std'] = float(arr.std())
         runner.logger.info(f'eval @ iter {runner.iter} written to {out_dir}')
 
 
@@ -300,6 +312,8 @@ class ProfilerHook(Hook):
         runner.logger.info(f'profiler trace written to {self.trace_path}')
 
     def after_train_iter(self, runner):
+        if _rank() != 0:
+            return
         if runner.iter == self.start_iter and self._prof is None:
             out = self.out_dir or os.path.join(runner.work_dir, 'profile')
             os.makedirs(out, exist_ok=True)
@@ -342,10 +356,14 @@ class CheckpointHook(Hook):
 def build_logger(work_dir: Optional[str],
                  name: str = 'arcflow_tpu_torch') -> logging.Logger:
     """A logger to stdout and, once per process, to a timestamped file
-    under ``work_dir``."""
+    under ``work_dir``; on ranks other than 0, warnings to stdout only."""
     logger = logging.getLogger(name)
-    logger.setLevel(logging.INFO)
     logger.propagate = False
+    if _rank() != 0:
+        logger.setLevel(logging.WARNING)
+        work_dir = None
+    else:
+        logger.setLevel(logging.INFO)
     if not logger.handlers:
         fmt = logging.Formatter('%(asctime)s %(levelname)s %(message)s')
         sh = logging.StreamHandler()

@@ -8,7 +8,10 @@ parameter group with lr * m; ``clip_and_skip`` clips to ``max_norm`` from
 ``begin_iter`` on and flags a step to skip when the norm is not finite or
 passes ``max_norm * skip_ratio``. The JAX step selects the old state
 branchlessly on a skip; here the step does not call the optimizer. Only
-AdamW, the configs' optimizer, is ported.
+AdamW, the configs' optimizer, is ported. Sharded gradients (``DTensor``s,
+``parallel/fsdp.py``) give the norm of the whole gradient with one
+all-reduce over their shards, the same on every rank, so every rank clips
+and skips alike.
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ import dataclasses
 from typing import Dict, List, Tuple
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.fsdp import is_sharded, local
 
 
 def build_optimizers(cfg: dict,
@@ -71,9 +77,18 @@ class GradClipConfig:
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over all elements of all tensors, in fp32."""
-    return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(t.float()) for t in tensors]))
+    """L2 norm over all elements of all tensors, in fp32. Over sharded
+    tensors (one mesh, sharded on its ``fsdp`` dimension, replicated on
+    ``data``): the squared norms of this rank's shards summed over the
+    ``fsdp`` group in one all-reduce, the same value on every rank."""
+    if not any(is_sharded(t) for t in tensors):
+        return torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(t.float()) for t in tensors]))
+    mesh = next(t for t in tensors if is_sharded(t)).device_mesh
+    sq = torch.stack([torch.linalg.vector_norm(local(t).float()) ** 2
+                      for t in tensors]).sum()
+    dist.all_reduce(sq, group=mesh.get_group('fsdp'))
+    return torch.sqrt(sq)
 
 
 @torch.no_grad()
@@ -85,6 +100,7 @@ def clip_and_skip(grads: List[torch.Tensor], iteration: int,
     Returns (grads, norm before clipping, skip); skip is True when the norm
     is not finite or passes ``max_norm * skip_ratio``."""
     gnorm = global_norm(grads)
+    grads = [local(g) for g in grads]
     skip = not bool(torch.isfinite(gnorm))
     if cfg.max_norm > 0.0 and iteration >= cfg.begin_iter:
         scale = torch.clamp(cfg.max_norm / torch.clamp(gnorm, min=1e-12),

@@ -8,7 +8,9 @@ preemption: the first SIGTERM or SIGINT lets the current iteration finish,
 then the hooks' ``after_run`` force-saves a checkpoint and the run returns;
 a second signal restores the default disposition so a stuck save can still
 be killed. The handlers are installed only on the main thread (Python
-delivers signals there).
+delivers signals there). Over several ranks the ranks agree on the stop
+after every iteration (one all-reduce of the flag), so a signal to any
+one of them stops all at the same iteration with one checkpoint.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Any, Callable, Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..registry import HOOKS
 from .hooks import Hook, IterTimers, build_logger
@@ -90,6 +93,15 @@ class IterBasedRunner:
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
 
+    def _any_rank_preempted(self) -> bool:
+        """Whether any rank has been signalled (this one's flag alone in
+        one process)."""
+        if not (dist.is_initialized() and dist.get_world_size() > 1):
+            return self.preempted
+        flag = torch.tensor([float(self.preempted)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
+
     def run(self) -> TrainState:
         self.call_hook('before_run')
         self.logger.info(
@@ -127,6 +139,7 @@ class IterBasedRunner:
                 self.call_hook('after_train_iter')
                 if self.gc_interval and self._iter % self.gc_interval == 0:
                     gc.collect()
+                self.preempted = self._any_rank_preempted()
         finally:
             if self.gc_interval and gc_was_enabled:
                 gc.enable()

@@ -9,6 +9,18 @@ too large a norm) calls no optimizer, so the parameters and the optimizer
 state stay exactly as they were, and logs a NaN grad norm. The EMA is
 updated every step, skipped or not, as in the JAX step. Host offload of the
 cold state is not ported (the H100 holds it).
+
+On a mesh (``parallel/mesh.py:make_mesh``, the model sharded with
+``parallel.shard_model``) each rank runs its rows of the global batch: its
+per-sample draws are its rows of the global batch's (``batch_rows``), FSDP2
+averages the gradients over the ranks, and the logged scalars are means
+over the batch ranks and the per-sample values are gathered in batch
+order, so the log is the one-device log of the global batch. The norm and
+with it the skip are the same on every rank (``optim.global_norm``). Under
+gradient accumulation chunk i of every rank together is chunk i of the
+global batch, as JAX chunks it (the loaders deal its rows so,
+``data.samplers.rank_rows``), and the gradients are reduced once, after
+the last chunk (``parallel.fsdp.gradient_sync``).
 """
 
 from __future__ import annotations
@@ -17,7 +29,10 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.fsdp import gradient_sync
+from ..parallel.mesh import batch_order, batch_ranks, batch_rows
 from .ema import EmaConfig, ema_update
 from .optim import GradClipConfig, clip_and_skip
 from .train_state import TrainState
@@ -50,21 +65,48 @@ def _merge_logs(logs):
     return out
 
 
+def global_logs(log_vars: dict, mesh) -> dict:
+    """``log_vars`` of this rank's rows -> those of the global batch: the
+    scalars' means over the batch ranks (one all-reduce), the per-sample
+    tensors gathered in batch order."""
+    out = dict(log_vars)
+    dev = torch.device(mesh.device_type)
+    scalars = [k for k, v in log_vars.items()
+               if isinstance(v, torch.Tensor) and v.dim() == 0]
+    if scalars:
+        vals = torch.stack([log_vars[k].detach().float().to(dev)
+                            for k in scalars])
+        dist.all_reduce(vals)
+        vals /= dist.get_world_size()
+        out.update(zip(scalars, vals.unbind()))
+    order = batch_order(mesh)
+    for k, v in log_vars.items():
+        if isinstance(v, torch.Tensor) and v.dim() > 0:
+            v = v.detach().to(dev).contiguous()
+            parts = [torch.empty_like(v) for _ in order]
+            dist.all_gather(parts, v)
+            out[k] = torch.cat([parts[r] for r in order])
+    return out
+
+
 def build_train_step(model, optimizers: Dict[str, torch.optim.Optimizer],
                      train_cfg: Optional[dict] = None,
                      ema_cfg: Optional[EmaConfig] = None,
-                     grad_accum_steps: int = 1):
+                     grad_accum_steps: int = 1, mesh=None):
     """``model.loss`` + optimizers + EMA as one step function.
 
     ``model`` exposes ``loss(batch, generator, running_status) -> (loss,
     log_vars)``, differentiable in ``state.trainable``. With no ``ema_cfg``
-    the step updates no EMA. Returns
+    the step updates no EMA. With ``mesh`` (the model sharded over it)
+    ``batch`` is this rank's rows of the global batch. Returns
     ``train_step(state, batch) -> (state, log_vars)``; ``state`` is updated
     in place and returned.
     """
     train_cfg = dict(train_cfg or {})
     clip_cfgs = {k: GradClipConfig.from_train_cfg(train_cfg, k)
                  for k in optimizers}
+    rows = batch_ranks(mesh) if mesh is not None else (0, 1)
+
     def train_step(state: TrainState, batch: dict):
         iteration = state.step
         running_status = dict(iteration=iteration)
@@ -74,13 +116,18 @@ def build_train_step(model, optimizers: Dict[str, torch.optim.Optimizer],
                 p.grad = None
 
         logs = []
-        for i in range(grad_accum_steps):
-            chunk = batch if grad_accum_steps == 1 \
-                else _chunk_batch(batch, grad_accum_steps, i)
-            loss, log_vars = model.loss(chunk, state.generator,
-                                        running_status=running_status)
-            (loss / grad_accum_steps).backward()
-            logs.append(dict(loss=loss.detach(), **log_vars))
+        with batch_rows(*rows):
+            for i in range(grad_accum_steps):
+                chunk = batch if grad_accum_steps == 1 \
+                    else _chunk_batch(batch, grad_accum_steps, i)
+                if mesh is not None:
+                    gradient_sync(model, i == grad_accum_steps - 1)
+                loss, log_vars = model.loss(chunk, state.generator,
+                                            running_status=running_status)
+                (loss / grad_accum_steps).backward()
+                log_vars = dict(loss=loss.detach(), **log_vars)
+                logs.append(log_vars if mesh is None
+                            else global_logs(log_vars, mesh))
         log_vars = logs[0] if grad_accum_steps == 1 else _merge_logs(logs)
 
         for k, tx in optimizers.items():

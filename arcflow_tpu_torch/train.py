@@ -7,6 +7,16 @@ The root ``train.py`` with ``--device`` in place of ``--platform``. It
 trains on the card by default, and exits non-zero without one unless
 ``--device cpu`` is given. A run that gets SIGTERM or SIGINT finishes its
 iteration, saves a checkpoint and exits 0; the same command resumes it.
+
+On N cards, one process per card:
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m arcflow_tpu_torch.train <config>
+
+With ``WORLD_SIZE`` above 1 (from the launcher or the config's
+``dist_params``, read as JAX reads them) the process group starts before
+anything is built: NCCL on the card, gloo with ``--device cpu``. The
+config's ``parallel.mesh`` lays the ranks out.
 """
 
 import argparse
@@ -14,8 +24,12 @@ import sys
 
 import torch
 
+import torch.distributed as dist
+
 from arcflow_tpu_torch import Config
 from arcflow_tpu_torch.apis import train_model
+from arcflow_tpu_torch.parallel.launch import apply_dist_params
+from arcflow_tpu_torch.parallel.mesh import setup_distributed
 
 
 def parse_args(argv=None):
@@ -47,8 +61,15 @@ def main(argv=None):
             k, _, v = opt.partition('=')
             overrides[k] = v
         cfg.merge_from_dict(overrides)
-    train_model(cfg, work_dir=args.work_dir, resume=not args.no_resume,
-                seed=args.seed, device=args.device)
+    distributed = apply_dist_params(cfg.get('dist_params')) > 1
+    if distributed:
+        setup_distributed(args.device)
+    try:
+        train_model(cfg, work_dir=args.work_dir, resume=not args.no_resume,
+                    seed=args.seed, device=args.device)
+    finally:
+        if distributed:
+            dist.destroy_process_group()
     return 0
 
 

@@ -195,11 +195,39 @@ line each, and any failure exits non-zero:
     buckets of two resolutions, 1024^2 and 768^2 (the bucketized loader,
     one iteration of each), the native Qwen2.5-VL-7B decoder at
     its published width cut to 2 layers with phase 25's toy tokenizer run
-    inside the loss; two iterations, finite, logged on the card.
+    inside the loss; two iterations, finite, logged on the card; the
+    config's mesh set to 1 x 1, so FSDP2 runs it at world size 1;
+31. (right after phase 11r, its model freed) mesh training:
+    ``configs/flux/arcflux_2nfe_k16.py`` through ``train_model`` with
+    ``parallel.mesh`` data=1, fsdp=-1 (the per-slice half of
+    ``_multihost_train.py``) on one card, so the 12B trunk and the adapter
+    go through FSDP2, the sharded AdamW, EMA and checkpoint; cuts: frozen
+    trunk bf16, batch 1, 3 iterations, a checkpoint at the third, the
+    data ``SmokePromptEmbeds`` (the ImagePrompt cache needs zstandard),
+    random weights from a seed. The shipped data=2, fsdp=-1 must be
+    refused with JAX's one-device message; against the same config
+    through ``train_model`` without a mesh (the runner's unsharded path),
+    the first iteration's loss and the adapter after it must be bitwise,
+    but for the timestep embedder's LoRA, whose gradients (summed in bf16
+    over 58 consumers in another order under FSDP2) are held to
+    ``TEMB_GRAD_REL_L2``; 12 x 57 / 2 x 57 launches per iteration; the checkpoint bitwise before and
+    after a restore; s per iteration beside phases 11 and 11r, peak
+    memory, the checkpoint's bytes and seconds.
 
 ``python3 chip_smoke.py --ranks 4`` (four cards) instead spawns 4 NCCL
 ranks and serves FLUX-12B through ``pipe.shard({'sp': 4})`` in ring and in
-Ulysses mode, against one card and against ``LocalRing(4)``.
+Ulysses mode, against one card and against ``LocalRing(4)``; then trains,
+in 4 fresh ranks, the shipped FLUX-12B config (phase 31's cuts, 2
+iterations) and the Qwen-Image 20B int8-trunk config (its shipped 4 rows a
+rank in 4 micro-batches, 1 iteration) over their mesh as shipped (data=2,
+fsdp=-1 -> 2 x 2): the launches per iteration, every rank's shards and
+generator equal to their parts of the checkpoint gathered from data
+replica 0, the FLUX checkpoint restored on the same ranks bitwise, per
+rank s per iteration, peak memory and the profiler's NCCL all-gather /
+reduce-scatter time of one more step, and FLUX's step with the LoRA
+dropout drawn as now, as before (every rank drawing the whole global
+batch's masks) and off. ``--ranks 4 --train-only`` runs the training
+alone.
 
 Then one JSON line of per-kernel numbers (each with its bound on the card
 and the time of one PyTorch library call for the same function, where there
@@ -245,10 +273,16 @@ from arcflow_tpu_torch.ops import quant_matmul as qmm
 from arcflow_tpu_torch.ops import ring_hop as hop
 from arcflow_tpu_torch.ops.gm import gm_ops
 from arcflow_tpu_torch.ops.gm import inverse_cdf as icdf
+from arcflow_tpu_torch.apis import train as t_train
 from arcflow_tpu_torch.parallel import (LocalRing, SequenceParallel,
                                         ring_attention,
                                         set_sequence_parallel,
                                         setup_distributed, spawn)
+from arcflow_tpu_torch.parallel import mesh as mesh_mod
+from arcflow_tpu_torch.parallel.fsdp import is_sharded, local, shard_of
+from arcflow_tpu_torch.parallel.mesh import batch_ranks
+from arcflow_tpu_torch.registry import DATASETS
+from arcflow_tpu_torch.runner.runner import to_device
 from arcflow_tpu_torch.pipelines import ArcFluxPipeline, ArcQwenImagePipeline
 from arcflow_tpu_torch.runner import (CheckpointHook, CheckpointManager,
                                       EmaConfig, Hook, IterBasedRunner,
@@ -1600,17 +1634,20 @@ class RaiseSigterm(Hook):
 def state_mismatches(state, raw):
     """Names of what differs, bit for bit, between the live ``state`` and
     the checkpoint dict ``raw``: trainable, EMA, optimizer slots and step
-    counts, the step and the generator's state."""
+    counts, the step and the generator's state. A sharded tensor's shard
+    on this rank is held against its part of the saved full tensor."""
     bad = []
     for what in ('trainable', 'ema'):
         for k, sub in getattr(state, what).items():
             bad += [f'{what}.{n}' for n, t in sub.items()
-                    if not torch.equal(t.detach().cpu(), raw[what][k][n])]
+                    if not torch.equal(local(t).detach().cpu(),
+                                       shard_of(raw[what][k][n], t))]
     for k, tx in state.optimizers.items():
         saved = raw['optimizers'][k]['state']
         for i, slots in tx.state_dict()['state'].items():
             bad += [f'opt.{i}.{n}' for n, v in slots.items()
-                    if not torch.equal(v.cpu(), saved[i][n])]
+                    if not torch.equal(local(v).cpu(),
+                                       shard_of(saved[i][n], v))]
     if not torch.equal(state.generator.get_state(), raw['generator']):
         bad.append('generator')
     if state.step != raw['step']:
@@ -1725,7 +1762,612 @@ def phase_train_runner(run):
         f'the restore; frozen trunk bit-identical | run {wall:.2f} s with '
         f'the forced save | peak memory {peak_gib:.2f} GiB')
     return dict(forward=sum(c[0] for c in counter.per_iter),
-                backward=sum(c[1] for c in counter.per_iter))
+                backward=sum(c[1] for c in counter.per_iter),
+                s_per_iter=per_iter)
+
+
+# ---------------------------------------------------------------------------
+# mesh training: the data and fsdp axes (phase 31 on one card, --ranks)
+# ---------------------------------------------------------------------------
+
+# phase 31: iterations of the FLUX-12B config through train_model over a
+# mesh of one device, a checkpoint at the last
+MESH_ITERS = 3
+# --ranks: (name, config, iterations, rows a rank or None as shipped) of
+# each shipped config over its shipped mesh, a checkpoint at the last:
+# FLUX-12B at phase 11r's batch 1, Qwen-Image 20B at its shipped 4 rows a
+# rank in micro-batches of its shipped grad_accum_batch_size 1
+RANKS_TRAIN = (('flux', FLUX_TRAIN_CONFIG, 2, 1),
+               ('qwen', QWEN_TRAIN_CONFIG, 1, None))
+# what JAX's make_mesh says to the shipped data=2, fsdp=-1 on one device
+# (1 // 2 = 0; tests/test_torch_mesh_train.py holds the port's message to
+# JAX's)
+ONE_DEVICE_REFUSAL = "mesh {'data': 2, 'fsdp': 0} != 1 devices"
+# phase 31 holds the adapter after the first iteration bitwise to the
+# unsharded run, except upstream of the timestep embedding that all 57
+# blocks and the head share: FSDP2 gives every unit's inputs an identity
+# autograd node (its post-backward hook), which groups the 58 bf16
+# gradients of that embedding in another order before autograd sums them,
+# each sum rounding to bf16 (2^-8 relative). So the timestep embedder's
+# LoRA gradients differ: 0.94-1.02e-2 by relative L2 on an NVIDIA H100
+# 80GB HBM3 at 700.00 W, against sqrt(58) x 2^-8 = 3e-2 for
+# 58 roundings in another order. AdamW's first step is g / (|g| + eps),
+# sign(g) wherever |g| >> eps, so an entry whose gradient lies within that
+# rounding of 0 moves the other way: the updates differ by whole steps
+# there, and are reported, not bounded.
+TEMB_UPSTREAM = ('time_text_embed.',)
+TEMB_GRAD_REL_L2 = 3e-2
+
+
+@DATASETS.register_module()
+class SmokePromptEmbeds:
+    """Prompt-embed batches from the loader's seeded generator, in place of
+    the configs' ImagePrompt cache (its records are zstandard files, and
+    the H100 machine has no zstandard): per sample zero latents of the
+    config's latent size (the data-free loss reads only their shape) and
+    normal prompt embeds of the family's width; with ``valid`` a text mask
+    of that many valid tokens, with ``negative_valid`` the negative
+    prompt's embeds that a CFG teacher takes."""
+
+    def __init__(self, latent_size, text_dim, text_len, pooled_dim=None,
+                 valid=None, negative_valid=None):
+        self.latent_size = tuple(latent_size)
+        self.text_dim, self.text_len = text_dim, text_len
+        self.pooled_dim = pooled_dim
+        self.valid, self.negative_valid = valid, negative_valid
+
+    def __len__(self):
+        return 1
+
+    def _embeds(self, rng, n, valid):
+        out = dict(encoder_hidden_states=rng.standard_normal(
+            (n, self.text_len, self.text_dim), dtype=np.float32))
+        if self.pooled_dim:
+            out['pooled_projections'] = rng.standard_normal(
+                (n, self.pooled_dim), dtype=np.float32)
+        if valid is not None:
+            out['encoder_hidden_states_mask'] = np.repeat(
+                (np.arange(self.text_len) < valid)[None], n, 0).astype(
+                    np.int64)
+        return out
+
+    def batch(self, rng, n):
+        out = dict(latents=np.zeros((n, *self.latent_size), np.float32),
+                   prompt_embed_kwargs=self._embeds(rng, n, self.valid))
+        if self.negative_valid is not None:
+            out['negative_prompt_embed_kwargs'] = self._embeds(
+                rng, n, self.negative_valid)
+        return out
+
+
+def mesh_train_config(path, iters, interval, mesh=None, unsharded=False,
+                      samples=1):
+    """``path`` through the port's ``Config`` with the cuts of phase 31 and
+    --ranks: the frozen trunk in bf16 (phase 11's cut; the Qwen config sets
+    it itself), ``samples`` rows a rank (phase 11r's 1; None keeps the
+    config's), ``iters`` iterations, a trainable-only fp32 checkpoint every
+    ``interval`` (and the forced one at the end), log interval 1, and the
+    data from ``SmokePromptEmbeds`` at the config's widths (512 text
+    tokens; Qwen's mask and its CFG negatives as phase 28 has them).
+    ``mesh`` updates ``parallel.mesh``; ``unsharded`` drops
+    ``parallel``."""
+    cfg = Config.fromfile(path)
+    m = cfg.model
+    qwen = m.diffusion.denoising.type.startswith('ArcQwen')
+    cfg_scale = cfg.train_cfg.get('teacher_guidance_scale')
+    data = dict(_delete_=True, type='SmokePromptEmbeds',
+                latent_size=m.latent_shape, text_dim=m.text_embed_dim,
+                text_len=QWEN_TXT if qwen else 512,
+                pooled_dim=None if qwen else m.pooled_dim,
+                valid=QWEN_TXT_VALID if qwen else None,
+                negative_valid=QWEN_NEG_VALID
+                if cfg_scale not in (None, 0.0, 1.0) else None)
+    opts = {'model.frozen_dtype': 'bfloat16', 'total_iters': iters,
+            'data.train': data,
+            'checkpoint_config': dict(_delete_=True, interval=interval,
+                                      trainable_only=True),
+            'log_config.interval': 1}
+    if samples is not None:
+        opts['data.train_dataloader.samples_per_gpu'] = samples
+    if mesh is not None:
+        opts['parallel.mesh'] = mesh
+    if unsharded:
+        opts['parallel'] = dict(_delete_=True)
+    cfg.merge_from_dict(opts)
+    return cfg
+
+
+def host_adapter(state):
+    """The adapter gathered whole to the host."""
+    return {n: (p.full_tensor() if is_sharded(p) else p).detach().to(
+        'cpu', copy=True) for n, p in state.trainable['diffusion'].items()}
+
+
+class IterLogs(Hook):
+    """Each iteration's loss and gradient norm; with ``keep_first`` the
+    adapter before and after the first iteration and the first
+    iteration's gradients of the adapter tensors under TEMB_UPSTREAM,
+    gathered to the host."""
+
+    priority = 36
+
+    def __init__(self, keep_first=False):
+        self.rows = []
+        self.keep_first = keep_first
+        self.adapters = []
+        self.grads = {}
+
+    def before_run(self, runner):
+        # the peak of the build (a quantized trunk is built in bf16 first);
+        # from here on the peak of training
+        self.build_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        if self.keep_first:
+            self.adapters.append(host_adapter(runner.state))
+
+    @contextlib.contextmanager
+    def first_grads(self):
+        """Within the block, the train step's first clip (the first
+        iteration's gradients) leaves the TEMB_UPSTREAM ones in
+        ``grads``."""
+        from arcflow_tpu_torch.runner import train_step as ts
+        clip = ts.clip_and_skip
+
+        def spy(grads, iteration, cfg):
+            if self.keep_first and not self.grads:
+                names = list(self.adapters[0])
+                self.grads = {
+                    names[i]: (g.full_tensor() if is_sharded(g) else g
+                               ).detach().to('cpu', copy=True)
+                    for i, g in enumerate(grads)
+                    if names[i].startswith(TEMB_UPSTREAM)}
+            return clip(grads, iteration, cfg)
+        with mock.patch.object(ts, 'clip_and_skip', spy):
+            yield
+
+    def after_train_iter(self, runner):
+        logs = runner.log_buffer
+        self.rows.append(dict(loss=float(logs['loss']),
+                              grad_norm=float(logs['diffusion_grad_norm'])))
+        if self.keep_first and len(self.rows) == 1:
+            self.adapters.append(host_adapter(runner.state))
+
+
+@contextlib.contextmanager
+def mesh_train_hooks(hooks, managers):
+    """``train_model`` with ``hooks`` added to its own and each of its
+    ``CheckpointManager``s appended to ``managers``."""
+    build_hooks_real = t_train.build_hooks
+
+    def build(*args, extra_hooks=(), **kwargs):
+        return build_hooks_real(*args, extra_hooks=[*extra_hooks, *hooks],
+                                **kwargs)
+
+    class Kept(CheckpointManager):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            managers.append(self)
+    with mock.patch.object(t_train, 'build_hooks', build), \
+            mock.patch.object(t_train, 'CheckpointManager', Kept):
+        yield
+
+
+@contextlib.contextmanager
+def random_weights(seed):
+    """``train_model``'s composition with phase 11's and phase 28's random
+    weights: normal(0.02) on every weight matrix of the student, drawn
+    before its trunk is quantized, and of the teacher's head."""
+    from arcflow_tpu_torch.models import LatentDiffusionTextImage
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    quantize = LatentDiffusionTextImage._quantize
+    build = t_train.build_model_from_cfg
+
+    def randomized_quantize(self, module):
+        randomize_(module, g)
+        return quantize(self, module)
+
+    def randomized_build(cfg, device='cuda'):
+        model = build(cfg, device=device)
+        teacher = model.teacher.denoising
+        randomize_(torch.nn.ModuleList([teacher.norm_out,
+                                        teacher.proj_out]), g)
+        return model
+    with mock.patch.object(LatentDiffusionTextImage, '_quantize',
+                           randomized_quantize), \
+            mock.patch.object(t_train, 'build_model_from_cfg',
+                              randomized_build):
+        yield
+
+
+def mesh_train_run(cfg, work, seed, keep_first=False):
+    """``train_model`` on ``cfg`` from random weights of ``seed``, with the
+    attention launches read per iteration (LaunchesPerIter), the synced
+    step and iteration times (IterTimerHook), the loss and gradient norm
+    of each iteration; returns what it read, the state and the model."""
+    counter, timings, logs = LaunchesPerIter(), Timings(), IterLogs(keep_first)
+    managers = []
+    hooks = [counter, timings, logs, IterTimerHook(interval=1, sync=True)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.LAUNCHES = attn.BWD_LAUNCHES = 0   # the main path's counted run
+    t = time.perf_counter()
+    with random_weights(seed), mesh_train_hooks(hooks, managers), \
+            logs.first_grads():
+        state, model = t_train.train_model(cfg, work_dir=work, resume=False,
+                                           device='cuda')
+    torch.cuda.synchronize()
+    return dict(state=state, model=model, wall=time.perf_counter() - t,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                build_peak_gib=logs.build_peak_gib,
+                launches=counter.per_iter,
+                s_per_iter=[r['time_iter'] for r in timings.rows],
+                s_per_step=[r['time_step'] for r in timings.rows],
+                rows=logs.rows, adapters=logs.adapters, grads=logs.grads,
+                manager=managers[0])
+
+
+def checkpoint_round_trip(state, manager):
+    """The latest checkpoint of ``manager`` against the live ``state``
+    (each rank's shards against their parts of the saved tensors), then
+    restored into a disturbed live state and held against it again.
+    Returns (bytes, load s, restore s)."""
+    path = os.path.join(manager.directory, str(manager.latest_step()),
+                        'state.pt')
+    t = time.perf_counter()
+    raw = load_raw_checkpoint(manager.directory)
+    load_s = time.perf_counter() - t
+    bad = state_mismatches(state, raw)
+    if bad:
+        raise AssertionError(f'checkpoint differs from the live state: '
+                             f'{bad[:5]} ({len(bad)})')
+    live_step = state.step
+    with torch.no_grad():
+        for sub in (*state.trainable.values(), *state.ema.values()):
+            for p in sub.values():
+                local(p).add_(1.0)
+    state.generator.manual_seed(SEED + 99)
+    state.step = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    manager.restore(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    bad = state_mismatches(state, raw)
+    if bad or state.step != live_step:
+        raise AssertionError(f'restored state differs: {bad[:5]} '
+                             f'({len(bad)}), step {state.step}')
+    return os.path.getsize(path), load_s, restore_s
+
+
+def phase_mesh_train(runner_s, bare_s):
+    """Phase 31: the FLUX-12B config through ``train_model`` over the mesh
+    data=1, fsdp=-1 (``_multihost_train.py``'s per-slice half) on one card,
+    FSDP2 at world size 1, against the same config without a mesh."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix='mesh-', dir=_build.BUILD_DIR)
+    setup_distributed()                 # a process group of one
+    try:
+        try:
+            t_train.train_model(Config.fromfile(FLUX_TRAIN_CONFIG),
+                                work_dir=os.path.join(work, 'shipped'),
+                                device='cuda')
+            raise AssertionError('the shipped mesh data=2, fsdp=-1 trained '
+                                 'on one card')
+        except ValueError as e:
+            if str(e) != ONE_DEVICE_REFUSAL:
+                raise AssertionError(f'one card refused the shipped mesh '
+                                     f'with {e!r}, JAX says '
+                                     f'{ONE_DEVICE_REFUSAL!r}') from e
+        ref = mesh_train_run(mesh_train_config(FLUX_TRAIN_CONFIG, 1, 0,
+                                               unsharded=True),
+                             os.path.join(work, 'ref'), SEED + 31,
+                             keep_first=True)
+        ref_loss = ref['rows'][0]['loss']
+        ref_before, ref_after = ref['adapters']
+        ref_grads = ref['grads']
+        ref_s = ref['s_per_step'][0]
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = mesh_train_config(FLUX_TRAIN_CONFIG, MESH_ITERS, MESH_ITERS,
+                                mesh=dict(data=1, fsdp=-1))
+        run = mesh_train_run(cfg, os.path.join(work, 'mesh'), SEED + 31,
+                             keep_first=True)
+        state, manager = run['state'], run['manager']
+        n_blocks = FLUX_12B['num_layers'] + FLUX_12B['num_single_layers']
+        want = (TRAIN_FORWARDS * n_blocks, TRAIN_BACKWARDS * n_blocks)
+        if run['launches'] != [want] * MESH_ITERS:
+            raise AssertionError(f'launches (forward, backward) per '
+                                 f'iteration {run["launches"]}, want {want}')
+        adapter = state.trainable['diffusion']
+        n_sharded = sum(is_sharded(p) for p in adapter.values())
+        if n_sharded != len(adapter) or state.step != MESH_ITERS:
+            raise AssertionError(f'{n_sharded} of {len(adapter)} adapter '
+                                 f'tensors sharded, step {state.step}')
+        rows = run['rows']
+        if not all(math.isfinite(r['loss']) and math.isfinite(r['grad_norm'])
+                   for r in rows):
+            raise AssertionError(f'iterations {rows}')
+        if rows[0]['loss'] != ref_loss:
+            raise AssertionError(f'first loss {rows[0]["loss"]!r} under the '
+                                 f'mesh, {ref_loss!r} without')
+        before, after = run['adapters']
+        before_names = list(before)
+        if any(not torch.equal(p, ref_before[n]) for n, p in before.items()):
+            raise AssertionError('the two runs start from other adapters')
+        differ = [n for n, p in after.items()
+                  if not torch.equal(p, ref_after[n])]
+        grads = {n: rel_l2(g, ref_grads[n]) for n, g in run['grads'].items()}
+        summed = {n: rel_l2(after[n] - before[n], ref_after[n] - before[n])
+                  for n in grads}
+        if not set(differ) <= set(grads) or not grads or max(
+                grads.values()) > TEMB_GRAD_REL_L2:
+            raise AssertionError(f'{len(differ)} adapter tensors differ '
+                                 f'after the first iteration, e.g. '
+                                 f'{differ[:3]}; gradients upstream of the '
+                                 f'shared timestep embedding by relative L2 '
+                                 f'{grads} (bound {TEMB_GRAD_REL_L2}), their '
+                                 f'updates {summed}')
+        del ref_before, ref_after, before, after, run['adapters']
+        nbytes, load_s, restore_s = checkpoint_round_trip(state, manager)
+        save = dict(manager.last_save)
+        # the LoRA dropout's cost, drawn as before as 4 ranks drew it
+        model = run['model']
+        mesh = next(iter(adapter.values())).device_mesh
+        step = build_train_step(model, state.optimizers, model.train_cfg,
+                                ema_config_from_cfg(cfg), mesh=mesh)
+        batch = to_device(t_train.build_dataset(cfg.data.train).batch(
+            np.random.default_rng([SEED, 31]), 1), torch.device('cuda'))
+        dropout = dropout_cost(model, state, step, batch, ranks=4)
+        del model, step
+        s_iter, s_step = run['s_per_iter'], run['s_per_step']
+        peak, build_peak = run['peak_gib'], run['build_peak_gib']
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        dist.destroy_process_group()
+    log(f'phase 31 FLUX-12B mesh training ({FLUX_TRAIN_CONFIG} through '
+        f'train_model, parallel.mesh data=1, fsdp=-1 -> FSDP2 over a 1 x 1 '
+        f'DeviceMesh on one card; cuts: frozen trunk bf16, batch 1, '
+        f'{MESH_ITERS} iterations, trainable-only checkpoint every '
+        f'{MESH_ITERS}, data SmokePromptEmbeds at 512 x 4096 + 768, random '
+        f'weights from a seed): ok | the shipped mesh data=2, fsdp=-1 '
+        f'refused: {ONE_DEVICE_REFUSAL!r} (JAX\'s message) | first '
+        f'iteration against the unsharded run: loss bitwise ({ref_loss!r}), '
+        f'{len(before_names) - len(differ)} of {len(before_names)} adapter '
+        f'tensors bitwise after it; the {len(grads)} upstream of the shared '
+        f'timestep embedding: gradients within relative L2 '
+        + ', '.join(f'{x:.3e}' for x in grads.values())
+        + f' (bound {TEMB_GRAD_REL_L2}), updates '
+        + ', '.join(f'{x:.3e}' for x in summed.values())
+        + ' (AdamW\'s first step, sign(g) where |g| >> eps) | s per synced '
+        'step '
+        + ', '.join(f'{x:.4f}' for x in s_step)
+        + ' | s per iteration ' + ', '.join(f'{x:.4f}' for x in s_iter)
+        + f' (unsharded first step {ref_s:.4f} s; phase 11r runner '
+        + ', '.join(f'{x:.4f}' for x in runner_s)
+        + f'; phase 11 bare warm step {bare_s:.4f} s) | losses '
+        + ', '.join(f'{r["loss"]:.5e}' for r in rows)
+        + ' | grad norms ' + ', '.join(f'{r["grad_norm"]:.4e}' for r in rows)
+        + f' | launches per iteration {run["launches"][0]} | peak memory '
+        f'{peak:.2f} GiB training, {build_peak:.2f} GiB building | '
+        f'{n_sharded} adapter tensors sharded (DTensor) | '
+        f'checkpoint {nbytes} bytes, gathered to the host in '
+        f'{save["stage_s"]:.3f} s, written in {save["write_s"]:.3f} s, '
+        f'loaded in {load_s:.3f} s, restored into the shards in '
+        f'{restore_s:.3f} s, bitwise before and after the restore | '
+        + dropout_line(dropout))
+    return dict(forward=sum(c[0] for c in run['launches']),
+                backward=sum(c[1] for c in run['launches']))
+
+
+def nccl_split(by_name, wall, busy):
+    """The profiler's NCCL all-gather, reduce-scatter and all-reduce kernel
+    ms of one step, with their shares of the profiled wall and device-busy
+    time. A NCCL kernel's device time includes its wait for the other
+    ranks, so the shares bound the collectives' cost from above."""
+    out = {}
+    for kind in ('AllGather', 'ReduceScatter', 'AllReduce'):
+        ms = sum(v[0] for name, v in by_name.items()
+                 if 'nccl' in name.lower() and kind in name)
+        out[kind] = dict(ms=ms, share_of_wall=ms / 1e3 / wall,
+                         share_of_busy=ms / 1e3 / busy)
+    return out
+
+
+def micro_batches(cfg):
+    """Micro-batches a rank runs per iteration of ``cfg``."""
+    spg = cfg.data.train_dataloader.get('samples_per_gpu', 1)
+    return spg // (cfg.train_cfg.get('grad_accum_batch_size') or spg)
+
+
+def whole_batch_draw(count):
+    """LoRA dropout's draw as it was before each rank drew its own rows,
+    at ``count`` batch ranks: the masks of the whole global batch from one
+    generator, of which the rank kept its rows (what
+    ``layers.uniform_rows`` replaced; the cost is what is measured, not
+    the values)."""
+    def draw(x, generator):
+        index = mesh_mod._BATCH_ROWS[0]
+        g = generator if isinstance(generator, torch.Generator) \
+            else generator[0]
+        b = x.shape[0]
+        return torch.rand((b * count, *x.shape[1:]), generator=g,
+                          device=x.device).narrow(0, index * b, b)
+    return draw
+
+
+def dropout_cost(model, state, step, batch, ranks=None):
+    """One step each with the LoRA dropout drawn as now (each rank its own
+    rows, a generator per row), as before at ``ranks`` batch ranks (this
+    mesh's when None; ``whole_batch_draw``), off (no dropout seed), and as
+    now again: s per step and peak GiB of each, and the draws of one step
+    with the bytes of their masks on this rank, now and before."""
+    if ranks is None:
+        _, ranks = batch_ranks(next(iter(
+            state.trainable['diffusion'].values())).device_mesh)
+    real, draws = layers.uniform_rows, []
+
+    def counted(x, generator):
+        draws.append(x.numel() * 4)
+        return real(x, generator)
+    den = model.diffusion.denoising
+    out = dict(ranks=ranks)
+    for name in ('now', 'before', 'off', 'now_again'):
+        patch = dict(now=counted, before=whole_batch_draw(ranks)).get(
+            name, real)
+        p = den.lora_dropout
+        if name == 'off':
+            den.lora_dropout = 0.0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with mock.patch.object(layers, 'uniform_rows', patch):
+            step(state, batch)
+        torch.cuda.synchronize()
+        out[name] = dict(s=time.perf_counter() - t,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        den.lora_dropout = p
+    out['draws'] = len(draws)
+    out['mask_bytes_now'] = sum(draws)
+    out['mask_bytes_before'] = sum(draws) * ranks
+    return out
+
+
+def dropout_line(d):
+    """``dropout_cost``'s reading as text."""
+    return (f'LoRA dropout, s per step (peak GiB) drawn now / as before at '
+            f'{d["ranks"]} batch ranks / off / now again: '
+            + ' / '.join(f'{d[k]["s"]:.4f} ({d[k]["peak_gib"]:.2f})'
+                         for k in ('now', 'before', 'off', 'now_again'))
+            + f'; {d["draws"]} draws a step, masks of {d["mask_bytes_now"]} '
+            f'bytes now, {d["mask_bytes_before"]} before')
+
+
+def mesh_rank_main(out_dir):
+    """One rank of ``--ranks N``'s training: each of ``RANKS_TRAIN`` over
+    its mesh as shipped (data=2, fsdp=-1), with a checkpoint written at
+    the last iteration (FLUX's restored on the same ranks), one more step
+    profiled, and FLUX's LoRA dropout timed now, before and off
+    (``dropout_cost``); writes ``train{r}.json``."""
+    setup_distributed(timeout=600.0)
+    rank = dist.get_rank()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    work = os.path.join(out_dir, 'work')
+    res = dict(rank=rank)
+    for name, path, iters, samples in RANKS_TRAIN:
+        cfg = mesh_train_config(path, iters, iters, samples=samples)
+        run = mesh_train_run(cfg, os.path.join(work, name), SEED + 32)
+        state, model = run['state'], run['model']
+        mesh = next(iter(state.trainable['diffusion'].values())).device_mesh
+        raw = load_raw_checkpoint(run['manager'].directory)
+        shards_bad = state_mismatches(state, raw)
+        del raw
+        round_trip = None
+        if name == 'flux':
+            round_trip = checkpoint_round_trip(state, run['manager'])
+        # one more step of one row under the profiler: the collectives'
+        # share
+        step = build_train_step(model, state.optimizers, model.train_cfg,
+                                ema_config_from_cfg(cfg), mesh=mesh)
+        batch = t_train.build_dataset(cfg.data.train).batch(
+            np.random.default_rng([SEED, rank]), 1)
+        batch = to_device(batch, torch.device('cuda',
+                                              torch.cuda.current_device()))
+        wall, busy, by_name = profile_split(lambda: step(state, batch))
+        dropout = dropout_cost(model, state, step, batch) \
+            if name == 'flux' else None
+        quant = [b for n, b in model.diffusion.denoising.named_buffers()
+                 if n.endswith('.kernel')]
+        res[name] = dict(
+            mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), iters=iters,
+            samples=cfg.data.train_dataloader.samples_per_gpu,
+            micro_batches=micro_batches(cfg),
+            launches=run['launches'], s_per_iter=run['s_per_iter'],
+            rows=run['rows'], peak_gib=run['peak_gib'],
+            build_peak_gib=run['build_peak_gib'], wall=run['wall'],
+            shards_bad=shards_bad[:5], n_shards_bad=len(shards_bad),
+            round_trip=round_trip, profiled_wall_s=wall,
+            device_busy_s=busy, nccl=nccl_split(by_name, wall, busy),
+            dropout=dropout,
+            int8_trunk_bytes_per_rank=sum(b.numel() * b.element_size()
+                                          for b in quant),
+            int8_trunk_sharded=any(is_sharded(b) for b in quant))
+        del state, model, step, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f'train{rank}.json'), 'w') as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def check_mesh_ranks(ranks, n):
+    """--ranks' training read across the ranks: the launches per
+    iteration, finite losses, and each rank's shards (trainable, EMA,
+    optimizer slots) and generator equal to their parts of the checkpoint
+    rank 0 gathered from its data replica: the check that the replicas
+    agree. The logged loss and gradient norm are all-reduced before they
+    are logged, the same on every rank by construction, and prove
+    nothing of the kind."""
+    bad = []
+    for name, n_blocks in (('flux', FLUX_12B['num_layers']
+                            + FLUX_12B['num_single_layers']),
+                           ('qwen', QWEN_20B['num_layers'])):
+        for r in ranks:
+            got = r[name]
+            want = [got['micro_batches'] * TRAIN_FORWARDS * n_blocks,
+                    got['micro_batches'] * TRAIN_BACKWARDS * n_blocks]
+            if got['launches'] != [want] * got['iters']:
+                bad.append((r['rank'], name, 'launches', got['launches']))
+            if got['n_shards_bad']:
+                bad.append((r['rank'], name, 'shards', got['shards_bad']))
+            if not all(math.isfinite(x['loss']) for x in got['rows']):
+                bad.append((r['rank'], name, 'loss', got['rows']))
+            if got['mesh'] != {'data': 2, 'fsdp': n // 2}:
+                bad.append((r['rank'], name, 'mesh', got['mesh']))
+    if bad:
+        raise AssertionError(f'--ranks {n} training failed: {bad}')
+    r0 = ranks[0]
+    for name in ('flux', 'qwen'):
+        lines = []
+        for r in ranks:
+            x = r[name]
+            lines.append(
+                f'rank {r["rank"]}: s per iteration '
+                + ', '.join(f'{s:.4f}' for s in x['s_per_iter'])
+                + f', peak {x["peak_gib"]:.2f} GiB training '
+                f'({x["build_peak_gib"]:.2f} building), profiled step wall '
+                f'{x["profiled_wall_s"]:.4f} s, busy '
+                f'{x["device_busy_s"]:.4f} s, NCCL '
+                + ', '.join(f'{k} {v["ms"]:.1f} ms ({100 * v["share_of_wall"]:.1f}% '
+                            f'of wall)' for k, v in x['nccl'].items()))
+        x = r0[name]
+        extra = ''
+        if x['round_trip'] is not None:
+            nbytes, load_s, restore_s = x['round_trip']
+            extra = (f' | checkpoint {nbytes} bytes, loaded in {load_s:.3f} '
+                     f's, restored into the shards in {restore_s:.3f} s on '
+                     f'every rank, bitwise')
+        if name == 'qwen':
+            extra += (f' | int8 trunk buffers {x["int8_trunk_bytes_per_rank"]}'
+                      f' bytes per rank, sharded: {x["int8_trunk_sharded"]}')
+        if x['dropout'] is not None:
+            extra += ' | ' + ' ; '.join(
+                f'rank {r["rank"]} ' + dropout_line(r[name]['dropout'])
+                for r in ranks)
+        log(f'phase RT {name} training on {n} NCCL ranks (mesh '
+            f'{x["mesh"]}, as shipped; {x["samples"]} rows a rank in '
+            f'{x["micro_batches"]} micro-batches, {x["iters"]} iterations): '
+            f'ok | launches per iteration {x["launches"][0]} on every rank '
+            f'| losses '
+            + ', '.join(f'{row["loss"]:.5e}' for row in x['rows'])
+            + ' | grad norms '
+            + ', '.join(f'{row["grad_norm"]:.4e}' for row in x['rows'])
+            + ' (rank 0) | every rank\'s shards equal to their part of the '
+            'checkpoint gathered from data replica 0' + extra + ' | '
+            + ' ; '.join(lines))
 
 
 def k7_bound(b, s, h, valid_keys=None):
@@ -2964,13 +3606,9 @@ def rank_main(out_dir):
     dist.destroy_process_group()
 
 
-def main_ranks(n):
-    smi = phase_facts()
-    if torch.cuda.device_count() < n:
-        raise SystemExit(f'FAIL ranks: --ranks {n} needs {n} cards, '
-                         f'{torch.cuda.device_count()} visible')
-    phase_build()
-    out_dir = tempfile.mkdtemp(prefix='ranks-', dir=_build.BUILD_DIR)
+def serve_ranks(n, out_dir):
+    """--ranks' serving: FLUX-12B and Qwen w4a8 over sp = n in ring and
+    Ulysses mode, read across the ranks; returns each rank's results."""
     t = time.perf_counter()
     spawn(rank_main, n, (out_dir,), timeout=600.0)
     wall = time.perf_counter() - t
@@ -3015,7 +3653,29 @@ def main_ranks(n):
             f'every rank bitwise equal to rank 0' for mode in modes[2:])
         + f' ; first masked ring attention bitwise equal to LocalRing({n}) '
         f'on every rank')
-    print(json.dumps({'ranks': ranks}))
+    return ranks
+
+
+def main_ranks(n, serve=True):
+    """``--ranks n``: serving over sp = n (unless ``serve`` is off:
+    ``--train-only``), then mesh training over data=2, fsdp=n/2."""
+    smi = phase_facts()
+    if torch.cuda.device_count() < n:
+        raise SystemExit(f'FAIL ranks: --ranks {n} needs {n} cards, '
+                         f'{torch.cuda.device_count()} visible')
+    phase_build()
+    out_dir = tempfile.mkdtemp(prefix='ranks-', dir=_build.BUILD_DIR)
+    ranks = serve_ranks(n, out_dir) if serve else None
+    t = time.perf_counter()
+    spawn(mesh_rank_main, n, (out_dir,), timeout=1200.0)
+    train_wall = time.perf_counter() - t
+    train = [json.load(open(os.path.join(out_dir, f'train{r}.json')))
+             for r in range(n)]
+    shutil.rmtree(os.path.join(out_dir, 'work'), ignore_errors=True)
+    check_mesh_ranks(train, n)
+    log(f'phase RT mesh training on {n} NCCL ranks: ok in {train_wall:.1f} '
+        f's (both configs, builds, checkpoints and profiles included)')
+    print(json.dumps({'ranks': ranks, 'train': train}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -3973,7 +4633,8 @@ def phase_qwen_train_cli():
 
 def main():
     if sys.argv[1:2] == ['--ranks']:
-        return main_ranks(int(sys.argv[2]))
+        return main_ranks(int(sys.argv[2]),
+                          serve='--train-only' not in sys.argv[3:])
     smi = phase_facts()
     torch.manual_seed(SEED)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4011,7 +4672,12 @@ def main():
     torch.cuda.empty_cache()
     train_launches, train_run = phase_train_full()
     runner_launches = phase_train_runner(train_run)
+    bare_step_s = train_run['warm']
     del train_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches = phase_mesh_train(runner_launches['s_per_iter'],
+                                     bare_step_s)
     gc.collect()
     torch.cuda.empty_cache()
     k6_err, k6_timed = phase_k6_vs_plain()
@@ -4054,10 +4720,12 @@ def main():
                    'qwen_prompt': qwen_prompt['launches']['attention'],
                    'flux_train': train_launches['forward'],
                    'flux_train_runner': runner_launches['forward'],
+                   'flux_mesh_train': mesh_launches['forward'],
                    'qwen_train': qwen_train['forward'],
                    'qwen_train_runner': qwen_runner['forward']}
     bwd_by_path = {'flux_train': train_launches['backward'],
                    'flux_train_runner': runner_launches['backward'],
+                   'flux_mesh_train': mesh_launches['backward'],
                    'qwen_train': qwen_train['backward'],
                    'qwen_train_runner': qwen_runner['backward']}
     print(json.dumps({'kernels': [

@@ -135,3 +135,20 @@ def test_prefetcher_keeps_the_loader_order():
     p.close()
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a['x'], b['x'])
+
+
+def test_prefetcher_stages_batches_on_the_device():
+    """With ``device`` the worker hands out the loader's batches as tensors
+    on that device (the runner's ``to_device``), values unchanged; strings
+    stay as they are."""
+    import torch
+    want = _take(build_dataloader(CheckerboardData(), 8, seed=1), 3)
+    prompts = ({'x': b['x'], 'prompt': np.array(['a'] * 8)} for b in
+               build_dataloader(CheckerboardData(), 8, seed=1))
+    p = Prefetcher(prompts, depth=2, device=torch.device('cpu'))
+    got = _take(p, 3)
+    p.close()
+    for a, b in zip(got, want):
+        assert isinstance(a['x'], torch.Tensor) and a['x'].device.type == 'cpu'
+        np.testing.assert_array_equal(a['x'].numpy(), b['x'])
+        assert a['prompt'].dtype.kind == 'U'

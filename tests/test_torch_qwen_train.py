@@ -64,7 +64,8 @@ from arcflow_tpu_torch.pipelines import (jax_params_to_torch,
 from arcflow_tpu_torch.registry import MODELS
 from test_torch_qwen_text import write_tokenizer
 from test_torch_train import (GRAD_REL_L2, LOSS_RTOL, _jitter, _map,
-                              _port_batch, _rel_l2, _replaying)
+                              _port_batch, _rel_l2, _replaying,
+                              _teacher_u_without_lora)
 
 torch.set_num_threads(1)
 
@@ -349,7 +350,8 @@ def test_untied_teacher_keeps_a_trunk_of_its_own(trunk):
 @pytest.mark.parametrize('trunk', ['bf16', 'int8', 'int4'])
 def test_tied_teacher_shares_the_student_trunk_storage(trunk):
     """The tied teacher's trunk tensors, the quantized buffers included,
-    are the student's own: the trunk is in memory once."""
+    are the student's own: the trunk is in memory once. The LoRA among
+    them is the student's too, and the teacher runs without it."""
     model = port_model(model_cfg(trunk))
     student = model.diffusion.denoising
     teacher = model.teacher.denoising
@@ -359,7 +361,7 @@ def test_tied_teacher_shares_the_student_trunk_storage(trunk):
     assert head == {'proj_out.weight', 'proj_out.bias',
                     'norm_out.modulation.weight', 'norm_out.modulation.bias'}
     shared = [n for n in t_state if n not in head]
-    assert shared and not any('lora' in n for n in t_state)
+    assert shared and any('lora' in n for n in shared)
     for n in shared:
         assert t_state[n] is s_state[n], n
         assert t_state[n].data_ptr() == s_state[n].data_ptr(), n
@@ -370,7 +372,10 @@ def test_tied_teacher_shares_the_student_trunk_storage(trunk):
     assert set(frozen) == {'base', 'teacher_head'}
     assert set(frozen['teacher_head']) == head
     ptrs = {t.data_ptr() for t in frozen['base'].values()}
+    trainable = model.init_params()[0]['diffusion']
+    ptrs |= {t.data_ptr() for t in trainable.values()}
     assert all(t_state[n].data_ptr() in ptrs for n in shared)
+    assert _teacher_u_without_lora(model, _port_batch(make_batch()))
 
 
 def test_quantized_split_matches_jax():

@@ -13,6 +13,7 @@ relative and each adapter gradient within 1e-3 relative L2, since both run
 in fp32 and differ only in the order of their sums.
 """
 
+import contextlib
 import copy
 from unittest import mock
 
@@ -229,11 +230,45 @@ def test_adapter_and_frozen_split_match_jax(jax_params):
                for sub in t_frozen.values() for p in sub.values())
 
 
+def _teacher_u_without_lora(model, batch):
+    """Whether the teacher's u on ``batch``'s latents stays the same after
+    the student's LoRA leaves are redrawn, while it moves when the
+    teacher's runs leave the LoRA on (``lora_disabled`` a no-op): the
+    teacher runs the trunk modules it shares with the student with their
+    LoRA off. Every parameter is jittered first, so that the zero-init
+    modulations let each block's output through."""
+    from arcflow_tpu_torch.models import latent_diffusion
+    latents = batch['latents']
+    t = torch.full((latents.shape[0],), 0.5)
+    u = model._teacher_fn(batch, latents.shape[0])
+    g = torch.Generator().manual_seed(5)
+    params = [*model.diffusion.denoising.parameters(),
+              *model.teacher.denoising.parameters()]
+
+    def lora_on():
+        return mock.patch.object(latent_diffusion, 'lora_disabled',
+                                 contextlib.nullcontext)
+    with torch.no_grad():
+        for p in params:
+            p.add_(0.05 * torch.randn(p.shape, generator=g, dtype=p.dtype))
+        before = u(latents, t)
+        with lora_on():
+            before_on = u(latents, t)
+        for n, p in model.diffusion.denoising.named_parameters():
+            if 'lora' in n:
+                p.normal_(generator=g)
+        with lora_on():
+            moved = not torch.equal(u(latents, t), before_on)
+        return moved and torch.equal(u(latents, t), before)
+
+
 def test_teacher_shares_the_student_trunk_and_has_no_lora():
+    """The tied teacher's trunk is the student's modules; the LoRA among
+    their parameters is the student's, and the teacher runs without it."""
     model = port_model(model_cfg())
     student = dict(model.diffusion.denoising.named_parameters())
     teacher = dict(model.teacher.denoising.named_parameters())
-    assert not any('lora' in n for n in teacher)
+    assert any('lora' in n for n in teacher)
     head = [n for n in teacher if n.startswith(('proj_out.', 'norm_out.'))]
     assert sorted(head) == ['norm_out.modulation.bias',
                             'norm_out.modulation.weight', 'proj_out.bias',
@@ -244,6 +279,7 @@ def test_teacher_shares_the_student_trunk_and_has_no_lora():
     # the student's norm_out is its own (adapter), not the teacher's head
     assert student['norm_out.modulation.weight'] is not \
         teacher['norm_out.modulation.weight']
+    assert _teacher_u_without_lora(model, _port_batch(make_batch()))
 
 
 def _port_grads(checkpointing, lora_dropout=0.1):
@@ -276,6 +312,16 @@ def test_checkpointing_keeps_the_gradients_with_lora_dropout():
                                    atol=1e-7)
     loss_plain, _ = _port_grads(checkpointing=False, lora_dropout=0.0)
     assert loss_plain != loss_ref
+
+
+def test_a_teacher_unlike_the_student_is_not_tied():
+    """A tied teacher whose trunk module differs from the student's (here
+    the context embedder's input width) is refused at build time."""
+    cfg = model_cfg()
+    cfg['teacher']['denoising']['joint_attention_dim'] = 48
+    with pytest.raises(ValueError, match='context_embedder has no frozen '
+                                         'student twin'):
+        port_model(cfg)
 
 
 def test_lora_dropout_only_with_a_generator():
