@@ -7,7 +7,9 @@ forms (``forward_u``) and the scheduler-driven sampler (``forward_test``).
 The JAX module passes params and PRNG keys into every method; here the
 denoiser is an ``nn.Module`` holding its parameters, randomness comes from
 an explicit ``torch.Generator``, and the sampler is a Python loop over the
-host-computed sigma grid where the JAX module runs one ``lax.scan``.
+host-computed sigma grid where the JAX module runs one ``lax.scan``
+(a stateful scheduler's state rides along in the loop, as in the scan's
+carry).
 Submodules come as built objects or as registry configs, as in JAX.
 """
 
@@ -220,7 +222,9 @@ class GaussianFlow:
                      **kwargs) -> torch.Tensor:
         """Scheduler-driven sampling from ``noise`` over ``num_timesteps``
         steps of the ``sampler``'s sigma grid, with CFG as ``forward_u``;
-        a stochastic scheduler draws from ``generator``."""
+        a stateful scheduler (the multistep solvers) carries its
+        ``init_state`` through the steps, as JAX's scan does; a stochastic
+        scheduler draws from ``generator``."""
         cfg = copy.deepcopy(self.test_cfg)
         cfg.update(test_cfg_override or {})
         scheduler = self.build_test_scheduler(cfg)
@@ -232,12 +236,19 @@ class GaussianFlow:
         sigmas = scheduler.set_timesteps(num_steps, seq_len=seq_len)
         x = noise.float()
         b = x.shape[0]
+        stateful = getattr(scheduler, 'stateful', False)
+        state = scheduler.init_state(x) if stateful else None
         for sigma, sigma_next in zip(sigmas[:-1], sigmas[1:]):
             t = torch.full((b,), float(sigma), dtype=torch.float32,
                            device=x.device) * self.num_timesteps
             out = self._guided(x, t, guidance_scale, orthogonal, interval,
                                **kwargs).float()
-            x = scheduler.step(out, x, sigma, sigma_next,
-                               prediction_type=prediction_type,
-                               generator=generator)
+            if stateful:
+                x, state = scheduler.step_with_state(
+                    out, x, sigma, sigma_next, state,
+                    prediction_type=prediction_type, generator=generator)
+            else:
+                x = scheduler.step(out, x, sigma, sigma_next,
+                                   prediction_type=prediction_type,
+                                   generator=generator)
         return x.to(noise.dtype)

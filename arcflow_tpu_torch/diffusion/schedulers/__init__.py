@@ -1,11 +1,17 @@
 """Inference-time flow schedulers: counterpart of
-``arcflow_tpu/diffusion/schedulers`` for the Euler ODE and the SDE,
-registered in ``SCHEDULERS`` under the JAX names. The DPM-solver family
-and the FlowAdapter dispatcher wait for their slice."""
+``arcflow_tpu/diffusion/schedulers``, registered in ``SCHEDULERS`` under
+the JAX names: the Euler ODE, the SDE, the stateful high-order solvers
+(DPM-Solver++, UniPC, DEIS, SA-Solver) and the ``FlowAdapterScheduler``
+dispatcher."""
 
 from ...registry import SCHEDULERS
+from .flow_dpmsolver import (FlowAdapterScheduler, FlowDEISScheduler,
+                             FlowDPMSolverScheduler, FlowSASolverScheduler,
+                             FlowUniPCScheduler)
 from .flow_euler_ode import FlowEulerODEScheduler, shift_sigmas
 from .flow_sde import FlowSDEScheduler
 
-__all__ = ['FlowEulerODEScheduler', 'FlowSDEScheduler', 'SCHEDULERS',
-           'shift_sigmas']
+__all__ = ['FlowAdapterScheduler', 'FlowDEISScheduler',
+           'FlowDPMSolverScheduler', 'FlowEulerODEScheduler',
+           'FlowSASolverScheduler', 'FlowSDEScheduler', 'FlowUniPCScheduler',
+           'SCHEDULERS', 'shift_sigmas']

@@ -1,4 +1,5 @@
 from .base import Diffusion2D, Distillation2D
+from .class_image import LatentDiffusionClassImage
 from .flux import ArcFluxTransformer2DModel, FluxTransformer2DModel
 from .latent_diffusion import LatentDiffusionTextImage
 from .qwen import ArcQwenImageTransformer2DModel, QwenImageTransformer2DModel
@@ -7,12 +8,16 @@ from .qwen_vae import PretrainedVAEQwenImage
 from .text_encoders import (PretrainedFluxTextEncoder,
                             PretrainedQwenImageTextEncoder,
                             PretrainedStableDiffusion3TextEncoder)
+from .unet import (ARCUNET_ADAPTER_KEYS, ArcDenoisingUnetMod,
+                   DenoisingUnetMod)
 from .toy import (SpectrumMLP, ToyArcFlowDenoiser, ToyGMFlowDenoiser,
                   ToyMLPDenoiser)
 from .vae import PretrainedVAE, PretrainedVAEDecoder, PretrainedVAEEncoder
 
-__all__ = ['ArcFluxTransformer2DModel', 'ArcQwenImageTransformer2DModel',
-           'Diffusion2D', 'Distillation2D', 'FluxTransformer2DModel',
+__all__ = ['ARCUNET_ADAPTER_KEYS', 'ArcDenoisingUnetMod',
+           'ArcFluxTransformer2DModel', 'ArcQwenImageTransformer2DModel',
+           'DenoisingUnetMod', 'Diffusion2D', 'Distillation2D',
+           'FluxTransformer2DModel', 'LatentDiffusionClassImage',
            'LatentDiffusionTextImage', 'PretrainedFluxTextEncoder',
            'PretrainedQwenImageTextEncoder',
            'PretrainedStableDiffusion3TextEncoder', 'PretrainedVAE',

@@ -13,7 +13,8 @@ which does the same unstacking for diffusers naming):
   ``kernel``, and its ``kernel_scale`` (1, out) from the ``quant``
   collection stays as it is, for a module quantized by the port's
   ``quantize_weights_int8`` (whose int8 ``kernel`` buffer has that shape);
-* an RMSNorm or GroupNorm ``scale`` becomes ``weight``;
+* an RMSNorm or GroupNorm ``scale``, and a flax ``Embed``'s
+  ``embedding`` (rows, features), become ``weight``;
 * ``bias``, the LoRA leaves ``lora_a`` (in, r) / ``lora_b`` (r, out), the
   Wan RMSNorm ``gamma`` and the int4 leaves of the JAX ``quant``
   collection, ``kernel_packed4`` (in/2, out) and ``kernel_scale4``
@@ -81,7 +82,7 @@ def _leaf(name: str, v: np.ndarray):
         if v.ndim == 4:
             return 'weight', v.transpose(3, 2, 0, 1)
         raise ValueError(f'unexpected kernel rank {v.ndim}')
-    if name == 'scale':
+    if name in ('scale', 'embedding'):
         return 'weight', v
     return name, v
 
@@ -94,7 +95,8 @@ def jax_params_to_torch(tree: Mapping, quant: Optional[Mapping] = None
     module of the same structure (``ArcFluxTransformer2DModel``,
     ``ArcQwenImageTransformer2DModel`` (after ``quantize_weights_int8`` or
     ``quantize_weights_int4`` when ``quant`` is given), ``PretrainedVAE``,
-    ``PretrainedVAEQwenImage``, the toy denoisers: ``ToyMLPDenoiser`` and
+    ``PretrainedVAEQwenImage``, the UNets of ``models/unet.py``, the toy
+    denoisers: ``ToyMLPDenoiser`` and
     ``ToyArcFlowDenoiser``'s rank-0 ``LoRADense_i`` trunks map as any
     dense layer)."""
     out = {}

@@ -7,10 +7,10 @@ Counterpart of ``arcflow_tpu/runner/hooks.py``. A hook reads the runner
 and JSON loggers read the log buffer's scalars on the host only on their
 interval; the loss quartiles read the per-sample losses every iteration,
 as in JAX. The tensorboard and wandb logger hooks, and EvalHook's image and
-CLIP branch, are not ported. Over several ranks every hook runs on every
-rank (the checkpoint and the evaluation gather the shards), and only rank
-0 writes: the log lines, ``metrics.jsonl``, the evaluation samples and
-the profiler trace.
+CLIP branch, are not ported (its latent Fréchet distance is). Over
+several ranks every hook runs on every rank (the checkpoint and the
+evaluation gather the shards), and only rank 0 writes: the log lines,
+``metrics.jsonl``, the evaluation samples and the profiler trace.
 """
 
 from __future__ import annotations
@@ -244,21 +244,25 @@ class QuartileLossLoggerHook(Hook):
 class EvalHook(Hook):
     """Every ``interval`` iterations, ``model.val_step`` on a fixed batch
     (by default ``num_samples`` draws of noise) with the EMA weights where
-    the state has them: the samples go to ``work_dir/eval/iter_N.npz`` and
-    their std to the log buffer as ``eval_sample_std``. The image branch
-    (an image grid, the CLIP score) and the metrics (``latent_fd``) are not
-    ported."""
+    the state has them: the samples go to ``work_dir/eval/iter_N.npz``,
+    their std to the log buffer as ``eval_sample_std`` and, with the
+    ``latent_fd`` metric (the default, as in JAX) and reference
+    ``latents`` in the batch, their latent Fréchet distance to those as
+    ``eval_latent_fd``. The image branch (an image grid, the
+    ``clip_score`` metric) waits for ``utils/io_utils.save_image_grid``
+    and is refused by name."""
 
     priority = 60
 
     def __init__(self, interval: int = 1000, batch: Optional[dict] = None,
                  num_samples: int = 64, val_kwargs: Optional[dict] = None,
-                 metrics: Sequence[str] = (), clip_path: Optional[str] = None):
-        if metrics or clip_path is not None:
+                 metrics: Sequence[str] = ('latent_fd',),
+                 clip_path: Optional[str] = None):
+        self.metrics = tuple(metrics or ())
+        if 'clip_score' in self.metrics or clip_path is not None:
             raise NotImplementedError(
-                f'EvalHook metrics {tuple(metrics)}: the image, CLIP and '
-                f'latent_fd branches are not ported (ROADMAP.md queue A '
-                f'item 7)')
+                'EvalHook clip_score: the image and CLIP branch is not '
+                'ported (ROADMAP.md queue A item 7)')
         self.interval = interval
         self.batch = batch
         self.num_samples = num_samples
@@ -281,6 +285,13 @@ class EvalHook(Hook):
         arr = (out['pred_latents'] if isinstance(out, dict) else out)
         arr = arr.detach().float().cpu().numpy()
         runner.log_buffer['eval_sample_std'] = float(arr.std())
+        ref = batch.get('latents')
+        if 'latent_fd' in self.metrics and ref is not None:
+            from ..utils.metrics import latent_frechet_distance
+            if isinstance(ref, torch.Tensor):
+                ref = ref.float().cpu().numpy()
+            runner.log_buffer['eval_latent_fd'] = latent_frechet_distance(
+                arr, ref)
         if _rank() != 0:
             return
         out_dir = os.path.join(runner.work_dir, 'eval')

@@ -400,13 +400,15 @@ def test_sde_scheduler_step_with_replayed_noise(h, pt):
 def test_build_test_scheduler_by_name():
     jf, _, tf = gmflows()
     for cfg in (dict(), dict(sampler='FlowSDE', sampler_kwargs=dict(h=0.5),
-                             shift=2.0)):
+                             shift=2.0),
+                dict(sampler='FlowDPMSolver',
+                     sampler_kwargs=dict(solver_order=1))):
         got, want = tf.build_test_scheduler(cfg), jf.build_test_scheduler(cfg)
         assert type(got).__name__ == type(want).__name__
         assert {f: getattr(got, f) for f in got.__dataclass_fields__} == \
             {f: getattr(want, f) for f in want.__dataclass_fields__}
     with pytest.raises(AttributeError, match='Cannot find sampler'):
-        tf.build_test_scheduler(dict(sampler='FlowDPMSolver'))
+        tf.build_test_scheduler(dict(sampler='FlowNoSuchSolver'))
 
 
 # ---- training -------------------------------------------------------------------
