@@ -2,8 +2,10 @@
 
 The JAX package ``arcflow_tpu`` is the reference; this package mirrors its
 layout (``apis/``, ``data/``, ``diffusion/``, ``models/``, ``ops/``,
-``parallel/``, ``pipelines/``, ``runner/``, ``config.py``, ``registry.py``)
-and names, imports ``torch`` and never ``jax``. Configs build through its
+``parallel/``, ``pipelines/``, ``runner/``, ``ui/``, ``utils/``,
+``config.py``, ``registry.py``; ``tools/`` and
+``export_arcflow_to_diffusers.py`` for the repository root's scripts) and
+names, imports ``torch`` and never ``jax``. Configs build through its
 own registries, which the subpackage imports below fill. Its hand-written
 kernels, one for every Pallas kernel of the JAX package, are the attention
 forward and backward in ``csrc/attention_fwd.cu`` and

@@ -62,6 +62,22 @@ class ArcFlowPolicy:
             sigma_t_src=sigma.reshape(x_t_src.shape[0]),
             eps=eps)
 
+    @property
+    def num_components(self) -> int:
+        return self.means_u.shape[1]
+
+    @property
+    def means_x0(self) -> torch.Tensor:
+        """x0-space means, x_src - sigma_src * u, per component
+        (B, K, *data)."""
+        sigma = _bshape(self.sigma_t_src, self.x_t_src.dim())[:, None]
+        return self.x_t_src[:, None] - sigma * self.means_u
+
+    def rates_full(self) -> torch.Tensor:
+        """(B, K, *bcast) rates with component 0's rate 0 first."""
+        return torch.cat([torch.zeros_like(self.loggammas[:, :1]),
+                          self.loggammas], dim=1)
+
     def weights(self) -> torch.Tensor:
         return torch.softmax(self.logweights, dim=1)
 

@@ -29,8 +29,20 @@ the heads, so every rank returns the whole output. A stream whose length
 stream_padding``): they are masked as keys in every attention (the same
 key-padding mask a Qwen text mask takes) and their rows are dropped before
 the heads, so the output is the unsharded one. Streams ``sp`` divides are
-not padded and run unmasked, as before. ControlNet residuals,
-fill inputs, MoE and pipeline parallelism wait for their slices.
+not padded and run unmasked, as before. MoE and pipeline parallelism wait
+for their slices.
+
+ControlNet (JAX ``flux.py:263-275, 318-390``): ``controlnet_block_samples``
+(n residuals (B, N_img, D)) are added to the image stream at the end of the
+joint blocks, block i taking sample ``i // ceil(19 / n)`` (the interval
+map) or, with ``controlnet_blocks_repeat``, sample ``i % n`` (the repeat
+map of XLabs ControlNets); ``controlnet_single_block_samples`` to the image
+tokens at the end of the single blocks, on the interval map. Flux-fill
+(JAX 393-410): ``mask`` and ``masked_image_latents`` (B, H, W, *) are
+patchified and concatenated onto the packed latents' features, so only
+``x_embedder`` is wider (``in_channels``, 384 for FLUX.1-Fill-dev); the
+heads' width is ``out_channels`` (the latents' ``p * p * c``, by default
+``in_channels``), as in a diffusers Fill config.
 """
 
 from __future__ import annotations
@@ -154,7 +166,8 @@ class FluxJointBlock(nn.Module):
         self.ff_img = FeedForward(dim, **lora, **kw)
         self.ff_txt = FeedForward(dim, **lora, **kw)
 
-    def forward(self, img, txt, rope, temb, mask=None, generator=None):
+    def forward(self, img, txt, rope, temb, mask=None, cn=None,
+                generator=None):
         h_img, gate_i, shift_mlp_i, scale_mlp_i, gate_mlp_i = \
             self.img_norm1(img, temb)
         h_txt, gate_t, shift_mlp_t, scale_mlp_t, gate_mlp_t = \
@@ -166,6 +179,8 @@ class FluxJointBlock(nn.Module):
         h_txt = layer_norm_no_affine(txt) * (1 + scale_mlp_t) + shift_mlp_t
         img = img + gate_mlp_i * self.ff_img(h_img, generator)
         txt = txt + gate_mlp_t * self.ff_txt(h_txt, generator)
+        if cn is not None:          # a ControlNet residual on the image
+            img = img + cn.to(img.dtype)
         return img, txt
 
 
@@ -184,12 +199,28 @@ class FluxSingleBlock(nn.Module):
         self.proj_mlp = LoRADense(dim, mlp_dim, **lora)
         self.proj_out = LoRADense(num_heads * head_dim + mlp_dim, dim, **lora)
 
-    def forward(self, x, rope, temb, mask=None, generator=None):
+    def forward(self, x, rope, temb, mask=None, cn=None, generator=None):
         h, gate = self.norm(x, temb)
         attn_out = self.attn(h, rope, mask=mask)
         mlp_h = F.gelu(self.proj_mlp(h, generator), approximate='tanh')
         fused = torch.cat([attn_out, mlp_h], dim=-1)
-        return x + gate * self.proj_out(fused, generator)
+        x = x + gate * self.proj_out(fused, generator)
+        if cn is not None:
+            # a ControlNet residual on the image tokens: the sequence is
+            # [txt, img], the text part gets zeros
+            x = x + F.pad(cn.to(x.dtype), (0, 0, x.shape[1] - cn.shape[1], 0))
+        return x
+
+
+def controlnet_index(n_samples: int, n_layers: int, repeat: bool
+                     ) -> List[int]:
+    """The ControlNet sample each of ``n_layers`` blocks takes (JAX
+    ``_stack_controlnet_samples``): ``i % n`` with ``repeat``, else
+    ``i // ceil(n_layers / n)``."""
+    if repeat:
+        return [i % n_samples for i in range(n_layers)]
+    interval = math.ceil(n_layers / n_samples)
+    return [i // interval for i in range(n_layers)]
 
 
 def make_img_ids(h_tokens: int, w_tokens: int, device=None) -> torch.Tensor:
@@ -230,7 +261,8 @@ class FluxBackbone(nn.Module):
                  lora_rank: int = 0, lora_dropout: float = 0.0,
                  checkpointing: bool = True, patch_size: int = 2,
                  guidance_embeds: bool = True, pretrained=None,
-                 pretrained_adapter=None, device=None, dtype=None):
+                 pretrained_adapter=None, out_channels: Optional[int] = None,
+                 device=None, dtype=None):
         super().__init__()
         # a checkpoint loads through the training composition, which takes
         # these keys off the config (models/latent_diffusion.py), or through
@@ -240,6 +272,7 @@ class FluxBackbone(nn.Module):
                     pretrained=(pretrained, None),
                     pretrained_adapter=(pretrained_adapter, None))
         self.in_channels = in_channels
+        self.out_channels = out_channels or in_channels
         self.axes_dims_rope = tuple(axes_dims_rope)
         self.lora_dropout = lora_dropout
         self.checkpointing = checkpointing
@@ -265,11 +298,20 @@ class FluxBackbone(nn.Module):
               encoder_hidden_states: torch.Tensor,
               pooled_projections: torch.Tensor, img_ids: torch.Tensor,
               txt_ids: torch.Tensor, guidance: torch.Tensor,
-              dropout_seed: Optional[int] = None):
+              dropout_seed: Optional[int] = None,
+              controlnet_block_samples: Optional[Sequence] = None,
+              controlnet_single_block_samples: Optional[Sequence] = None,
+              controlnet_blocks_repeat: bool = False):
         """packed (B, N_img, in_channels) -> (hidden (B, N_img, D), temb).
-        ``dropout_seed`` turns the LoRA dropout on (training)."""
+        ``dropout_seed`` turns the LoRA dropout on (training); the
+        ControlNet residuals go to the blocks by ``controlnet_index``."""
         n_blocks = len(self.joint_blocks) + len(self.single_blocks)
         sp = self.sequence_parallel
+        cn_joint = self._controlnet(controlnet_block_samples,
+                                    len(self.joint_blocks),
+                                    controlnet_blocks_repeat)
+        cn_single = self._controlnet(controlnet_single_block_samples,
+                                     len(self.single_blocks), False)
         n_img = packed.shape[1]
         pad_t, pad_i = stream_padding(sp, encoder_hidden_states.shape[1],
                                       n_img)
@@ -301,25 +343,44 @@ class FluxBackbone(nn.Module):
                                 self.axes_dims_rope)
         for i, block in enumerate(self.joint_blocks):
             img, txt = run_block(block, i, dropout_seed, self.checkpointing,
-                                 img, txt, rope, temb, mask)
+                                 img, txt, rope, temb, mask, cn_joint[i])
         hidden = torch.cat([txt, img], dim=1)
-        for i, block in enumerate(self.single_blocks, len(self.joint_blocks)):
+        n_joint = len(self.joint_blocks)
+        for i, block in enumerate(self.single_blocks, n_joint):
             hidden = run_block(block, i, dropout_seed, self.checkpointing,
-                               hidden, rope, temb, mask)
+                               hidden, rope, temb, mask,
+                               cn_single[i - n_joint])
         img = hidden[:, txt.shape[1]:]
         if isinstance(sp, SequenceParallel):
             img = sp.gather(img)
         return img[:, :n_img], temb
 
-    def _prepare_tokens(self, hidden_states, encoder_hidden_states):
-        """patchify + position ids."""
+    def _controlnet(self, samples, n_layers: int, repeat: bool) -> list:
+        """Each block's ControlNet residual, or None for each."""
+        if samples is None:
+            return [None] * n_layers
+        if self.sequence_parallel is not None:
+            raise NotImplementedError('ControlNet residuals under sequence '
+                                      'parallelism are not ported')
+        return [samples[j] for j in controlnet_index(len(samples), n_layers,
+                                                     repeat)]
+
+    def _prepare_tokens(self, hidden_states, encoder_hidden_states,
+                        mask=None, masked_image_latents=None):
+        """patchify (+ the Flux-fill inputs, patchified and concatenated
+        onto the features when both are given) + position ids."""
         b, h, w, c = hidden_states.shape
         p = self.patch_size
         dev = hidden_states.device
+        packed = patchify(hidden_states, p)
+        if mask is not None and masked_image_latents is not None:
+            packed = torch.cat(
+                [packed, patchify(masked_image_latents.to(packed.dtype), p),
+                 patchify(mask.to(packed.dtype), p)], dim=-1)
         img_ids = make_img_ids(h // p, w // p, device=dev)
         txt_ids = torch.zeros((encoder_hidden_states.shape[1], 3),
                               dtype=img_ids.dtype, device=dev)
-        return patchify(hidden_states, p), img_ids, txt_ids
+        return packed, img_ids, txt_ids
 
 
 class ArcFlowHeads:
@@ -335,7 +396,7 @@ class ArcFlowHeads:
     def _init_heads(self, num_gaussians: int, device=None, dtype=None):
         self.num_gaussians = k = num_gaussians
         p = self.patch_size
-        c = self.in_channels // (p * p)
+        c = self.out_channels // (p * p)
         inner = self.inner_dim
         self.norm_out = AdaLayerNormContinuous(inner, device=device,
                                                dtype=dtype)
@@ -363,7 +424,7 @@ class ArcFlowHeads:
         """Trunk tokens (B, N, D) -> the mixture dict, heads in fp32."""
         p = self.patch_size
         k = self.num_gaussians
-        c = self.in_channels // (p * p)
+        c = self.out_channels // (p * p)
         hidden = self.norm_out(hidden, temb).float()
         n = hidden.shape[1]
 
@@ -399,13 +460,19 @@ class ArcFluxTransformer2DModel(ArcFlowHeads, FluxBackbone):
                 encoder_hidden_states: torch.Tensor,
                 pooled_projections: torch.Tensor,
                 guidance: torch.Tensor,
-                dropout_seed: Optional[int] = None) -> dict:
+                dropout_seed: Optional[int] = None,
+                mask: Optional[torch.Tensor] = None,
+                masked_image_latents: Optional[torch.Tensor] = None,
+                controlnet_block_samples: Optional[Sequence] = None,
+                controlnet_single_block_samples: Optional[Sequence] = None,
+                controlnet_blocks_repeat: bool = False) -> dict:
         b, h, w, _ = hidden_states.shape
         packed, img_ids, txt_ids = self._prepare_tokens(
-            hidden_states, encoder_hidden_states)
-        hidden, temb = self.trunk(packed, t, encoder_hidden_states,
-                                  pooled_projections, img_ids, txt_ids,
-                                  guidance, dropout_seed)
+            hidden_states, encoder_hidden_states, mask, masked_image_latents)
+        hidden, temb = self.trunk(
+            packed, t, encoder_hidden_states, pooled_projections, img_ids,
+            txt_ids, guidance, dropout_seed, controlnet_block_samples,
+            controlnet_single_block_samples, controlnet_blocks_repeat)
         return self._heads(hidden, temb, b, h, w)
 
 
@@ -426,19 +493,25 @@ class FluxTransformer2DModel(FluxBackbone):
         student's) and only this head on the device."""
         self.norm_out = AdaLayerNormContinuous(self.inner_dim, device=device,
                                                dtype=dtype)
-        self.proj_out = LoRADense(self.inner_dim, self.in_channels,
+        self.proj_out = LoRADense(self.inner_dim, self.out_channels,
                                   device=device, dtype=torch.float32)
 
     def forward(self, hidden_states: torch.Tensor, t: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
                 pooled_projections: torch.Tensor,
                 guidance: torch.Tensor,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[int] = None,
+                mask: Optional[torch.Tensor] = None,
+                masked_image_latents: Optional[torch.Tensor] = None,
+                controlnet_block_samples: Optional[Sequence] = None,
+                controlnet_single_block_samples: Optional[Sequence] = None,
+                controlnet_blocks_repeat: bool = False) -> torch.Tensor:
         b, h, w, _ = hidden_states.shape
         packed, img_ids, txt_ids = self._prepare_tokens(
-            hidden_states, encoder_hidden_states)
-        hidden, temb = self.trunk(packed, t, encoder_hidden_states,
-                                  pooled_projections, img_ids, txt_ids,
-                                  guidance, dropout_seed)
+            hidden_states, encoder_hidden_states, mask, masked_image_latents)
+        hidden, temb = self.trunk(
+            packed, t, encoder_hidden_states, pooled_projections, img_ids,
+            txt_ids, guidance, dropout_seed, controlnet_block_samples,
+            controlnet_single_block_samples, controlnet_blocks_repeat)
         out = self.proj_out(self.norm_out(hidden, temb).float())
         return unpatchify(out, h, w, self.patch_size)

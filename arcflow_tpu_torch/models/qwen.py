@@ -82,7 +82,7 @@ class QwenBackbone(nn.Module):
         # flux.py:FluxBackbone)
         check_fixed(patch_size=(patch_size, 2), pretrained=(pretrained, None),
                     pretrained_adapter=(pretrained_adapter, None))
-        self.in_channels = in_channels
+        self.in_channels = self.out_channels = in_channels
         self.axes_dims_rope = tuple(axes_dims_rope)
         self.max_text_len = max_text_len
         self.lora_dropout = lora_dropout

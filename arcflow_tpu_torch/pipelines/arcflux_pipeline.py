@@ -10,10 +10,10 @@ kernels follow the device the modules and inputs live on; the w8a8 and
 w4a8 modes are state of the transformer's layers and the sequence-parallel
 layout (``shard``) state of its trunk and attention modules; there is no
 process-wide serving, quantization or mesh flag. ``from_pretrained`` reads
-local diffusers folders (a transformer folder, or a whole pipeline folder
-with ``model_index.json``); hub names and remote URIs wait for
-``utils/io_utils`` (ROADMAP.md queue A item 7), the mesh axes other than
-``sp`` for theirs.
+diffusers folders (a transformer folder, local or behind a remote URI of
+``utils/io_utils``, or a whole local pipeline folder with
+``model_index.json``); the mesh axes other than ``sp`` wait for their
+slice.
 """
 
 from __future__ import annotations
@@ -85,8 +85,8 @@ class ArcFluxPipeline:
     @classmethod
     def from_pretrained(cls, model_dir: str, transformer_cls=None,
                         device='cuda', dtype=torch.bfloat16, **kwargs):
-        """Build from a local diffusers folder (JAX ``from_pretrained``):
-        a transformer folder (``config.json`` + safetensors, sharded or
+        """Build from a diffusers folder (JAX ``from_pretrained``): a
+        transformer folder (``config.json`` + safetensors, sharded or
         not) loads the DiT and takes the rest from ``kwargs``; a pipeline
         folder (``model_index.json``) assembles every component
         (``_from_pipeline_folder``). The transformer's class comes from
@@ -98,21 +98,38 @@ class ArcFluxPipeline:
         any shape mismatch, raises (a folder of the other family); a key
         the model has no place for raises too, except the LoRA leaves of
         layers built without LoRA, which are fused into their weights. The
-        few missing keys keep their init: the adapter brings them."""
-        if '://' in model_dir:
-            raise NotImplementedError(
-                f'{model_dir}: remote folders need utils/io_utils, which the '
-                f'port does not have yet (ROADMAP.md queue A item 7); '
-                f'download the folder and pass its local path')
-        if os.path.exists(os.path.join(model_dir, 'model_index.json')):
-            return cls._from_pipeline_folder(
-                model_dir, transformer_cls=transformer_cls, device=device,
-                dtype=dtype, **kwargs)
+        few missing keys keep their init: the adapter brings them. A remote
+        URI (``huggingface://org/repo``, ``s3://``; ``utils/io_utils``)
+        names a transformer folder; a remote pipeline folder is refused, as
+        in JAX."""
         from .. import models
+        from ..utils.io_utils import get_file_backend, uri_scheme
         from .convert import (diffusers_to_torch,
                               expand_proj_out_to_arc_heads,
                               load_safetensors_state)
-        cfg = _read_json(os.path.join(model_dir, 'config.json'))
+        if uri_scheme(model_dir) != 'local':
+            # a remote transformer folder (JAX lines 126-140): config.json
+            # and the weights through the scheme's backend
+            backend = get_file_backend(model_dir)
+            if backend.exists(backend.join_path(model_dir,
+                                                'model_index.json')):
+                raise NotImplementedError(
+                    f'{model_dir} is a full pipeline folder (model_index.'
+                    f'json): assembling one needs a local folder; download '
+                    f'it and pass its path. Remote URIs load transformer '
+                    f'folders only, as in JAX.')
+            cfg_uri = backend.join_path(model_dir, 'config.json')
+            cfg = json.loads(backend.get(cfg_uri)) \
+                if backend.exists(cfg_uri) else {}
+        elif os.path.exists(os.path.join(model_dir, 'model_index.json')):
+            return cls._from_pipeline_folder(
+                model_dir, transformer_cls=transformer_cls, device=device,
+                dtype=dtype, **kwargs)
+        else:
+            cfg = _read_json(os.path.join(model_dir, 'config.json'))
+        # the weights first: a folder without them fails before a model of
+        # the default (12B) size is built
+        raw = load_safetensors_state(model_dir)
         if transformer_cls is None and cfg.get('_class_name'):
             transformer_cls = getattr(models, cfg['_class_name'], None)
         transformer_cls = transformer_cls or models.ArcFluxTransformer2DModel
@@ -124,7 +141,7 @@ class ArcFluxPipeline:
         model = transformer_cls(device=device, dtype=dtype, **cfg).eval()
         family = model.family
         state, _ = diffusers_to_torch(
-            load_safetensors_state(model_dir),
+            raw,
             len(getattr(model, 'joint_blocks', None)
                 or model.transformer_blocks),
             len(getattr(model, 'single_blocks', ())),
@@ -254,7 +271,7 @@ class ArcFluxPipeline:
                         device=None) -> torch.Tensor:
         """Gaussian latents (B, H/8, W/8, C) in fp32 from ``generator``."""
         p = self.transformer.patch_size
-        channels = self.transformer.in_channels // (p * p)
+        channels = self.transformer.out_channels // (p * p)
         return torch.randn((batch_size, height // 8, width // 8, channels),
                            generator=generator, dtype=torch.float32,
                            device=device)

@@ -594,14 +594,38 @@ def diffusers_qwen_vae_to_torch(state: State, encoder: bool = False
 def load_safetensors_state(path: str) -> Dict[str, Tensor]:
     """A ``.safetensors`` file, a sharded ``*.safetensors.index.json`` or a
     folder of either -> {key: tensor} on the CPU, in the stored dtype
-    (bf16 stays bf16). Local paths only: remote URIs wait for
-    ``utils/io_utils``."""
+    (bf16 stays bf16). ``path`` may be a remote URI (``utils/io_utils``):
+    a remote folder is probed for the diffusers file names, sharded index
+    first, and each file is read through ``io_utils.local_file`` (JAX
+    ``convert.py:201-231`` reads only backends with a local cache, the hub;
+    the port fetches the bytes of any backend)."""
     from safetensors.torch import load_file
-    if '://' in path:
-        raise NotImplementedError(
-            f'{path}: remote checkpoints need utils/io_utils, which the port '
-            f'does not have yet (ROADMAP.md queue A item 7); download the '
-            f'files and pass the local path')
+
+    from ..utils.io_utils import get_file_backend, local_file, uri_scheme
+    if uri_scheme(path) != 'local':
+        backend = get_file_backend(path)
+        if not path.endswith(('.safetensors', '.index.json')):
+            for name in REMOTE_WEIGHT_NAMES:
+                if backend.exists(backend.join_path(path, name)):
+                    path = backend.join_path(path, name)
+                    break
+            else:
+                raise FileNotFoundError(
+                    f'no safetensors checkpoint found under {path}')
+        if path.endswith('.index.json'):
+            with local_file(path, suffix='.json') as local, \
+                    open(local) as f:
+                index = json.load(f)
+            base = path.rsplit('/', 1)[0]
+            files = [f'{base}/{shard}'
+                     for shard in sorted(set(index['weight_map'].values()))]
+        else:
+            files = [path]
+        state = {}
+        for f in files:
+            with local_file(f, suffix='.safetensors') as local:
+                state.update(load_file(local))
+        return state
     if os.path.isdir(path):
         index = sorted(f for f in os.listdir(path)
                        if f.endswith('.safetensors.index.json'))
@@ -624,3 +648,11 @@ def load_safetensors_state(path: str) -> Dict[str, Tensor]:
             state.update(load_file(os.path.join(base, shard)))
         return state
     return load_file(path)
+
+
+# the file names a remote model folder is probed for, in order (JAX
+# ``convert.py:214-217``)
+REMOTE_WEIGHT_NAMES = ('diffusion_pytorch_model.safetensors.index.json',
+                       'model.safetensors.index.json',
+                       'diffusion_pytorch_model.safetensors',
+                       'model.safetensors')

@@ -3,7 +3,8 @@
 policy as JSON under ``policy_config`` in the file's metadata.
 
 Counterpart of ``arcflow_tpu/pipelines/loader.py``: a file either package
-writes loads in the other. Remote URIs wait for ``utils/io_utils``.
+writes loads in the other. A remote URI (``huggingface://``, ``s3://``,
+``http(s)://``) is read through ``utils/io_utils``.
 """
 
 from __future__ import annotations
@@ -35,14 +36,14 @@ def load_adapter_state(path: str, family: str = 'flux'
                        ) -> Tuple[Dict[str, torch.Tensor], Optional[dict]]:
     """An adapter file -> (the port's ``state_dict`` keys,
     ``policy_config`` or None). LoRA keys come plain or peft-style
-    (``lora_A.default.weight``); a key no map takes raises, as in JAX."""
+    (``lora_A.default.weight``); a key no map takes raises, as in JAX.
+    ``path`` may be a remote URI: the hub's cached file is read in place,
+    another backend's bytes go through a temporary file, removed after."""
     from safetensors import safe_open
-    if '://' in path:
-        raise NotImplementedError(
-            f'{path}: remote adapters need utils/io_utils, which the port '
-            f'does not have yet (ROADMAP.md queue A item 7); download the '
-            f'file and pass the local path')
-    with safe_open(path, framework='pt') as f:
+
+    from ..utils.io_utils import local_file
+    with local_file(path, suffix='.safetensors') as local, \
+            safe_open(local, framework='pt') as f:
         meta = f.metadata() or {}
         state = {k: f.get_tensor(k) for k in f.keys()}
     policy_config = json.loads(meta['policy_config']) \

@@ -24,8 +24,14 @@ checkpoint is one ``torch.save`` of plain tensors, ints and the optimizers'
 * ``interval``, ``must_save_interval`` (steps kept forever) and
   ``max_keep_ckpts`` (the newest other steps kept) as in JAX.
 
-Paths: a plain directory, or ``tmp:name`` under the process's temporary
-directory. Remote (``s3://``) mirrors are not ported.
+Paths: a plain directory, ``tmp:name`` under the process's temporary
+directory, or a remote URI of ``utils/io_utils`` (``s3://`` ...), staged in
+a local directory and mirrored as in JAX: after each save rank 0 pushes the
+step's files, ``manifest-<step>.txt`` and ``latest.txt`` (in the writer,
+before pruning: ``wait`` returns once the remote holds the step), and a new
+manager pulls the latest remote step into its staging directory (one
+process per host, the others at a barrier), so a fresh machine resumes
+from the remote. The mirror carries the port's format (``state.pt``).
 
 Over several ranks (``torch.distributed``) the format stays the same, so
 a checkpoint does not depend on the layout it was written from: every rank
@@ -40,35 +46,86 @@ save, after the last and before a restore, so they see one directory.
 from __future__ import annotations
 
 import copy
+import hashlib
 import os
 import shutil
 import tempfile
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ..parallel.fsdp import DTensor, is_sharded, local, shard_of
+from ..utils.io_utils import (get_file_backend, is_node_local_rank_zero,
+                              uri_scheme)
 from .train_state import TrainState
 
 STATE_FILE = 'state.pt'
 _PARTIAL = '.partial-'
 
 
-def resolve_checkpoint_dir(uri: str) -> str:
-    """A checkpoint URI -> its local directory: ``tmp:name`` lies under
-    ``tempfile.gettempdir()``, a plain path is itself; a remote scheme is
-    refused."""
+def resolve_checkpoint_dir(uri: str) -> Tuple[str, Optional[str]]:
+    """A checkpoint URI -> (its local directory, the remote URI or None), as
+    JAX's (``arcflow_tpu/runner/checkpoint.py:25-50``): ``tmp:name`` lies
+    under ``tempfile.gettempdir()``; a remote scheme of ``utils/io_utils``
+    (``s3://`` ...) is staged under ``arcflow_ckpt_<md5 of the URI>`` there
+    and mirrored; a plain path is itself."""
     if uri.startswith('tmp:'):
         return os.path.join(tempfile.gettempdir(), 'arcflow_ckpt',
-                            uri[len('tmp:'):])
-    if '://' in uri:
-        raise NotImplementedError(
-            f'{uri}: remote checkpoint mirrors need utils/io_utils, which '
-            f'the port does not have yet (ROADMAP.md queue A item 7)')
-    return uri
+                            uri[len('tmp:'):]), None
+    if uri_scheme(uri) != 'local':
+        tag = hashlib.md5(uri.encode()).hexdigest()[:10]
+        return os.path.join(tempfile.gettempdir(),
+                            f'arcflow_ckpt_{tag}'), uri.rstrip('/')
+    return uri, None
+
+
+def push_step(local_dir: str, remote_uri: str, step: int):
+    """Mirror ``local_dir/<step>`` to ``remote_uri/<step>`` file by file
+    (``put_file``: streamed, multipart on S3), then ``manifest-<step>.txt``
+    (the files' relative paths) and ``latest.txt`` (JAX
+    ``_push_step_to_remote``)."""
+    be = get_file_backend(remote_uri)
+    step_dir = os.path.join(local_dir, str(step))
+    manifest = []
+    for root, _, files in os.walk(step_dir):
+        for f in sorted(files):
+            rel = os.path.relpath(os.path.join(root, f), step_dir)
+            manifest.append(rel)
+            be.put_file(os.path.join(step_dir, rel),
+                        be.join_path(remote_uri, str(step), rel))
+    be.put('\n'.join(manifest).encode(),
+           be.join_path(remote_uri, f'manifest-{step}.txt'))
+    be.put(str(step).encode(), be.join_path(remote_uri, 'latest.txt'))
+
+
+def pull_step(local_dir: str, remote_uri: str, step: Optional[int] = None
+              ) -> Optional[int]:
+    """Fetch ``step`` (by default the one ``latest.txt`` names) from
+    ``remote_uri`` into ``local_dir/<step>`` unless it is there already
+    (JAX ``_pull_latest_from_remote``); written to a hidden directory and
+    renamed, as a save is. Returns the step, or None when the remote holds
+    no checkpoint."""
+    be = get_file_backend(remote_uri)
+    if step is None:
+        latest = be.join_path(remote_uri, 'latest.txt')
+        if not be.exists(latest):
+            return None
+        step = int(be.get(latest).decode().strip())
+    if os.path.isdir(os.path.join(local_dir, str(step))):
+        return step
+    manifest = be.get(be.join_path(
+        remote_uri, f'manifest-{step}.txt')).decode().splitlines()
+    os.makedirs(local_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=f'{_PARTIAL}{step}-', dir=local_dir)
+    for rel in manifest:
+        dst = os.path.join(tmp, rel)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        be.get_file(be.join_path(remote_uri, str(step), rel), dst)
+    os.rename(tmp, os.path.join(local_dir, str(step)))
+    return step
 
 
 def _map(fn, tree):
@@ -145,8 +202,11 @@ def _list_steps(directory: str):
 def load_raw_checkpoint(directory: str, step: Optional[int] = None) -> dict:
     """The saved dict of ``step`` (the latest by default) under
     ``directory``, on the host, with no live state needed: e.g. a trained
-    flow teacher for a distillation run."""
-    directory = resolve_checkpoint_dir(directory)
+    flow teacher for a distillation run. A remote URI's step is fetched
+    into its staging directory first."""
+    directory, remote = resolve_checkpoint_dir(directory)
+    if remote is not None:
+        step = pull_step(directory, remote, step)
     steps = _list_steps(directory)
     if step is None:
         if not steps:
@@ -176,7 +236,8 @@ class CheckpointManager:
                  ckpt_trainable_only: bool = True, ckpt_fp16: bool = False,
                  ckpt_fp16_ema: bool = False, ckpt_bf16_optim: bool = False,
                  async_save: bool = True):
-        self.directory = os.path.abspath(resolve_checkpoint_dir(directory))
+        local_dir, self.remote_uri = resolve_checkpoint_dir(directory)
+        self.directory = os.path.abspath(local_dir)
         if _rank() == 0:
             os.makedirs(self.directory, exist_ok=True)
             for d in os.listdir(self.directory):
@@ -184,6 +245,12 @@ class CheckpointManager:
                     shutil.rmtree(os.path.join(self.directory, d),
                                   ignore_errors=True)
         _barrier()
+        if self.remote_uri is not None:
+            # one process per host fetches the latest remote step into the
+            # host's staging directory; the others wait for it
+            if is_node_local_rank_zero():
+                pull_step(self.directory, self.remote_uri)
+            _barrier()
         self.interval = interval
         self.must_save_interval = must_save_interval
         self.max_keep_ckpts = max_keep_ckpts
@@ -225,9 +292,13 @@ class CheckpointManager:
         torch.save(tree, path)
         nbytes = os.path.getsize(path)
         os.rename(tmp, os.path.join(self.directory, str(step)))
-        self._prune()
         self.last_save.update(bytes=nbytes,
                               write_s=time.perf_counter() - t0)
+        if self.remote_uri is not None:
+            t0 = time.perf_counter()
+            push_step(self.directory, self.remote_uri, step)
+            self.last_save['push_s'] = time.perf_counter() - t0
+        self._prune()
 
     def _write_guarded(self, tree: dict):
         try:

@@ -6,11 +6,10 @@ Counterpart of ``arcflow_tpu/runner/hooks.py``. A hook reads the runner
 ``logger``, ``timers``) after each iteration and around the run. The text
 and JSON loggers read the log buffer's scalars on the host only on their
 interval; the loss quartiles read the per-sample losses every iteration,
-as in JAX. The tensorboard and wandb logger hooks, and EvalHook's image and
-CLIP branch, are not ported (its latent Fréchet distance is). Over
-several ranks every hook runs on every rank (the checkpoint and the
-evaluation gather the shards), and only rank 0 writes: the log lines,
-``metrics.jsonl``, the evaluation samples and the profiler trace.
+as in JAX. Over several ranks every hook runs on every rank (the
+checkpoint and the evaluation gather the shards), and only rank 0 writes:
+the log lines, ``metrics.jsonl``, the TensorBoard and Weights & Biases
+streams, the evaluation samples and the profiler trace.
 """
 
 from __future__ import annotations
@@ -158,6 +157,83 @@ class JsonLoggerHook(Hook):
 
 
 @HOOKS.register_module()
+class TensorboardLoggerHook(Hook):
+    """Each interval's scalars as a TensorBoard event stream
+    (``torch.utils.tensorboard``, which needs the ``tensorboard`` package)
+    under ``log_dir`` (``work_dir/tf_logs`` by default); rank 0 writes."""
+
+    priority = 90
+
+    def __init__(self, interval: int = 50, log_dir: Optional[str] = None):
+        self.interval = interval
+        self.log_dir = log_dir
+        self._writer = None
+
+    def after_train_iter(self, runner):
+        if runner.iter % self.interval != 0 or _rank() != 0:
+            return
+        if self._writer is None:
+            from torch.utils.tensorboard import SummaryWriter
+            self._writer = SummaryWriter(
+                self.log_dir or os.path.join(runner.work_dir, 'tf_logs'))
+        for k, v in _scalars(runner.log_buffer).items():
+            self._writer.add_scalar(k, v, runner.iter)
+        self._writer.flush()
+
+    def after_run(self, runner):
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
+
+
+@HOOKS.register_module()
+class WandbLoggerHook(Hook):
+    """Each interval's scalars to Weights & Biases (``wandb.init(**
+    init_kwargs)``, its ``dir`` the work dir by default; ``WANDB_MODE=
+    offline`` on a machine without network); without the ``wandb``
+    package, a warning and ``work_dir/metrics.jsonl`` instead, as in JAX.
+    Rank 0 logs."""
+
+    priority = 90
+
+    def __init__(self, interval: int = 50,
+                 init_kwargs: Optional[dict] = None):
+        self.interval = interval
+        self.init_kwargs = dict(init_kwargs or {})
+        self._run = None
+        self._fallback = None
+
+    def before_run(self, runner):
+        if _rank() != 0:
+            return
+        try:
+            import wandb
+        except ImportError:
+            runner.logger.warning(
+                'wandb is not installed; WandbLoggerHook falls back to '
+                'metrics.jsonl (install wandb, or use WANDB_MODE=offline, '
+                'for an event stream)')
+            self._fallback = JsonLoggerHook(self.interval)
+            self._fallback.before_run(runner)
+            return
+        self._run = wandb.init(**{'dir': runner.work_dir,
+                                  **self.init_kwargs})
+
+    def after_train_iter(self, runner):
+        if self._fallback is not None:
+            self._fallback.after_train_iter(runner)
+        elif self._run is not None and runner.iter % self.interval == 0:
+            self._run.log(_scalars(runner.log_buffer), step=runner.iter)
+
+    def after_run(self, runner):
+        if self._fallback is not None:
+            self._fallback.after_run(runner)
+        elif self._run is not None:
+            self._run.finish()
+            self._run = None
+
+
+@HOOKS.register_module()
 class IterTimerHook(Hook):
     """Section timers: 'data' (fetch and move to the device) and 'step';
     with ``sync`` the runner synchronizes the card after each step, so
@@ -244,13 +320,17 @@ class QuartileLossLoggerHook(Hook):
 class EvalHook(Hook):
     """Every ``interval`` iterations, ``model.val_step`` on a fixed batch
     (by default ``num_samples`` draws of noise) with the EMA weights where
-    the state has them: the samples go to ``work_dir/eval/iter_N.npz``,
-    their std to the log buffer as ``eval_sample_std`` and, with the
-    ``latent_fd`` metric (the default, as in JAX) and reference
-    ``latents`` in the batch, their latent Fréchet distance to those as
-    ``eval_latent_fd``. The image branch (an image grid, the
-    ``clip_score`` metric) waits for ``utils/io_utils.save_image_grid``
-    and is refused by name."""
+    the state has them, its noise drawn on the runner's device from a
+    generator seeded with the iteration. Images (``pred_imgs``, (N, H, W, 3)
+    in [0, 1]) go to ``work_dir/eval/iter_N.png`` as one grid and, with the
+    ``clip_score`` metric and ``prompt`` (the N prompt strings) in the
+    batch, their CLIP score against the prompts to the log buffer as
+    ``eval_clip_score`` (the CLIP at ``clip_path``, on the device the
+    images lie on; nothing logged when its weights are not on disk).
+    Latents (``pred_latents``) go to ``work_dir/eval/iter_N.npz``, their
+    std to ``eval_sample_std`` and, with the ``latent_fd`` metric (the
+    default, as in JAX) and reference ``latents`` in the batch, their
+    latent Fréchet distance to those to ``eval_latent_fd``."""
 
     priority = 60
 
@@ -258,15 +338,12 @@ class EvalHook(Hook):
                  num_samples: int = 64, val_kwargs: Optional[dict] = None,
                  metrics: Sequence[str] = ('latent_fd',),
                  clip_path: Optional[str] = None):
-        self.metrics = tuple(metrics or ())
-        if 'clip_score' in self.metrics or clip_path is not None:
-            raise NotImplementedError(
-                'EvalHook clip_score: the image and CLIP branch is not '
-                'ported (ROADMAP.md queue A item 7)')
         self.interval = interval
         self.batch = batch
         self.num_samples = num_samples
         self.val_kwargs = dict(val_kwargs or {})
+        self.metrics = tuple(metrics or ())
+        self.clip_path = clip_path
 
     def after_train_iter(self, runner):
         if runner.iter % self.interval != 0:
@@ -275,29 +352,42 @@ class EvalHook(Hook):
         batch = self.batch if self.batch is not None \
             else dict(num_samples=self.num_samples)
         ema = state.ema.get('diffusion') if state.ema else None
-        device = getattr(runner.model, 'device', 'cpu')
-        generator = torch.Generator(device=device).manual_seed(runner.iter)
+        generator = torch.Generator(device=runner.device).manual_seed(
+            runner.iter)
         out = runner.model.val_step(batch, generator, ema=ema,
                                     **self.val_kwargs)
-        if isinstance(out, dict) and 'pred_imgs' in out:
-            raise NotImplementedError('EvalHook: image samples are not '
-                                      'ported (ROADMAP.md queue A item 7)')
-        arr = (out['pred_latents'] if isinstance(out, dict) else out)
-        arr = arr.detach().float().cpu().numpy()
-        runner.log_buffer['eval_sample_std'] = float(arr.std())
-        ref = batch.get('latents')
-        if 'latent_fd' in self.metrics and ref is not None:
-            from ..utils.metrics import latent_frechet_distance
-            if isinstance(ref, torch.Tensor):
-                ref = ref.float().cpu().numpy()
-            runner.log_buffer['eval_latent_fd'] = latent_frechet_distance(
-                arr, ref)
-        if _rank() != 0:
-            return
         out_dir = os.path.join(runner.work_dir, 'eval')
-        os.makedirs(out_dir, exist_ok=True)
-        np.savez(os.path.join(out_dir, f'iter_{runner.iter}.npz'),
-                 samples=arr)
+        if isinstance(out, dict) and 'pred_imgs' in out:
+            imgs = out['pred_imgs']
+            if 'clip_score' in self.metrics and batch.get('prompt'):
+                from ..utils.metrics import clip_score
+                score = clip_score(
+                    imgs, batch['prompt'],
+                    **({'clip_path': self.clip_path} if self.clip_path
+                       else {}))
+                if score is not None:
+                    runner.log_buffer['eval_clip_score'] = score
+            if _rank() != 0:
+                return
+            from ..utils.io_utils import save_image_grid
+            save_image_grid(imgs, os.path.join(out_dir,
+                                               f'iter_{runner.iter}.png'))
+        else:
+            arr = (out['pred_latents'] if isinstance(out, dict) else out)
+            arr = arr.detach().float().cpu().numpy()
+            runner.log_buffer['eval_sample_std'] = float(arr.std())
+            ref = batch.get('latents')
+            if 'latent_fd' in self.metrics and ref is not None:
+                from ..utils.metrics import latent_frechet_distance
+                if isinstance(ref, torch.Tensor):
+                    ref = ref.float().cpu().numpy()
+                runner.log_buffer['eval_latent_fd'] = \
+                    latent_frechet_distance(arr, ref)
+            if _rank() != 0:
+                return
+            os.makedirs(out_dir, exist_ok=True)
+            np.savez(os.path.join(out_dir, f'iter_{runner.iter}.npz'),
+                     samples=arr)
         runner.logger.info(f'eval @ iter {runner.iter} written to {out_dir}')
 
 

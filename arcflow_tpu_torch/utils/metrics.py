@@ -45,27 +45,35 @@ def latent_frechet_distance(pred_latents: np.ndarray,
                             latent_stats_features(ref_latents))
 
 
-def clip_score(images: np.ndarray, prompts: Sequence[str],
+def clip_score(images, prompts: Sequence[str],
                clip_path: str = 'openai/clip-vit-large-patch14'
                ) -> Optional[float]:
     """Mean CLIP image-text cosine similarity of (N, H, W, 3) images in
-    [0, 1] and their prompts, or None when the CLIP weights at
-    ``clip_path`` (a folder, or the transformers cache) are absent. Nothing
-    is downloaded."""
+    [0, 1] (numpy, or a tensor) and their prompts, or None when the CLIP
+    weights at ``clip_path`` (a folder, or the transformers cache) are
+    absent. Nothing is downloaded: JAX's ``clip_score`` calls
+    ``from_pretrained`` without ``local_files_only``
+    (``arcflow_tpu/utils/metrics.py:60-61``) and may reach for the hub. The
+    CLIP runs in fp32 on the device a tensor of images lies on (the CPU
+    for numpy)."""
     try:
         import torch
         import transformers
         processor = transformers.CLIPProcessor.from_pretrained(
             clip_path, local_files_only=True)
         model = transformers.CLIPModel.from_pretrained(
-            clip_path, local_files_only=True)
+            clip_path, local_files_only=True, dtype=torch.float32)
     except Exception:
         return None
+    device = getattr(images, 'device', 'cpu')
+    if hasattr(images, 'detach'):
+        images = images.detach().float().cpu().numpy()
     imgs = np.clip(np.asarray(images) * 255, 0, 255).astype(np.uint8)
     inputs = processor(text=list(prompts), images=list(imgs),
                        return_tensors='pt', padding=True)
+    model = model.to(device).eval()
     with torch.no_grad():
-        out = model(**inputs)
-    img = torch.nn.functional.normalize(out.image_embeds, dim=-1)
-    txt = torch.nn.functional.normalize(out.text_embeds, dim=-1)
+        out = model(**{k: v.to(device) for k, v in inputs.items()})
+    img = torch.nn.functional.normalize(out.image_embeds.float(), dim=-1)
+    txt = torch.nn.functional.normalize(out.text_embeds.float(), dim=-1)
     return float((img * txt).sum(-1).mean())

@@ -86,7 +86,8 @@ line each, and any failure exits non-zero:
     steps of ``Diffusion2D`` at batch 512 (finite losses that fall), then
     ``val_step`` with the EMA weights: 4096 samples, finite and the same on
     a repeat;
-15. ring-hop kernel vs plain: ``ring_hop`` against ``ring_hop_ref`` at the
+15. (with 16-17 right after phase 19, before the model phases' profiles)
+    ring-hop kernel vs plain: ``ring_hop`` against ``ring_hop_ref`` at the
     hop shape of FLUX at sp = 4 (B1, 1152 x 1152, H24 D128), padded, a fully
     padded block, ragged and a 4-hop chain, on O and on the carry; three
     planted faults must break the limits; kernel, plain version and flash
@@ -161,7 +162,7 @@ line each, and any failure exits non-zero:
     arcflow_tpu_torch.inference_flux`` on the FLUX folder in a subprocess,
     which must exit 0 and write a PNG.
 
-27. (after phase 17, last with 28-30) Qwen training at reduced depth (1
+27. (after phase 26, last with 28-30) Qwen training at reduced depth (1
     joint block) and full width:
     ``configs/qwen/arcqwen_2nfe_k16_int8trunk.py`` through
     ``Config`` and ``MODELS`` (int8 frozen trunk, LoRA 256, the teacher's
@@ -239,6 +240,46 @@ line each, and any failure exits non-zero:
     guidance 1.0); the 32-step teacher's per-class sample means within
     relative error 0.45 of the true means, the 2-NFE student's within 0.6,
     each class nearest its own mean, or the run fails.
+
+Around a training run (PR 15):
+
+34. (inside phase 11r's run) ``EvalHook(interval=1, metrics=('latent_fd',
+    'clip_score'))`` after each iteration on two prompts with seeded
+    FLUX-width embeds (standing for the cache records', so no T5-XXL is
+    loaded) and a bf16 VAE decoder attached as in phase 6: 2-NFE 1024x1024
+    images of the EMA weights, 2 x 57 K1 launches per evaluation; the grid
+    ``work_dir/eval/iter_N.png`` must decode to the evaluation's two images;
+    ``eval_clip_score`` a finite number from a CLIP-L folder written at
+    ``openai/clip-vit-large-patch14``'s widths (text 768 x 12 layers,
+    vision 1024 x 24 layers, patch 14 at 224, projection 768; random fp32
+    weights, the toy tokenizer) and run on the card; the TensorBoard hook
+    when ``tensorboard`` is installed, the wandb hook (its
+    ``metrics.jsonl`` fallback without wandb);
+35. (before phase 11r removes its directory) ``python -m
+    arcflow_tpu_torch.export_arcflow_to_diffusers`` on phase 11r's
+    checkpoint: the 0.65B fp32 EMA adapter with its ``policy_config`` and
+    ``config.json``; an ``ArcFluxPipeline`` on the student's own modules
+    loads it with ``load_arcflow_adapter`` and draws from the last
+    evaluation's seed: its images within EXPORT_IMAGE_ATOL of the
+    EvalHook's (bitwise expected), 114 K1 launches; then
+    ``tools.save_inference_weights`` on the same checkpoint;
+36. (after phase 18, on phase 6's FLUX-12B) a 2-NFE image with ControlNet
+    residuals (5 joint samples on the interval map, then on the repeat
+    map, 10 single samples, (1, 4096, 3072) bf16) and one with the
+    Flux-fill inputs through a temporary 384-wide ``x_embedder`` (64
+    latent + 64 masked-image + 256 mask features): finite, off the plain
+    image, 114 K1 launches each; then 2 + 2-block reductions of each
+    against the plain attention within SLICE_REL_L2;
+37. the tools that compute on the card: (inside phase 24, on its
+    pipeline and towers) the gradio app's ``generate`` callback for one
+    1024x1024 image, bitwise the pipeline's image for the generator it
+    seeds; ``python -m arcflow_tpu_torch.tools.validate_toy_e2e`` with its
+    own flags, 3000 + 800 iterations, above its 2-NFE bar of 0.5, in a
+    process of its own alongside phase 23; (after phase 23)
+    ``tools.cache_imagenet_data_sdvae`` on seeded 256^2 images, its
+    records read back by ``ImageNet`` as the encoder's latents.
+    ``tools.cache_image_prompt_data`` writes zstd records, and the card's
+    machine has no ``zstandard``: the phase says it did not run it.
 
 ``python3 chip_smoke.py --ranks 4`` (four cards) instead spawns 4 NCCL
 ranks and serves FLUX-12B through ``pipe.shard({'sp': 4})`` in ring and in
@@ -1046,28 +1087,37 @@ def phase_reduced_slice():
     x = torch.randn(1, 128, 128, 16, generator=g, device='cuda')
     kw = dict(flux_inputs(g), t=torch.full((1,), 0.7, device='cuda'),
               guidance=torch.full((1,), 3.5, device='cuda'))
+    rel, shape = reduced_vs_plain('phase 5', model, x, kw)
+    log(f'phase 5 FLUX reduced slice (1+1 blocks, full width, bf16): ok | '
+        f'means {shape} rel L2 kernel vs plain {rel:.3e} '
+        f'(bound {SLICE_REL_L2}) | kernel launches 2')
+
+
+def reduced_vs_plain(label, model, x, kw):
+    """One forward of the FLUX ``model`` with ``kw`` through K1 (one launch
+    per block), then the same through the plain attention (none): finite
+    ``means`` within SLICE_REL_L2 by relative L2; (that, their shape)."""
+    def plain(q, k, v, kv_valid=None, return_lse=False):
+        return attn.attention_ref(q, k, v, kv_valid, return_lse)
+    n_blocks = len(model.joint_blocks) + len(model.single_blocks)
     with torch.inference_mode():
         before = attn.LAUNCHES
         fast = model(x, **kw)['means'].float()
         torch.cuda.synchronize()
         n_fast = attn.LAUNCHES - before
-
-        def plain(q, k, v, kv_valid=None, return_lse=False):
-            return attn.attention_ref(q, k, v, kv_valid, return_lse)
-
         with mock.patch.object(attn, 'flash_attention_fwd', plain):
             slow = model(x, **kw)['means'].float()
         torch.cuda.synchronize()
-    if n_fast != 2 or attn.LAUNCHES != before + 2:
-        raise AssertionError(f'expected 2 kernel launches, got {n_fast}')
+    if n_fast != n_blocks or attn.LAUNCHES != before + n_blocks:
+        raise AssertionError(f'{label}: expected {n_blocks} kernel launches, '
+                             f'got {n_fast}')
     if not (torch.isfinite(fast).all() and torch.isfinite(slow).all()):
-        raise AssertionError('non-finite means')
+        raise AssertionError(f'{label}: non-finite means')
     rel = ((fast - slow).norm() / slow.norm()).item()
     if rel > SLICE_REL_L2:
-        raise AssertionError(f'means rel L2 {rel:.3e} > {SLICE_REL_L2}')
-    log(f'phase 5 FLUX reduced slice (1+1 blocks, full width, bf16): ok | '
-        f'means {tuple(fast.shape)} rel L2 kernel vs plain {rel:.3e} '
-        f'(bound {SLICE_REL_L2}) | kernel launches {n_fast}')
+        raise AssertionError(f'{label}: means rel L2 {rel:.3e} > '
+                             f'{SLICE_REL_L2}')
+    return rel, tuple(fast.shape)
 
 
 def timed_call(pipe, embeds, latents, **kw):
@@ -1724,7 +1774,15 @@ def phase_train_runner(run):
     """Phase 11's model and state through ``IterBasedRunner``: the config's
     log hooks, the loss quartiles, ``IterTimerHook(sync=True)``, a
     trainable-only fp32 ``CheckpointManager`` in a temporary directory, and
-    a hook that raises SIGTERM after the second of three iterations."""
+    a hook that raises SIGTERM after the second of three iterations; with
+    phase 34's evaluation after every iteration (``EvalHook`` with
+    ``latent_fd`` and ``clip_score`` on a CLIP-L folder, a VAE decoder
+    attached as in phase 6, the TensorBoard and wandb hooks) and phase 35's
+    export of the checkpoint."""
+    import importlib.util
+
+    from arcflow_tpu_torch.runner import (EvalHook, TensorboardLoggerHook,
+                                          WandbLoggerHook)
     cfg, state, frozen_host = run['cfg'], run['state'], run['frozen_host']
     adapter_bytes = 4 * FLUX_TRAIN_PARAMS[0] * 4   # weights, EMA, 2 slots
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
@@ -1743,12 +1801,37 @@ def phase_train_runner(run):
             ckpt_trainable_only=ckpt_cfg.trainable_only)
         start = state.step
         counter, timings = LaunchesPerIter(), Timings()
+        # phase 34: the evaluation, its CLIP-L folder, prompts and decoder
+        g = torch.Generator(device='cuda').manual_seed(SEED + 34)
+        clip_dir = os.path.join(work, 'clip')
+        (n_clip, clip_ids), clip_s = synced(lambda: write_clip_folder(
+            clip_dir, g, toy_tokenizer()))
+        n = len(EVAL_PROMPTS)
+        eval_batch = dict(prompt=EVAL_PROMPTS, prompt_embed_kwargs=dict(
+            encoder_hidden_states=torch.randn(
+                n, 512, cfg.model.text_embed_dim, generator=g,
+                device='cuda', dtype=torch.bfloat16),
+            pooled_projections=torch.randn(
+                n, cfg.model.pooled_dim, generator=g, device='cuda',
+                dtype=torch.bfloat16)))
+        with torch.device('cuda'):
+            run['model'].vae = PretrainedVAE(dtype=torch.bfloat16)
+        before = EvalProbe(59)
+        probe = EvalProbe(91, before)
+        tensorboard = importlib.util.find_spec('tensorboard') is not None
+        os.environ.setdefault('WANDB_MODE', 'offline')
+        wandb_hook = WandbLoggerHook(interval=1)
+        eval_hooks = [before, EvalHook(
+            interval=1, batch=eval_batch, num_samples=n,
+            metrics=('latent_fd', 'clip_score'), clip_path=clip_dir),
+            probe, wandb_hook] + ([TensorboardLoggerHook(interval=1)]
+                                  if tensorboard else [])
         log_cfg = dict(cfg.log_config, interval=1)
         hooks = build_hooks(log_cfg, extra_hooks=[
             counter, timings, QuartileLossLoggerHook(
                 total_timesteps=cfg.model.diffusion.num_timesteps),
             IterTimerHook(interval=1, sync=True), CheckpointHook(manager),
-            RaiseSigterm(start + RUNNER_SIGTERM_AFTER)])
+            RaiseSigterm(start + RUNNER_SIGTERM_AFTER), *eval_hooks])
         runner = IterBasedRunner(
             run['model'], state, run['step'], itertools.repeat(run['batch']),
             start + cfg.total_iters, work_dir=work, hooks=hooks,
@@ -1757,7 +1840,9 @@ def phase_train_runner(run):
         torch.cuda.reset_peak_memory_stats()
         attn.LAUNCHES = attn.BWD_LAUNCHES = 0   # the main path's counted run
         t = time.perf_counter()
-        runner.run()
+        with mock.patch.object(run['model'], 'val_step',
+                               probe.spy(run['model'].val_step)):
+            runner.run()
         wall = time.perf_counter() - t
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         ran = runner.iter - start
@@ -1803,10 +1888,52 @@ def phase_train_runner(run):
                    if not torch.equal(t.cpu(), frozen_host[n])]
         if changed:
             raise AssertionError(f'frozen tensors changed: {changed[:5]}')
+        evals = check_eval_outputs(work, probe, run['n_blocks'],
+                                   wandb_hook._fallback is not None)
+        export = phase_export(run, work, os.path.join(work, 'ckpt'), probe,
+                              eval_batch)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    per_iter = [r['time_iter'] for r in timings.rows]
-    host_ms = [1e3 * (r['time_iter'] - r['time_step']) for r in timings.rows]
+        run['model'].vae = None
+    log(f'phase 34 evaluation inside phase 11r\'s run (EvalHook interval 1, '
+        f'{n} prompts with seeded FLUX-width embeds, 2-NFE 1024x1024 from the '
+        f'EMA, a bf16 VAE decoder as in phase 6; metrics latent_fd and '
+        f'clip_score on a CLIP-L folder at openai/clip-vit-large-patch14\'s '
+        f'widths, {n_clip} fp32 params, random, written in {clip_s:.1f} s, '
+        f'token ids {clip_ids}): ok | per evaluation (generation, decode, '
+        f'the CLIP load and score, the grid, the TensorBoard and wandb '
+        f'logging): ' + ', '.join(f'{x:.3f} s' for x in evals['s'])
+        + f' (before the run, wandb.init {probe.init_s:.3f} s)'
+        + f' | eval_clip_score ' + ', '.join(f'{x:.6f}' for x in
+                                             evals['scores'])
+        + f' | K1 launches in the evaluations {evals["launches"]} '
+        f'(2 x {2 * run["n_blocks"]}) | grid {evals["grid"]} = the last '
+        f'evaluation\'s {n} images | metrics.jsonl {evals["jsonl_lines"]} '
+        f'lines (wandb: '
+        + ('absent, the jsonl fallback' if wandb_hook._fallback is not None
+           else f'installed, WANDB_MODE={os.environ["WANDB_MODE"]}')
+        + f') | tensorboard installed: {tensorboard}, '
+        f'{evals["tf_events"]} event files')
+    log(f'phase 35 export and serve back (python -m arcflow_tpu_torch.'
+        f'export_arcflow_to_diffusers on phase 11r\'s checkpoint): ok | '
+        f'{export["export_bytes"]} bytes of adapter ({FLUX_TRAIN_PARAMS[0]} '
+        f'params fp32, EMA) in {export["export_s"]:.2f} s of command | '
+        f'policy {export["policy"]} | served back on the student\'s own '
+        f'modules through ArcFluxPipeline.load_arcflow_adapter, the last '
+        f'evaluation\'s seed: {export["serve_s"]:.4f} s for '
+        f'{len(EVAL_PROMPTS)} images, K1 {export["launches"]}, max |d| '
+        f'against the EvalHook image {export["max_abs"]:.3e} (bitwise '
+        f'{export["bitwise"]}; bound {EXPORT_IMAGE_ATOL}) | '
+        f'tools.save_inference_weights: {export["inference_params"]} params '
+        f'bf16, {export["inference_bytes"]} bytes in '
+        f'{export["inference_s"]:.2f} s')
+    # an iteration's time_iter (read at priority 30) holds the previous
+    # iteration's evaluation and its logging (priorities 60-90), the first
+    # the hooks' before_run (wandb.init): taken out, as phase 34 times them
+    eval_s = [probe.init_s] + evals['s'][:len(timings.rows) - 1]
+    per_iter = [r['time_iter'] - e for r, e in zip(timings.rows, eval_s)]
+    host_ms = [1e3 * (r['time_iter'] - e - r['time_step'])
+               for r, e in zip(timings.rows, eval_s)]
     data_ms = [1e3 * r['time_data'] for r in timings.rows]
     log(f'phase 11r FLUX-12B through IterBasedRunner (phase 11 model and '
         f'state, {len(hooks)} hooks: {", ".join(type(h).__name__ for h in hooks)}'
@@ -1815,8 +1942,10 @@ def phase_train_runner(run):
         f'{live_step}, force-saved at {saved_at} | launches per '
         f'iteration {counter.per_iter} | s per iteration through the runner '
         + ', '.join(f'{x:.4f}' for x in per_iter)
-        + f' (phase 11 bare warm step {run["warm"]:.4f} s) | runner host '
-        f'time per iteration (iteration minus synced step: data, hooks) '
+        + f' (phase 11 bare warm step {run["warm"]:.4f} s; phase 34\'s '
+        f'evaluations, their logging and wandb.init taken out) | runner '
+        f'host time per iteration (iteration minus synced step and those: '
+        f'data, hooks) '
         + ', '.join(f'{x:.3f}' for x in host_ms) + ' ms, of it data '
         + ', '.join(f'{x:.3f}' for x in data_ms) + f' ms | checkpoint '
         f'(trainable-only fp32: adapter, EMA, AdamW slots, step, generator) '
@@ -1828,7 +1957,8 @@ def phase_train_runner(run):
         f'the forced save | peak memory {peak_gib:.2f} GiB')
     return dict(forward=sum(c[0] for c in counter.per_iter),
                 backward=sum(c[1] for c in counter.per_iter),
-                s_per_iter=per_iter)
+                s_per_iter=per_iter, eval=evals['launches'],
+                export_served=export['launches'])
 
 
 # ---------------------------------------------------------------------------
@@ -2774,7 +2904,8 @@ def phase_toy_cli():
                              f'{TOY_FLOW_SUPPORT}), {distill_share:.4f} '
                              f'(want > {TOY_DISTILL_SUPPORT})')
     log(f'phase 23 toy stack through python -m arcflow_tpu_torch.train on '
-        f'the card (hidden 128 x 2, 2 x 2 board): ok | {TOY_FLOW[0]}: '
+        f'the card (hidden 128 x 2, 2 x 2 board; alongside phase 37\'s '
+        f'validate_toy_e2e in a process of its own): ok | {TOY_FLOW[0]}: '
         f'{flow_cfg.total_iters} iterations at batch 512, {flow_s:.5f} s per '
         f'iteration (last log interval), {flow_wall:.1f} s of command, '
         f'in-support share {flow_share:.4f} of 2048 samples (EMA, 32 Euler '
@@ -4270,6 +4401,7 @@ def phase_prompt_flux_full(flux_run):
                          {'attention': (attn, 'LAUNCHES')}, 'phase 24')
         run['clip_s'] = tower_s(lambda ids: clip(input_ids=ids), tok, 77)
         run['t5_s'] = tower_s(lambda ids: t5(input_ids=ids), tok, T5_SEQ)
+        run['ui'] = ui_callback(pipe, n_blocks)
     finally:
         pipe.text_encoder = None
         del clip, t5
@@ -4288,6 +4420,11 @@ def phase_prompt_flux_full(flux_run):
         f'T5-XXL alone {run["t5_s"]:.4f} s, best of 3), transformer + '
         f'integration {run["transformer_s"]:.4f} s, decode '
         f'{run["decode_s"]:.4f} s | peak memory {run["peak_gib"]:.2f} GiB')
+    log(f'phase 37 gradio callback (ui.gradio_app.generate, no gradio '
+        f'needed) on this pipeline: ok | one 1024x1024 image from "{PROMPT}"'
+        f', a torch.Generator on the card seeded {SEED + 37}: '
+        f'{run["ui"]["s"]:.4f} s with the encode, K1 {run["ui"]["launches"]}'
+        f', bitwise the pipeline\'s own image for that generator')
     run.pop('image')
     return run
 
@@ -5072,6 +5209,481 @@ def phase_qwen_train_cli():
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# around a training run (phases 34-37): the evaluation hook's image and CLIP
+# branch, the export served back, ControlNet and fill, the tools, the UI
+# ---------------------------------------------------------------------------
+
+# phase 34: two prompts, their seeded embeds standing for the cache
+# records' (no T5-XXL is loaded); CLIP ViT-L/14's vision tower and
+# projection at their published widths (the text tower is CLIP_L)
+EVAL_PROMPTS = [PROMPT, 'a serene mountain lake at sunrise']
+CLIP_L_VISION = dict(hidden_size=1024, intermediate_size=4096,
+                     num_hidden_layers=24, num_attention_heads=16,
+                     image_size=224, patch_size=14, hidden_act='quick_gelu')
+CLIP_L_PROJECTION = 768
+EVAL_LATENT = 128                 # the config's latent_shape: 1024^2 images
+# phase 35: the image served from the exported adapter against the
+# EvalHook's image from the EMA weights, max |d| over [0, 1] pixels. Both
+# run the same modules, weights (the EMA, fp32, written and read as fp32),
+# noise (the same generator seed and draw) and ops, so they are expected to
+# be bitwise; the bound only admits a different reduction order in a
+# cuBLAS call, which moves a bf16 trunk's pixels by a few 1e-3. An export
+# that loses a tensor or a layout moves them by O(1e-1) at these weights.
+EXPORT_IMAGE_ATOL = 2e-2
+# phase 36: ControlNet residuals as a FLUX ControlNet gives them (5 joint,
+# 10 single samples at the image tokens' width), scaled to a tenth of the
+# residual stream's rms at random weights; the FLUX.1-Fill-dev input width
+CN_JOINT, CN_SINGLE, CN_SCALE = 5, 10, 0.1
+FILL_IN_CHANNELS = 384
+# phase 37: the ImageNet cacher on a few seeded 256^2 images of 2 classes,
+# and validate_toy_e2e's own flags: the run lengths of
+# tests/test_e2e_checkerboard.py (3000 flow + 800 distillation
+# iterations) and its 2-NFE bar, 0.5, at the configs' widths. Samples of
+# noise read about 0.23 (the share of a standard normal inside the board's
+# white squares); runs of 400 or fewer distillation iterations (the
+# teacher ratio decays over 500) read 0.49-0.52 on a CPU, too near the bar
+SDVAE_IMAGES, SDVAE_SIZE = (3, 2), 256
+TOY_VALIDATE_FLAGS = ['--flow-iters', '3000', '--distill-iters', '800',
+                      '--num-samples', '4096', '--bar', '0.5']
+
+
+def write_clip_folder(root, generator, tok):
+    """A CLIP-L folder at ``openai/clip-vit-large-patch14``'s widths (text
+    768 x 12 layers, vision 1024 x 24 layers, patch 14 at 224, projection
+    768), random fp32 weights from ``generator``, the toy BPE tokenizer's
+    vocabulary with CLIP's two special tokens, and CLIP's image processor:
+    what ``CLIPProcessor`` / ``CLIPModel.from_pretrained`` read. Loads it
+    once, so a folder they refuse fails here with its error (``clip_score``
+    turns any load error into None)."""
+    import transformers
+    cfg = transformers.CLIPConfig(
+        text_config={k: v for k, v in CLIP_L.items()
+                     if k != 'projection_dim'},
+        vision_config=CLIP_L_VISION, projection_dim=CLIP_L_PROJECTION)
+    with torch.device('cuda'):
+        model = transformers.CLIPModel(cfg)
+    randomize_(model, generator)
+    model.save_pretrained(root)
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    tok.backend_tokenizer.model.save(root)
+    with open(os.path.join(root, 'vocab.json')) as f:
+        vocab = json.load(f)
+    for special in ('<|startoftext|>', '<|endoftext|>'):
+        vocab.setdefault(special, len(vocab))
+    write_json(os.path.join(root, 'vocab.json'), vocab)
+    write_json(os.path.join(root, 'tokenizer_config.json'), dict(
+        tokenizer_class='CLIPTokenizer', bos_token='<|startoftext|>',
+        eos_token='<|endoftext|>', unk_token='<unk>',
+        pad_token='<|endoftext|>', model_max_length=77))
+    side = CLIP_L_VISION['image_size']
+    transformers.CLIPImageProcessor(
+        size={'shortest_edge': side},
+        crop_size={'height': side, 'width': side}).save_pretrained(root)
+    processor = transformers.CLIPProcessor.from_pretrained(
+        root, local_files_only=True)
+    ids = processor(text=EVAL_PROMPTS, return_tensors='pt',
+                    padding=True)['input_ids']
+    return n_params, tuple(ids.shape)
+
+
+class EvalProbe(Hook):
+    """Around ``EvalHook`` (priority 60) and the TensorBoard and wandb
+    hooks (90) that log its score: at 59 the time and a zeroed attention
+    count; at 91 the seconds of the evaluation and its logging, its K1
+    launches (zeroed again, so the training iterations' counts stay
+    theirs) and the logged CLIP score, and, before the run, the seconds of
+    the hooks' ``before_run`` in between (``wandb.init``); with ``spy``,
+    the images ``val_step`` returned."""
+
+    def __init__(self, priority, before=None):
+        self.priority = priority
+        self.before = before
+        self.rows = []
+        self.images = None
+
+    def before_run(self, runner):
+        self.t = time.perf_counter()
+        if self.before is not None:
+            self.init_s = self.t - self.before.t
+
+    def after_train_iter(self, runner):
+        torch.cuda.synchronize()
+        if self.before is None:
+            attn.LAUNCHES = 0
+            self.t = time.perf_counter()
+            return
+        self.rows.append(dict(iter=runner.iter,
+                              s=time.perf_counter() - self.before.t,
+                              launches=attn.LAUNCHES,
+                              clip_score=runner.log_buffer.get(
+                                  'eval_clip_score')))
+        attn.LAUNCHES = 0
+
+    def spy(self, val_step):
+        def wrapped(*args, **kwargs):
+            out = val_step(*args, **kwargs)
+            self.images = out['pred_imgs']
+            return out
+        return wrapped
+
+
+def check_eval_outputs(work, probe, n_blocks, jsonl_fallback):
+    """Phase 34's checks of the run's artifacts; their summary."""
+    from PIL import Image
+    per_eval = 2 * n_blocks
+    if [r['launches'] for r in probe.rows] != [per_eval] * len(probe.rows):
+        raise AssertionError(f'evaluation K1 launches '
+                             f'{[r["launches"] for r in probe.rows]}, want '
+                             f'{per_eval} per evaluation')
+    scores = [r['clip_score'] for r in probe.rows]
+    if not all(isinstance(x, float) and math.isfinite(x) for x in scores):
+        raise AssertionError(f'eval_clip_score {scores}: missing or not '
+                             f'finite')
+    grid = np.asarray(Image.open(os.path.join(
+        work, 'eval', f'iter_{probe.rows[-1]["iter"]}.png')))
+    n = len(EVAL_PROMPTS)
+    h = 8 * EVAL_LATENT
+    if tuple(probe.images.shape) != (n, h, h, 3) or grid.shape != (h, h * n,
+                                                                   3):
+        raise AssertionError(f'eval images {tuple(probe.images.shape)}, '
+                             f'grid {grid.shape}: want {n} images of {h} x '
+                             f'{h}')
+    want = np.clip(probe.images.float().cpu().numpy() * 255 + 0.5, 0,
+                   255).astype(np.uint8)
+    for i in range(n):
+        if not np.array_equal(grid[:, h * i:h * (i + 1)], want[i]):
+            raise AssertionError(f'grid cell {i} is not the evaluation\'s '
+                                 f'image {i}')
+    jsonl = [json.loads(x) for x in open(os.path.join(work,
+                                                      'metrics.jsonl'))]
+    if jsonl_fallback and not any('eval_clip_score' in r for r in jsonl):
+        raise AssertionError('the wandb fallback wrote no eval_clip_score '
+                             'to metrics.jsonl')
+    events = [f for f in os.listdir(os.path.join(work, 'tf_logs'))] \
+        if os.path.isdir(os.path.join(work, 'tf_logs')) else []
+    return dict(scores=scores, s=[r['s'] for r in probe.rows],
+                launches=sum(r['launches'] for r in probe.rows),
+                grid=grid.shape, jsonl_lines=len(jsonl),
+                tf_events=len(events))
+
+
+def phase_export(run, work, ckpt_dir, probe, eval_batch):
+    """Phase 35: ``python -m arcflow_tpu_torch.export_arcflow_to_diffusers``
+    on phase 11r's checkpoint; an ``ArcFluxPipeline`` on the student's own
+    modules (shared, not copied) with the exported adapter loaded; its
+    image from the last evaluation's generator seed against the
+    EvalHook's; ``tools.save_inference_weights`` on the same checkpoint."""
+    from safetensors import safe_open
+
+    from arcflow_tpu_torch.tools.save_inference_weights import \
+        save_inference_weights
+    out = os.path.join(work, 'export')
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, '-m', 'arcflow_tpu_torch.export_arcflow_to_diffusers',
+         FLUX_TRAIN_CONFIG, ckpt_dir, out], capture_output=True, text=True,
+        timeout=600)
+    export_s = time.perf_counter() - t
+    if res.returncode != 0:
+        raise AssertionError(f'the export exited {res.returncode}:\n'
+                             f'{(res.stdout + res.stderr)[-3000:]}')
+    adapter = os.path.join(out, 'diffusion_pytorch_model.safetensors')
+    export_bytes = os.path.getsize(adapter)
+    with safe_open(adapter, framework='pt') as f:
+        policy = json.loads(f.metadata()['policy_config'])
+        n_export = sum(math.prod(f.get_slice(k).get_shape())
+                       for k in f.keys())
+    if n_export != FLUX_TRAIN_PARAMS[0]:
+        raise AssertionError(f'exported {n_export} parameters, want the '
+                             f'adapter\'s {FLUX_TRAIN_PARAMS[0]}')
+    config = json.load(open(os.path.join(out, 'config.json')))
+    if config.get('_class_name') != 'ArcFluxTransformer2DModel' \
+            or 'pretrained' in config:
+        raise AssertionError(f'exported config.json {config}')
+    model = run['model']
+    pipe = ArcFluxPipeline(model.diffusion.denoising, vae=model.vae)
+    pipe.load_arcflow_adapter(adapter)
+    if pipe.diffusion.test_cfg['nfe'] != policy['nfe']:
+        raise AssertionError(f'policy {policy} not applied')
+    seed = probe.rows[-1]['iter']
+    embeds = dict(eval_batch['prompt_embed_kwargs'])
+    attn.LAUNCHES = 0                    # the served image's counted run
+    served, serve_s = synced(lambda: pipe(
+        prompt_embeds=embeds, height=8 * EVAL_LATENT, width=8 * EVAL_LATENT,
+        generator=torch.Generator(device='cuda').manual_seed(seed),
+        output_type='pt')['images'])
+    launches = attn.LAUNCHES
+    n_blocks = run['n_blocks']
+    if launches != 2 * n_blocks:
+        raise AssertionError(f'served image: {launches} K1 launches, want '
+                             f'{2 * n_blocks}')
+    diff = (served - probe.images).abs().max().item()
+    if diff > EXPORT_IMAGE_ATOL or not torch.isfinite(served).all():
+        raise AssertionError(f'the image served from the exported adapter '
+                             f'differs from the EvalHook image by {diff} '
+                             f'(bound {EXPORT_IMAGE_ATOL})')
+    weights = os.path.join(work, 'inference.safetensors')
+    n_inf, inf_s = synced(lambda: save_inference_weights(ckpt_dir, weights))
+    return dict(export_s=export_s, export_bytes=export_bytes,
+                policy=policy, max_abs=diff,
+                bitwise=torch.equal(served, probe.images), serve_s=serve_s,
+                launches=launches, inference_params=n_inf,
+                inference_bytes=os.path.getsize(weights), inference_s=inf_s)
+
+
+def controlnet_samples(generator, n, tokens, width, scale=CN_SCALE):
+    """``n`` ControlNet residuals (1, tokens, width) in bf16."""
+    return [scale * torch.randn(1, tokens, width, generator=generator,
+                                device='cuda', dtype=torch.bfloat16)
+            for _ in range(n)]
+
+
+def fill_inputs(generator, h=128, w=128):
+    """Flux-fill's inputs: masked-image latents (1, h, w, 16) and the pixel
+    mask of each latent cell, 8 x 8 pixels -> 64 channels (1, h, w, 64), of
+    one rectangle (a random 0/1 mask would not be an inpainting mask)."""
+    masked = torch.randn(1, h, w, 16, generator=generator, device='cuda')
+    pixels = torch.zeros(8 * h, 8 * w, device='cuda')
+    pixels[8 * h // 4:8 * h // 2, 8 * w // 8:8 * w * 5 // 8] = 1.0
+    mask = pixels.reshape(h, 8, w, 8).permute(0, 2, 1, 3).reshape(1, h, w,
+                                                                  64)
+    return masked, mask
+
+
+def phase_controlnet_fill(flux_run):
+    """Phase 36, on phase 6's FLUX-12B pipeline (before phase 21 quantizes
+    it): a 2-NFE image with ControlNet residuals on the interval map, then
+    on the repeat map, and one with the Flux-fill inputs through a
+    temporary 384-wide ``x_embedder``; each finite, off the plain image,
+    114 K1 launches; then 2 + 2-block reductions of each against the plain
+    attention."""
+    pipe, embeds, latents, lat_plain, _ = flux_run
+    model = pipe.transformer
+    g = torch.Generator(device='cuda').manual_seed(SEED + 36)
+    _, lh, lw, _ = latents.shape
+    tokens = (lh // 2) * (lw // 2)
+    joint = controlnet_samples(g, CN_JOINT, tokens, model.inner_dim)
+    single = controlnet_samples(g, CN_SINGLE, tokens, model.inner_dim)
+    n_blocks = FLUX_12B['num_layers'] + FLUX_12B['num_single_layers']
+    rows = {}
+    _, plain_s = synced(lambda: pipe(prompt_embeds=embeds, latents=latents,
+                                     output_type='latent'))
+
+    def image(label, extra):
+        attn.LAUNCHES = 0                   # this path's counted run
+        lat, s = synced(lambda: pipe(prompt_embeds=dict(embeds, **extra),
+                                     latents=latents,
+                                     output_type='latent')['latents'])
+        launches = attn.LAUNCHES
+        with torch.inference_mode():
+            img = (pipe.vae.decode(lat) / 2 + 0.5).clamp(0.0, 1.0)
+        check_image(img)
+        moved = rel_l2(lat, lat_plain)
+        if launches != 2 * n_blocks or moved < 1e-2:
+            raise AssertionError(f'{label}: {launches} K1 launches (want '
+                                 f'{2 * n_blocks}), latents off the plain '
+                                 f'image by {moved:.3e} rel L2')
+        rows[label] = dict(s=s, launches=launches, moved=moved)
+
+    for repeat in (False, True):
+        image('controlnet_repeat' if repeat else 'controlnet_interval',
+              dict(controlnet_block_samples=joint,
+                   controlnet_single_block_samples=single,
+                   controlnet_blocks_repeat=repeat))
+    masked, mask = fill_inputs(g, lh, lw)
+    served = model.x_embedder
+    with torch.device('cuda'):
+        wide = LoRADense(FILL_IN_CHANNELS, served.out_features,
+                         dtype=torch.bfloat16)
+    randomize_(wide, g)
+    model.x_embedder = wide
+    try:
+        image('fill', dict(masked_image_latents=masked, mask=mask))
+    finally:
+        model.x_embedder = served
+    del joint, single, wide
+    # the 2 + 2-block reductions at full width against the plain attention
+    with torch.device('cuda'):
+        small = ArcFluxTransformer2DModel(
+            dtype=torch.bfloat16, **dict(FLUX_12B, num_layers=2,
+                                         num_single_layers=2))
+    randomize_(small, g)
+    x = torch.randn(latents.shape, generator=g, device='cuda')
+    kw = dict(embeds, t=torch.full((1,), 0.7, device='cuda'),
+              guidance=torch.full((1,), 3.5, device='cuda'))
+    reduced = {}
+    for repeat in (False, True):
+        reduced['controlnet_repeat' if repeat else 'controlnet_interval'] = \
+            reduced_vs_plain(
+                'phase 36 ControlNet reduction', small, x, dict(
+                    kw, controlnet_block_samples=controlnet_samples(
+                        g, 3, tokens, small.inner_dim),
+                    controlnet_single_block_samples=controlnet_samples(
+                        g, 2, tokens, small.inner_dim),
+                    controlnet_blocks_repeat=repeat))[0]
+    with torch.device('cuda'):
+        small.x_embedder = LoRADense(FILL_IN_CHANNELS, small.inner_dim,
+                                     dtype=torch.bfloat16)
+    randomize_(small.x_embedder, g)
+    reduced['fill'] = reduced_vs_plain(
+        'phase 36 fill reduction', small, x,
+        dict(kw, masked_image_latents=masked, mask=mask))[0]
+    del small
+    log(f'phase 36 FLUX-12B ControlNet and fill (phase 6 pipeline, 2-NFE '
+        f'1024x1024 + decode): ok | ControlNet {CN_JOINT} joint samples '
+        f'(interval map: blocks 4 per sample; repeat map: i % {CN_JOINT}) + '
+        f'{CN_SINGLE} single samples (1, {tokens}, {model.inner_dim}) bf16 '
+        f'at {CN_SCALE} | '
+        f'fill: masked-image latents + 8 x 8 pixel mask per cell through a '
+        f'{FILL_IN_CHANNELS}-wide x_embedder | ' + ' ; '.join(
+            f'{k}: {r["s"]:.4f} s per image without the decode (plain '
+            f'{plain_s:.4f} s), K1 {r["launches"]}, latents off the plain '
+            f'image by '
+            f'{r["moved"]:.3e} rel L2' for k, r in rows.items())
+        + ' | 2 + 2-block reductions, K1 vs plain means rel L2: '
+        + ', '.join(f'{k} {v:.3e}' for k, v in reduced.items())
+        + f' (bound {SLICE_REL_L2})')
+    return {k: r['launches'] for k, r in rows.items()}
+
+
+def ui_callback(pipe, n_blocks, size=1024):
+    """Phase 37's UI part, on phase 24's pipeline with its text towers:
+    ``ui.gradio_app.generate`` (gradio not needed) for one 1024^2 image,
+    against the pipeline called directly with the generator it seeds."""
+    from arcflow_tpu_torch.ui import gradio_app
+    seed = SEED + 37
+    attn.LAUNCHES = 0                       # the callback's counted run
+    imgs, s = synced(lambda: gradio_app.generate(
+        pipe, PROMPT, size, size, 2, 1.0, 3.5, seed, 1))
+    launches = attn.LAUNCHES
+    if launches != 2 * n_blocks or len(imgs) != 1 or \
+            imgs[0].shape != (size, size, 3) or not np.isfinite(
+                imgs[0]).all():
+        raise AssertionError(f'UI callback: {len(imgs)} images '
+                             f'{[i.shape for i in imgs]}, {launches} K1 '
+                             f'launches')
+    direct = pipe(prompt=[PROMPT], height=size, width=size,
+                  generator=torch.Generator(device='cuda').manual_seed(seed),
+                  output_type='np')['images']
+    if not np.array_equal(direct[0], imgs[0]):
+        raise AssertionError('the UI callback\'s image is not the '
+                             'pipeline\'s for the same seed')
+    return dict(s=s, launches=launches)
+
+
+def start_toy_validation():
+    """Phase 37's ``python -m arcflow_tpu_torch.tools.validate_toy_e2e``
+    with TOY_VALIDATE_FLAGS on the card, in a process of its own, started
+    before phase 23 and run alongside it: both toys are launch-bound and
+    hold the card a small share of the time, and in turn they took about
+    150 s of the smoke's 1200. ``finish_toy_validation`` collects it."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix='toy-validate-', dir=_build.BUILD_DIR)
+    out = open(os.path.join(work, 'out.log'), 'w')
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'arcflow_tpu_torch.tools.validate_toy_e2e',
+         '--work-dir', os.path.join(work, 'run'), '--device', 'cuda',
+         *TOY_VALIDATE_FLAGS], stdout=out, stderr=subprocess.STDOUT)
+    return dict(proc=proc, work=work, out=out, t=time.perf_counter())
+
+
+def stop_toy_validation(toy):
+    """End the validation's process if it still runs; remove its files."""
+    if toy['proc'].poll() is None:
+        toy['proc'].kill()
+        toy['proc'].wait()
+    toy['out'].close()
+    shutil.rmtree(toy['work'], ignore_errors=True)
+
+
+def finish_toy_validation(toy):
+    """Wait for the validation: (its 2-NFE in-support share, the seconds
+    from its start). Fails unless it exits 0 with VALIDATION OK."""
+    try:
+        rc = toy['proc'].wait(timeout=TOY_CLI_TIMEOUT)
+        wall = time.perf_counter() - toy['t']
+        toy['out'].close()
+        with open(os.path.join(toy['work'], 'out.log')) as f:
+            text = f.read()
+    finally:
+        stop_toy_validation(toy)
+    m = re.search(r'2-NFE in-support: ([0-9.]+)%', text)
+    if rc != 0 or m is None or 'VALIDATION OK' not in text:
+        raise AssertionError(f'validate_toy_e2e exited {rc}:\n'
+                             f'{text[-3000:]}')
+    return float(m.group(1)) / 100, wall
+
+
+def phase_tools(toy):
+    """Phase 37's tools that compute on the card: validate_toy_e2e with
+    its own flags (started by ``start_toy_validation``); the SD-VAE latent
+    cacher on seeded images, read back by ``ImageNet``. The prompt cacher
+    writes zstd, which this machine may lack: it is held on the CPU by the
+    tests and not run here."""
+    import importlib.util
+
+    from PIL import Image
+
+    from arcflow_tpu_torch.data import ImageNet, collate
+    from arcflow_tpu_torch.tools import cache_imagenet_data_sdvae as sdvae
+    share, toy_s = finish_toy_validation(toy)
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix='tools-', dir=_build.BUILD_DIR)
+    rng = np.random.default_rng(SEED + 37)
+    try:
+        images = os.path.join(work, 'images')
+        for ci, n in enumerate(SDVAE_IMAGES):
+            os.makedirs(os.path.join(images, f'n{ci:08d}'))
+            for j in range(n):
+                Image.fromarray(rng.integers(
+                    0, 256, (SDVAE_SIZE + 40 * j, SDVAE_SIZE + 24, 3),
+                    np.uint8)).save(os.path.join(images, f'n{ci:08d}',
+                                                 f'{j}.png'))
+        out = os.path.join(work, 'latents')
+        _, cache_s = synced(lambda: sdvae.main(
+            ['--image-dir', images, '--out', out, '--image-size',
+             str(SDVAE_SIZE), '--batch', '4', '--device', 'cuda']))
+        ds = ImageNet(image_dir=images, image_size=SDVAE_SIZE)
+        vae = sdvae.build_encoder('cuda')
+        with torch.inference_mode():
+            want = vae.encode(torch.from_numpy(collate(
+                [ds[i] for i in range(len(ds))])['images']).cuda() * 2 - 1
+                              ).float().cpu().numpy()
+        del vae
+        got = ImageNet(latents_dir=out)
+        c = sdvae.LATENT_CHANNELS
+        err = 0.0
+        for i in range(len(ds)):
+            item = got[i]
+            if item['latents'].shape != (SDVAE_SIZE // 8, SDVAE_SIZE // 8,
+                                         c) or item['label'] != \
+                    ds[i]['label']:
+                raise AssertionError(f'record {i}: {item["latents"].shape}, '
+                                     f'label {item["label"]}')
+            err = max(err, float(np.abs(item['latents'] - want[i]).max()))
+        if not err <= 1e-3 * max(1.0, float(np.abs(want).max())):
+            raise AssertionError(f'cached latents off the encoder by {err}')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    zstd = importlib.util.find_spec('zstandard') is not None
+    log(f'phase 37 tools on the card: ok | cache_imagenet_data_sdvae: '
+        f'{len(ds)} seeded images of {len(SDVAE_IMAGES)} classes, ADM crop '
+        f'to {SDVAE_SIZE}^2, SD-VAE encoder (4 channels, scale 0.18215, '
+        f'random from seed 0) on the card in {cache_s:.3f} s, records read '
+        f'back by ImageNet as ({SDVAE_SIZE // 8}, {SDVAE_SIZE // 8}, {c}) '
+        f'channel-last with their labels, '
+        f'max |d| against the encoder {err:.3e} | python -m '
+        f'arcflow_tpu_torch.tools.validate_toy_e2e '
+        f'{" ".join(TOY_VALIDATE_FLAGS)}: VALIDATION OK, 2-NFE in-support '
+        f'{share:.4f}, {toy_s:.1f} s of command alongside phase 23 | '
+        f'cache_image_prompt_data: not run on the card (it writes zstd '
+        f'records; zstandard importable here: {zstd}); held against JAX\'s '
+        f'ImagePrompt on the CPU by tests/test_torch_export_tools.py')
+    return dict(cache_s=cache_s, toy_s=toy_s, toy_share=share)
+
+
 def main():
     if sys.argv[1:2] == ['--imagenet']:
         return main_imagenet()
@@ -5086,6 +5698,17 @@ def main():
     attn_err, attn_timed = phase_kernel_vs_plain()
     w4a8_err, w4a8_timed, w4a8_classes = phase_w4a8_vs_plain()
     phase_int8_vs_plain()
+    # the ring phases early: phase 15's flash-SDPA yardstick reads kernel
+    # records, which torch.profiler drops in a process after large traces
+    # (it kept 23 of 50 a window after the FLUX phases in PR 12, 7 of 50
+    # after phases 34-37 joined them)
+    k4_err, k4_timed = phase_k4_vs_plain()
+    phase_ring_vs_k1()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_local_ring_slices()
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_reduced_slice()
     phase_w8a8_reduced()
     gc.collect()
@@ -5093,6 +5716,7 @@ def main():
     flux_launches, flux_run = phase_full_slice()
     flux_prompt = phase_prompt_flux_full(flux_run)
     ring_launches, ring_host = phase_full_local_ring(*flux_run)
+    cn_fill = phase_controlnet_fill(flux_run)
     captured = phase_w8a8_full(*flux_run)
     del flux_run
     gc.collect()                            # the FLUX model goes first
@@ -5126,17 +5750,15 @@ def main():
     k6_err, k6_timed = phase_k6_vs_plain()
     kr = phase_kr()
     phase_gmflow()
-    phase_toy_cli()
+    toy = start_toy_validation()
+    try:
+        phase_toy_cli()
+        phase_tools(toy)
+    finally:
+        stop_toy_validation(toy)
     gc.collect()
     torch.cuda.empty_cache()
     pretrained = phase_from_pretrained()
-    gc.collect()
-    torch.cuda.empty_cache()
-    k4_err, k4_timed = phase_k4_vs_plain()
-    phase_ring_vs_k1()
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_local_ring_slices()
     # the Qwen training phases last. Phase 28's profile of one 20B step
     # (about 168k kernel records) leaves every later torch.profiler window
     # of this process dropping kernel records (profiler_drop_probe.py: a
@@ -5170,7 +5792,13 @@ def main():
                    'flux_train_runner': runner_launches['forward'],
                    'flux_mesh_train': mesh_launches['forward'],
                    'qwen_train': qwen_train['forward'],
-                   'qwen_train_runner': qwen_runner['forward']}
+                   'qwen_train_runner': qwen_runner['forward'],
+                   'flux_eval_hook': runner_launches['eval'],
+                   'flux_export_served': runner_launches['export_served'],
+                   'flux_controlnet': cn_fill['controlnet_interval']
+                   + cn_fill['controlnet_repeat'],
+                   'flux_fill': cn_fill['fill'],
+                   'flux_ui_callback': flux_prompt['ui']['launches']}
     bwd_by_path = {'flux_train': train_launches['backward'],
                    'flux_train_runner': runner_launches['backward'],
                    'flux_mesh_train': mesh_launches['backward'],

@@ -69,7 +69,9 @@ def test_unconvertible_keys_raise_in_both(trees, tmp_path):  # noqa: F811
         j_load(path)
     with pytest.raises(ValueError, match='1 unconvertible keys'):
         load_adapter_state(path)
-    with pytest.raises(NotImplementedError, match='queue A item 7'):
+    # a hub URI reads the hub's local cache only (utils/io_utils), which
+    # does not hold this file: nothing is downloaded
+    with pytest.raises(Exception, match='disk cache'):
         load_adapter_state('huggingface://org/repo/adapter.safetensors')
 
 

@@ -75,6 +75,7 @@ def test_eval_hook_logs_latent_fd_by_default(tmp_path):
 
     class Runner:
         iter = 100
+        device = torch.device('cpu')
         model = Model()
         state = types.SimpleNamespace(ema=None)
         work_dir = str(tmp_path)
@@ -93,5 +94,31 @@ def test_eval_hook_logs_latent_fd_by_default(tmp_path):
     EvalHook(interval=100, batch=dict(latents=ref),
              metrics=()).after_train_iter(Runner())
     assert 'eval_latent_fd' not in Runner.log_buffer
-    with pytest.raises(NotImplementedError, match='clip_score'):
-        EvalHook(metrics=('latent_fd', 'clip_score'))
+    # JAX's config metrics build; on latents the CLIP score has no images
+    Runner.log_buffer = {}
+    EvalHook(interval=100, batch=dict(latents=ref, prompt=['a']),
+             metrics=('latent_fd', 'clip_score'),
+             clip_path='no-clip').after_train_iter(Runner())
+    assert 'eval_latent_fd' in Runner.log_buffer
+    assert 'eval_clip_score' not in Runner.log_buffer
+
+
+def test_clip_score_asks_for_local_files_only_unlike_jax():
+    """JAX's ``clip_score`` calls ``from_pretrained`` without
+    ``local_files_only`` (``arcflow_tpu/utils/metrics.py:60-61``), so a
+    CLIP missing from the disk is fetched from the hub where there is a
+    network; the port's never fetches (ROADMAP queue C)."""
+    calls = []
+
+    def absent(path, **kwargs):
+        calls.append(kwargs)
+        raise OSError(f'{path} is not on disk')
+    stub = types.SimpleNamespace(
+        CLIPProcessor=types.SimpleNamespace(from_pretrained=absent),
+        CLIPModel=types.SimpleNamespace(from_pretrained=absent),
+        FlaxCLIPModel=types.SimpleNamespace(from_pretrained=absent))
+    imgs = np.zeros((1, 8, 8, 3), np.float32)
+    with mock.patch.dict(sys.modules, transformers=stub):
+        assert j_metrics.clip_score(imgs, ['a'], clip_path='c') is None
+        assert metrics.clip_score(imgs, ['a'], clip_path='c') is None
+    assert calls == [{}, dict(local_files_only=True)]

@@ -20,6 +20,8 @@ import json
 import logging
 import os
 import signal
+import sys
+import types
 from unittest import mock
 
 import jax
@@ -90,14 +92,17 @@ def test_build_hooks_passes_kwargs_and_warns():
         dict(type='TextLoggerHook', by_epoch=False),
         dict(type='JsonLoggerHook', interval=3, ignore_last=True),
         dict(type='TensorboardLoggerHook'),
+        dict(type='NoSuchLoggerHook'),
         dict(type='IterTimerHook', sync=False)]),
         extra_hooks=[Hook()], logger=logger)
     assert [type(h).__name__ for h in hooks] == [
-        'TextLoggerHook', 'JsonLoggerHook', 'IterTimerHook', 'Hook']
+        'TextLoggerHook', 'JsonLoggerHook', 'TensorboardLoggerHook',
+        'IterTimerHook', 'Hook']
     assert hooks[0].interval == 7 and hooks[1].interval == 3
-    assert hooks[2].sync is False
+    assert hooks[2].interval == 7 and hooks[3].sync is False
     msgs = '\n'.join(handler.records)
-    assert "unknown hook type 'TensorboardLoggerHook' skipped" in msgs
+    assert 'TensorboardLoggerHook' not in msgs
+    assert "unknown hook type 'NoSuchLoggerHook' skipped" in msgs
     assert "JsonLoggerHook: unsupported config keys ['ignore_last']" in msgs
 
 
@@ -260,8 +265,134 @@ def test_eval_hook_writes_samples(tmp_path):
     assert samples.shape == (10, 2)
     assert runner.log_buffer['eval_sample_std'] == pytest.approx(
         float(samples.std()))
-    with pytest.raises(NotImplementedError, match='CLIP'):
-        EvalHook(metrics=('clip_score',))
+
+    # the image branch: a grid of the samples, their CLIP score
+    from arcflow_tpu_torch.utils.metrics import clip_score
+    clip = write_tiny_clip(str(tmp_path / 'clip'))
+    imgs = torch.rand((3, 12, 10, 3), generator=torch.Generator()
+                      .manual_seed(0))
+    prompts = ['a photo of a cat', 'the quick brown fox', 'a dog']
+
+    class ImageModel:
+        def val_step(self, batch, generator, ema=None, **kw):
+            return dict(num_samples=3, pred_imgs=imgs)
+    hook = EvalHook(interval=1, batch=dict(prompt=prompts),
+                    metrics=('latent_fd', 'clip_score'), clip_path=clip)
+    runner, _ = stub_runner(tmp_path, [hook], total=1,
+                            step_fn=lambda s, b: (s, {}))
+    runner.model = ImageModel()
+    runner.state.ema = None
+    runner.run()
+    from PIL import Image
+    grid = np.asarray(Image.open(tmp_path / 'eval' / 'iter_1.png'))
+    assert grid.shape == (24, 20, 3)                 # 2 x 2 cells
+    want = np.clip(imgs[0].numpy() * 255 + 0.5, 0, 255).astype(np.uint8)
+    np.testing.assert_array_equal(grid[:12, :10], want)
+    assert (grid[12:, 10:] == 0).all()
+    score = runner.log_buffer['eval_clip_score']
+    assert np.isfinite(score)
+    assert score == clip_score(imgs.numpy(), prompts, clip_path=clip)
+    # without the metric, or without prompts, no score
+    for kw in (dict(metrics=()), dict(batch={})):
+        hook = EvalHook(**dict(dict(interval=1, batch=dict(prompt=prompts),
+                                    metrics=('clip_score',),
+                                    clip_path=clip), **kw))
+        runner, _ = stub_runner(tmp_path, [hook], total=1,
+                                step_fn=lambda s, b: (s, {}))
+        runner.model, runner.state.ema = ImageModel(), None
+        runner.run()
+        assert 'eval_clip_score' not in runner.log_buffer
+
+
+def write_tiny_clip(d):
+    """A tiny CLIP (text and vision towers, 32 x 32 images) with its
+    tokenizer and image processor: a folder ``CLIPProcessor`` and
+    ``CLIPModel`` load with ``local_files_only``."""
+    import transformers as tf
+
+    from test_torch_qwen_text import write_tokenizer
+    cfg = tf.CLIPConfig(
+        text_config=dict(vocab_size=240, hidden_size=32,
+                         intermediate_size=64, num_hidden_layers=2,
+                         num_attention_heads=2, max_position_embeddings=77),
+        vision_config=dict(hidden_size=32, intermediate_size=64,
+                           num_hidden_layers=2, num_attention_heads=2,
+                           image_size=32, patch_size=8), projection_dim=16)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        tf.CLIPModel(cfg).save_pretrained(d)
+    write_tokenizer(d)
+    os.remove(os.path.join(d, 'tokenizer.json'))    # CLIP's own BPE
+    with open(os.path.join(d, 'tokenizer_config.json'), 'w') as fh:
+        json.dump(dict(tokenizer_class='CLIPTokenizer',
+                       bos_token='<|startoftext|>',
+                       eos_token='<|endoftext|>', unk_token='<unk>',
+                       pad_token='<|endoftext|>', model_max_length=77), fh)
+    tf.CLIPImageProcessor(size={'shortest_edge': 32},
+                          crop_size={'height': 32, 'width': 32}
+                          ).save_pretrained(d)
+    return d
+
+
+def test_eval_hook_draws_on_the_runners_device(tmp_path):
+    """The evaluation's generator lies on the runner's device, also for a
+    model without a ``device`` attribute (it was drawn on the CPU)."""
+    made = []
+    real = torch.Generator
+
+    def generator(device='cpu'):
+        made.append(torch.device(device))
+        return real()
+
+    class NoDevice:
+        def val_step(self, batch, generator, ema=None, **kw):
+            return dict(pred_latents=torch.zeros(4, 2, 2, 1))
+    hook = EvalHook(interval=1)
+    runner, _ = stub_runner(tmp_path, [hook], total=1,
+                            step_fn=lambda s, b: (s, {}))
+    runner.model, runner.state.ema = NoDevice(), None
+    runner.device, runner._iter = torch.device('cuda', 1), 1
+    with mock.patch.object(torch, 'Generator', generator):
+        hook.after_train_iter(runner)
+    assert made == [torch.device('cuda', 1)]
+
+
+def test_tensorboard_and_wandb_hooks(tmp_path, monkeypatch):
+    """TensorBoard events with the scalars (read back), and the wandb
+    hook's jsonl fallback without wandb, as in JAX; with a stand-in wandb
+    module, its run gets the scalars."""
+    from arcflow_tpu_torch.runner import (TensorboardLoggerHook,
+                                          WandbLoggerHook)
+    tb = TensorboardLoggerHook(interval=2, log_dir=str(tmp_path / 'tb'))
+    monkeypatch.setitem(sys.modules, 'wandb', None)
+    wb = WandbLoggerHook(interval=2)
+    runner, handler = stub_runner(tmp_path, [tb, wb], total=4)
+    runner.run()
+    from tensorboard.backend.event_processing.event_accumulator import \
+        EventAccumulator
+    acc = EventAccumulator(str(tmp_path / 'tb'))
+    acc.Reload()
+    assert [(e.step, e.value) for e in acc.Scalars('loss')] == \
+        [(2, 2.0), (4, 2.0)]
+    recs = [json.loads(x) for x in open(tmp_path / 'metrics.jsonl')]
+    assert recs == [{'iter': 2, 'loss': 2.0}, {'iter': 4, 'loss': 2.0}]
+    assert any('wandb is not installed' in m for m in handler.records)
+
+    logged, inits = [], []
+
+    class Run:
+        def log(self, scalars, step):
+            logged.append((step, scalars))
+
+        def finish(self):
+            logged.append('finished')
+    monkeypatch.setitem(sys.modules, 'wandb', types.SimpleNamespace(
+        init=lambda **kw: inits.append(kw) or Run()))
+    runner, _ = stub_runner(tmp_path, [WandbLoggerHook(
+        interval=2, init_kwargs=dict(project='p'))], total=4)
+    runner.run()
+    assert inits == [dict(dir=str(tmp_path), project='p')]
+    assert logged == [(2, {'loss': 2.0}), (4, {'loss': 2.0}), 'finished']
 
 
 # ---- the slice: config-built models against JAX --------------------------------
