@@ -13,16 +13,21 @@ world size) and ``dcn_mesh`` lay the ranks out as JAX does
 (``parallel/mesh.py:make_mesh``); the model is sharded over ``fsdp`` and
 replicated over ``data`` (``parallel/fsdp.py:shard_model``), and each rank
 trains on ``samples_per_gpu`` rows of a global batch of ``samples_per_gpu
-x |data| x |fsdp|``. A mesh of one device runs the same code (in a
+x |data| x |fsdp|``. ``sp`` beside them (a 3-D mesh) cuts every
+sequence of the trunks over the ranks of an sp group, which hold the same
+rows, in the layout of ``parallel.sp_mode`` ('ulysses' by default, as in
+JAX, or 'ring'): the model (student and tied teacher) gets the group's
+``SequenceParallel`` state. A mesh of one device runs the same code (in a
 process group of one, started here and ended on return). ``fsdp_axis``
 must be 'fsdp'; ``min_shard_size`` does not apply (FSDP2 shards every
-parameter). A ``tensor_axis``, the ``tensor`` / ``pipe`` / ``expert``
-axes and ``sp`` training are refused by name, as is the host offload of
-the cold state (the H100 holds it).
+parameter). A ``tensor_axis`` and the ``tensor`` / ``pipe`` / ``expert``
+axes are refused by name, as is the host offload of the cold state (the
+H100 holds it).
 """
 
 from __future__ import annotations
 
+import importlib.util
 import os
 from typing import Optional
 
@@ -33,15 +38,17 @@ import numpy as np
 
 from ..config import Config
 from ..data import (Prefetcher, build_bucketized_loader, build_dataloader,
-                    build_dataset)
+                    build_dataset, collate, load_datalist)
 from ..parallel.fsdp import shard_model
-from ..parallel.mesh import batch_ranks, make_mesh, setup_distributed
+from ..parallel.mesh import (SequenceParallel, batch_ranks, make_mesh,
+                             set_sequence_parallel, setup_distributed)
 from ..registry import MODELS
 from ..runner import (CheckpointHook, CheckpointManager, EmaConfig,
                       EvalHook, IterBasedRunner, ProfilerHook,
                       QuartileLossLoggerHook, TrainState, build_hooks,
                       build_logger, build_optimizers, build_train_step,
                       count_params)
+from ..runner.runner import to_device
 
 
 def build_model_from_cfg(cfg: Config, device='cuda'):
@@ -72,8 +79,71 @@ def parallel_from_cfg(cfg: Config) -> Optional[dict]:
     if parallel.get('fsdp_axis', 'fsdp') != 'fsdp':
         raise ValueError(f'parallel.fsdp_axis must be "fsdp", got '
                          f'{parallel["fsdp_axis"]!r}')
-    return dict(axes=dict(parallel['mesh']),
-                dcn_axes=dict(parallel.get('dcn_mesh') or {}) or None)
+    axes = dict(parallel['mesh'])
+    if set(axes) <= {'sp'}:         # sp alone: every rank holds the batch
+        axes = dict(data=1, **axes)
+    return dict(axes=axes,
+                dcn_axes=dict(parallel.get('dcn_mesh') or {}) or None,
+                sp_mode=parallel.get('sp_mode', 'ulysses'))
+
+
+def _test_set_cfg(test_cfg: dict, can_encode: bool = True) -> dict:
+    """``data.test`` as the port's ``ImagePrompt`` takes it. The shipped
+    test sets (``configs/{flux,qwen}/_data_test.py``) keep the reference's
+    keys: ``cache_dir`` under ``data_root``, the datalist at
+    ``cache_datalist_path``, and ``prompt_dataset_kwargs`` naming a hub
+    dataset the reference downloads (the port reads local files only). A
+    cache whose records cannot be read here (no ``zstandard``, or the
+    first record's file missing) leaves the datalist's prompts alone,
+    which the model's text encoder embeds; without one
+    (``can_encode=False``) that raises, naming what is missing."""
+    cfg = dict(test_cfg)
+    root = cfg.pop('data_root', None)
+    cfg.pop('prompt_dataset_kwargs', None)
+    if 'cache_datalist_path' in cfg:
+        cfg.setdefault('datalist_path', cfg.pop('cache_datalist_path'))
+    cache = cfg.get('cache_dir')
+    if cache is None:
+        return cfg
+    if root is not None and not os.path.isabs(cache):
+        cfg['cache_dir'] = cache = os.path.join(root, cache)
+    datalist = load_datalist(cfg['datalist_path'])
+    first = os.path.join(cache, f'{datalist[0]["name"]}.zst') \
+        if datalist else None
+    zstd = importlib.util.find_spec('zstandard') is not None
+    if zstd and first and os.path.exists(first):
+        return cfg
+    if not can_encode:
+        why = f'{first} is missing' if zstd else 'zstandard is not installed'
+        raise ValueError(f'the evaluation needs the cached embeds of '
+                         f'data.test under {cache} ({why}) or a text_encoder '
+                         f'in the model to embed its prompts')
+    keep = ('type', 'latent_size', 'start_ind', 'end_ind', 'test_mode',
+            'negative_prompt')
+    return dict({k: v for k, v in cfg.items() if k in keep},
+                prompts_path=cfg['datalist_path'])
+
+
+def eval_batch_from_test(test_cfg: dict, num_samples: int, device,
+                         can_encode: bool = True) -> dict:
+    """``EvalHook``'s batch for an ``evaluation`` entry that gives none:
+    the first ``num_samples`` items of the test set ``test_cfg``
+    (``_test_set_cfg``): their prompts (``prompt``, for the CLIP score),
+    their test noise and their cached embeds (``prompt_embed_kwargs``)
+    where the cache can be read, else the prompts alone
+    (``prompt_kwargs``) if the model can encode them (``can_encode``), on
+    ``device``. The JAX package passes ``dict(num_samples=n)`` there,
+    which its ``val_step`` cannot embed (ROADMAP.md queue C)."""
+    dataset = build_dataset(_test_set_cfg(test_cfg, can_encode))
+    items = [dataset[i] for i in range(min(num_samples, len(dataset)))]
+    batch = collate(items)
+    prompts = [str(p) for p in batch['name']]
+    out = dict(prompt=prompts, noise=batch['noise'])
+    if 'prompt_embed_kwargs' in batch:
+        out['prompt_embed_kwargs'] = batch['prompt_embed_kwargs']
+    else:
+        out['prompt_kwargs'] = dict(prompt=prompts)
+    return to_device(out, device)
 
 
 def train_model(cfg: Config, work_dir: Optional[str] = None,
@@ -93,16 +163,19 @@ def train_model(cfg: Config, work_dir: Optional[str] = None,
                 and dist.get_world_size() > 1:
             raise ValueError(f'{dist.get_world_size()} processes and no '
                              f'parallel.mesh: set one (e.g. data=-1)')
+        sp_mode = None if mesh_args is None else mesh_args.pop('sp_mode')
         mesh = None if mesh_args is None else make_mesh(**mesh_args)
         if device.type == 'cuda' and dist.is_initialized():
             device = torch.device('cuda', torch.cuda.current_device())
-        return _train(cfg, work_dir, resume, seed, max_iters, device, mesh)
+        return _train(cfg, work_dir, resume, seed, max_iters, device, mesh,
+                      sp_mode)
     finally:
         if started:
             dist.destroy_process_group()
 
 
-def _train(cfg, work_dir, resume, seed, max_iters, device, mesh):
+def _train(cfg, work_dir, resume, seed, max_iters, device, mesh,
+           sp_mode=None):
     work_dir = work_dir or cfg.get('work_dir', 'work_dirs/default')
     os.makedirs(work_dir, exist_ok=True)
     logger = build_logger(work_dir)
@@ -117,10 +190,15 @@ def _train(cfg, work_dir, resume, seed, max_iters, device, mesh):
                                   'offload) is not ported')
     torch.manual_seed(seed)
     model = build_model_from_cfg(cfg, device=device)
+    if mesh is not None and 'sp' in mesh.mesh_dim_names:
+        set_sequence_parallel(model, SequenceParallel(mesh.get_group('sp'),
+                                                      sp_mode))
     if mesh is not None:
         shard_model(model, mesh)
         logger.info(f'mesh parallelism: '
-                    f'{dict(zip(mesh.mesh_dim_names, mesh.shape))}')
+                    f'{dict(zip(mesh.mesh_dim_names, mesh.shape))}'
+                    + (f', sp_mode {sp_mode}' if 'sp' in mesh.mesh_dim_names
+                       else ''))
     trainable, frozen = model.init_params()
     logger.info(f'trainable params: {count_params(trainable):,}; '
                 f'frozen params: {count_params(frozen):,}')
@@ -186,8 +264,12 @@ def _train(cfg, work_dir, resume, seed, max_iters, device, mesh):
     eval_cfg = cfg.get('evaluation')
     if eval_cfg:
         for e_cfg in [eval_cfg] if isinstance(eval_cfg, dict) else eval_cfg:
-            extra_hooks.append(EvalHook(**{k: v for k, v in dict(e_cfg).items()
-                                           if k != 'type'}))
+            e_cfg = {k: v for k, v in dict(e_cfg).items() if k != 'type'}
+            if e_cfg.get('batch') is None and data_cfg.get('test'):
+                e_cfg['batch'] = eval_batch_from_test(
+                    data_cfg['test'], e_cfg.get('num_samples', 64), device,
+                    getattr(model, 'text_encoder', None) is not None)
+            extra_hooks.append(EvalHook(**e_cfg))
     if cfg.get('profiler'):
         extra_hooks.append(ProfilerHook(**dict(cfg.profiler)))
     hooks = build_hooks(cfg.get('log_config'), extra_hooks=extra_hooks,

@@ -17,20 +17,26 @@ generator seeded from ``(dropout_seed, i, r)`` (JAX
 mesh). The seed is an input of the checkpointed function, so the recompute
 draws the same masks.
 
-Sequence parallelism (serving): with a ``parallel.SequenceParallel`` state
-(``sequence_parallel``, set by ``parallel.set_sequence_parallel``) each rank
-keeps its shard of the image tokens and its shard of the text tokens, with
-RoPE from the matching slices of the position ids, as the JAX trunk shards
-img and txt separately (``arcflow_tpu/models/flux.py:327-330``). The blocks
-concatenate [txt_r, img_r] locally, a permutation of the global sequence that
-non-causal attention does not see, and the image tokens are gathered before
-the heads, so every rank returns the whole output. A stream whose length
-``sp`` does not divide gets zero tokens at its end (``parallel/mesh.py:
-stream_padding``): they are masked as keys in every attention (the same
-key-padding mask a Qwen text mask takes) and their rows are dropped before
-the heads, so the output is the unsharded one. Streams ``sp`` divides are
-not padded and run unmasked, as before. MoE and pipeline parallelism wait
-for their slices.
+Sequence parallelism (serving and training): with a
+``parallel.SequenceParallel`` state (``sequence_parallel``, set by
+``parallel.set_sequence_parallel``) each rank keeps its shard of the image
+tokens and its shard of the text tokens, with RoPE from the matching slices
+of the position ids, as the JAX trunk shards img and txt separately
+(``arcflow_tpu/models/flux.py:327-330``). The blocks concatenate [txt_r,
+img_r] locally, a permutation of the global sequence that non-causal
+attention does not see, and the image tokens are gathered before the
+heads, so every rank returns the whole output; under autograd the gather's
+backward is a reduce-scatter (``parallel/fsdp.py`` states the gradient
+convention). A stream whose length ``sp`` does not divide gets zero tokens
+at its end (``parallel/mesh.py:stream_padding``): they are masked as keys
+in every attention (the same key-padding mask a Qwen text mask takes) and
+their rows are dropped before the heads, so the output is the unsharded
+one. Streams ``sp`` divides are not padded and run unmasked, as before.
+The LoRA dropout of a block draws each row's masks for the whole
+single-device stream and keeps those of the tokens the rank holds
+(``parallel.mesh.token_streams``), so a step under ``sp`` draws the masks
+of the step on one device. MoE and pipeline parallelism wait for their
+slices.
 
 ControlNet (JAX ``flux.py:263-275, 318-390``): ``controlnet_block_samples``
 (n residuals (B, N_img, D)) are added to the image stream at the end of the
@@ -56,12 +62,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.mesh import (SequenceParallel, global_rows, pad_tokens,
-                             stream_padding, token_validity)
+                             stream_padding, token_streams, token_validity)
 from ..registry import MODULES
 from .layers import (AdaLayerNormContinuous, AdaLayerNormZero,
-                     AdaLayerNormZeroSingle, FeedForward, JointAttention,
-                     LoRADense, SingleStreamAttention, layer_norm_no_affine,
-                     rope_frequencies, timestep_sinusoidal)
+                     AdaLayerNormZeroSingle, DropoutRows, FeedForward,
+                     JointAttention, LoRADense, SingleStreamAttention,
+                     layer_norm_no_affine, rope_frequencies, stream_rows,
+                     timestep_sinusoidal)
 
 
 # the student's trainable surface (reference freeze_exclude,
@@ -80,14 +87,18 @@ def check_fixed(**fields):
 
 
 def run_block(block: nn.Module, index: int, dropout_seed: Optional[int],
-              checkpointing: bool, *args):
+              checkpointing: bool, *args, streams=None):
     """Run ``block(*args)`` with its dropout generators, under activation
-    checkpointing when ``checkpointing`` is on and autograd records."""
+    checkpointing when ``checkpointing`` is on and autograd records.
+    ``streams`` (``parallel.mesh.token_streams``) says which tokens of the
+    single-device streams the block holds under sequence parallelism."""
     rows = global_rows(args[0].shape[0])
 
     def run(seed, *a):
-        return block(*a, generator=dropout_generator(seed, index, rows,
-                                                     a[0].device))
+        gens = dropout_generator(seed, index, rows, a[0].device)
+        if gens is not None and streams is not None:
+            gens = DropoutRows(gens, streams)
+        return block(*a, generator=gens)
     if checkpointing and torch.is_grad_enabled():
         return checkpoint(run, dropout_seed, *args, use_reentrant=False)
     return run(dropout_seed, *args)
@@ -177,8 +188,10 @@ class FluxJointBlock(nn.Module):
         txt = txt + gate_t * attn_txt
         h_img = layer_norm_no_affine(img) * (1 + scale_mlp_i) + shift_mlp_i
         h_txt = layer_norm_no_affine(txt) * (1 + scale_mlp_t) + shift_mlp_t
-        img = img + gate_mlp_i * self.ff_img(h_img, generator)
-        txt = txt + gate_mlp_t * self.ff_txt(h_txt, generator)
+        img = img + gate_mlp_i * self.ff_img(h_img,
+                                             stream_rows(generator, 'img'))
+        txt = txt + gate_mlp_t * self.ff_txt(h_txt,
+                                             stream_rows(generator, 'txt'))
         if cn is not None:          # a ControlNet residual on the image
             img = img + cn.to(img.dtype)
         return img, txt
@@ -201,6 +214,7 @@ class FluxSingleBlock(nn.Module):
 
     def forward(self, x, rope, temb, mask=None, cn=None, generator=None):
         h, gate = self.norm(x, temb)
+        generator = stream_rows(generator, 'joint')
         attn_out = self.attn(h, rope, mask=mask)
         mlp_h = F.gelu(self.proj_mlp(h, generator), approximate='tanh')
         fused = torch.cat([attn_out, mlp_h], dim=-1)
@@ -315,6 +329,8 @@ class FluxBackbone(nn.Module):
         n_img = packed.shape[1]
         pad_t, pad_i = stream_padding(sp, encoder_hidden_states.shape[1],
                                       n_img)
+        streams = token_streams(sp, encoder_hidden_states.shape[1], n_img,
+                                packed.device)
         valid = None                         # (txt, img) key validity
         if pad_t or pad_i:
             valid = [token_validity(encoder_hidden_states, pad_t),
@@ -343,13 +359,14 @@ class FluxBackbone(nn.Module):
                                 self.axes_dims_rope)
         for i, block in enumerate(self.joint_blocks):
             img, txt = run_block(block, i, dropout_seed, self.checkpointing,
-                                 img, txt, rope, temb, mask, cn_joint[i])
+                                 img, txt, rope, temb, mask, cn_joint[i],
+                                 streams=streams)
         hidden = torch.cat([txt, img], dim=1)
         n_joint = len(self.joint_blocks)
         for i, block in enumerate(self.single_blocks, n_joint):
             hidden = run_block(block, i, dropout_seed, self.checkpointing,
                                hidden, rope, temb, mask,
-                               cn_single[i - n_joint])
+                               cn_single[i - n_joint], streams=streams)
         img = hidden[:, txt.shape[1]:]
         if isinstance(sp, SequenceParallel):
             img = sp.gather(img)

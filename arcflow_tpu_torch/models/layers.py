@@ -42,8 +42,7 @@ from torch import nn
 from ..ops import attention as attn_ops
 from ..ops import int8_matmul as i8_ops
 from ..ops import quant_matmul as qmm_ops
-from ..parallel.ring_attention import (LocalRing, check_no_autograd,
-                                       ring_attention)
+from ..parallel.ring_attention import LocalRing, ring_attention
 from ..utils.quantize import unpack_nibbles
 
 
@@ -203,17 +202,52 @@ class LoRADense(nn.Linear):
         return y
 
 
+class DropoutRows(list):
+    """The generators of a forward's LoRA dropout, one per batch row
+    (``flux.dropout_generator``), for a forward that holds only some tokens
+    of the single-device sequence (a sequence-parallel shard, or streams
+    padded for ``sp``). ``streams`` maps each token stream of a block
+    ('txt', 'img' and their concatenation 'joint') to (index, total): where
+    the local tokens sit among the ``total`` tokens of that stream on one
+    device (``parallel.mesh.token_streams``); ``stream_rows`` picks one.
+    ``tokens`` is the (index, total) of the stream a layer draws for."""
+
+    def __init__(self, generators, streams=None, tokens=None):
+        super().__init__(generators)
+        self.streams = streams
+        self.tokens = tokens
+
+
+def stream_rows(generator, stream: str):
+    """The dropout generators for the tokens of ``stream``: ``generator``
+    itself, unless it carries the token streams of a sequence-parallel
+    forward (``DropoutRows``)."""
+    streams = getattr(generator, 'streams', None)
+    if not streams:
+        return generator
+    return DropoutRows(generator, tokens=streams[stream])
+
+
 def uniform_rows(x: torch.Tensor, generator) -> torch.Tensor:
     """Uniform draws of ``x``'s shape on its device: from ``generator``, or,
     given a sequence of generators (one per row, ``flux.dropout_generator``),
-    row i of them from generator i."""
+    row i of them from generator i. Where the generators say which tokens
+    of the single-device sequence ``x`` holds (``DropoutRows.tokens``),
+    each row draws the whole sequence, as on one device, and keeps those
+    tokens, so a sequence-parallel rank draws the masks of its tokens."""
     if isinstance(generator, torch.Generator):
         return torch.rand(x.shape, generator=generator, device=x.device)
     if len(generator) != x.shape[0]:
         raise ValueError(f'{len(generator)} dropout generators for '
                          f'{x.shape[0]} rows')
-    return torch.stack([torch.rand(x.shape[1:], generator=g,
-                                   device=x.device) for g in generator])
+    tokens = getattr(generator, 'tokens', None)
+    if tokens is None:
+        return torch.stack([torch.rand(x.shape[1:], generator=g,
+                                       device=x.device) for g in generator])
+    index, total = tokens
+    return torch.stack([torch.rand((total, *x.shape[2:]), generator=g,
+                                   device=x.device).index_select(0, index)
+                        for g in generator])
 
 
 @contextlib.contextmanager
@@ -372,12 +406,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     autograd, backward), a CPU tensor their plain versions. ``mask`` may be
     None or a key-padding mask (B, 1, 1, S_kv); other masks raise.
 
-    ``sp`` routes the call over the sequence-parallel ranks (inference
-    only): a ``LocalRing`` or a ``SequenceParallel`` in 'ring' mode runs
-    ``parallel/ring_attention.py`` on this rank's token shard; one in
-    'ulysses' mode turns the token shards into head shards of the full
-    sequence (all-to-all), runs the kernel on them with the key mask
-    gathered from every rank, and turns them back.
+    ``sp`` routes the call over the sequence-parallel ranks, forward and,
+    under autograd, backward: a ``LocalRing`` or a ``SequenceParallel`` in
+    'ring' mode runs ``parallel/ring_attention.py`` on this rank's token
+    shard (K4 hops, K3 hops in the backward); one in 'ulysses' mode turns
+    the token shards into head shards of the full sequence (all-to-all,
+    whose backward is the inverse all-to-all), runs the kernels (K1 / K2,
+    K3) on them with the key mask gathered from every rank, and turns them
+    back.
 
     A batch row whose keys are all masked gets what the JAX ``attention``
     gives it (XLA attention masks with a large negative number, so the row
@@ -394,7 +430,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _attention_one_device(q, k, v, kv_valid)
     if isinstance(sp, LocalRing) or sp.mode == 'ring':
         return ring_attention(q, k, v, kv_valid, sp)
-    check_no_autograd(q, k, v)
     q, k, v = (sp.seq_to_heads(t) for t in (q, k, v))
     if kv_valid is not None:
         kv_valid = sp.gather(kv_valid)

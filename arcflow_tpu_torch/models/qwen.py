@@ -13,8 +13,9 @@ mask in every block's joint attention. The heads are ArcFlux's
 tokens as the FLUX trunk does, and the text mask with the text tokens, so
 each rank's key mask is [txt_mask_r, ones(img_r)]; a stream that ``sp``
 does not divide is padded with masked tokens, as in the FLUX trunk.
-Training: activation checkpointing and the per-block LoRA dropout
-generators are the FLUX trunk's (``flux.py:run_block``). MoE waits for its
+Training, under ``sp`` too: activation checkpointing, the per-block LoRA
+dropout generators and their token streams are the FLUX trunk's
+(``flux.py:run_block``). MoE waits for its
 slice.
 """
 
@@ -26,7 +27,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import (SequenceParallel, global_rows, pad_tokens,
-                             stream_padding, token_validity)
+                             stream_padding, token_streams, token_validity)
 from ..registry import MODULES
 from .flux import (ArcFlowHeads, FluxJointBlock, MLPEmbedder, check_fixed,
                    dropout_generator, make_img_ids, patchify, run_block,
@@ -119,6 +120,8 @@ class QwenBackbone(nn.Module):
         n_img = packed.shape[1]
         pad_t, pad_i = stream_padding(sp, encoder_hidden_states.shape[1],
                                       n_img)
+        streams = token_streams(sp, encoder_hidden_states.shape[1], n_img,
+                                packed.device)
         img_valid = None                         # see flux.py:FluxBackbone
         if pad_t or pad_i:
             encoder_hidden_states_mask = token_validity(
@@ -151,7 +154,8 @@ class QwenBackbone(nn.Module):
         for i, block in enumerate(self.transformer_blocks):
             img, txt = run_block(block, i, dropout_seed, self.checkpointing,
                                  img, txt, rope, temb,
-                                 encoder_hidden_states_mask, img_valid)
+                                 encoder_hidden_states_mask, img_valid,
+                                 streams=streams)
         if isinstance(sp, SequenceParallel):
             img = sp.gather(img)
         return img[:, :n_img], temb

@@ -26,6 +26,29 @@ reduce-scatters; here FSDP2 does that per unit of modules:
 The composition's loss becomes the forward of one root module over every
 unit (``model.loss`` is replaced by the root's call): FSDP2 finds its units
 from the first root to run forward.
+
+Under ``sp`` (a 3-D ('data', 'fsdp', 'sp') mesh): the parameters are
+sharded over ``fsdp`` and replicated over ``data`` x ``sp`` (FSDP2's
+2-D mesh of ``fsdp_mesh``), and the ranks of one sp group run the same
+rows. The trunk's blocks run on token shards; the embedders of the
+replicated inputs (timestep, guidance, pooled text), the heads and the
+loss run replicated, after the gather. The convention that makes each
+token count exactly once:
+
+* every rank backpropagates the whole loss (the same on each rank);
+* ``SequenceParallel.gather``'s backward is a reduce-scatter (a sum), so
+  a token shard's gradient is n_sp x its share of the true one, as is
+  every block parameter's gradient on a rank, while a replicated
+  tensor's gradient (the heads', and the head's part of the timestep
+  embedding's) is the true one on every rank;
+* FSDP2 averages the gradients over ``data``, ``fsdp`` and ``sp`` alike,
+  so over an sp group it takes the mean: the heads' true gradient, and
+  for the blocks and the timestep embedder (which feeds both the sharded
+  blocks and the replicated head) the head's part plus the sum of the
+  shards' parts.
+
+This is the same as a loss scaled by 1 / n_sp and gradients summed over
+``sp``.
 """
 
 from __future__ import annotations
@@ -35,6 +58,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.fsdp import FSDPModule, fully_shard
 from torch.distributed.tensor import DTensor
 
@@ -92,14 +116,28 @@ class _LossRoot(nn.Module):
         return self._loss(batch, generator, running_status=running_status)
 
 
+def fsdp_mesh(mesh):
+    """FSDP2's 2-D (replicate, shard) mesh for ``make_mesh``'s mesh: the
+    ('data', 'fsdp') mesh itself, or for a ('data', 'fsdp', 'sp') mesh one
+    whose replicated dimension ('data_sp') runs over data x sp."""
+    if 'sp' not in mesh.mesh_dim_names:
+        return mesh
+    d, f, n = mesh.mesh.shape
+    return DeviceMesh(mesh.device_type,
+                      mesh.mesh.permute(0, 2, 1).reshape(d * n, f),
+                      mesh_dim_names=('data_sp', 'fsdp'))
+
+
 def shard_model(model, mesh) -> None:
     """Shard the modules of ``model`` (a composition) that its loss runs
     (``model.fsdp_modules()``: the student's and the teacher's denoisers)
-    over ``mesh`` (``make_mesh``'s ('data', 'fsdp') ``DeviceMesh``), in
-    place. A module shared by two denoisers (the tied teacher's trunk) is
+    over ``mesh`` (``make_mesh``'s ('data', 'fsdp') ``DeviceMesh``, or its
+    ('data', 'fsdp', 'sp') one, through ``fsdp_mesh``), in place. A
+    module shared by two denoisers (the tied teacher's trunk) is
     sharded once. Call it before ``model.init_params()``, which then hands
     out the sharded parameters. ``model.loss`` becomes the call of the
     root module."""
+    mesh = fsdp_mesh(mesh)
     modules = model.fsdp_modules()
     for denoiser in modules.values():
         for unit in _units(denoiser):

@@ -2,21 +2,24 @@
 
 Counterpart of ``arcflow_tpu/parallel/mesh.py``: ``setup_distributed``
 (its lines 31-58) starts the process group; ``make_mesh`` (61-110) lays
-the ranks out on the ``data`` and ``fsdp`` axes as a 2-D ``DeviceMesh``
-(the JAX mesh's axes, sizes and device order, ``-1`` and ``dcn_axes``
-included) or takes the ``sp`` axis alone for serving; ``batch_axes`` /
-``batch_ranks`` (165-172) say over which ranks the batch is split and
-where this rank's rows lie; ``batch_draw`` draws a step's per-sample
-randomness for the global batch and keeps this rank's rows, as GSPMD
-splits JAX's one-key draw, and ``global_rows`` numbers this rank's rows
-in the global batch. One explicit ``SequenceParallel`` object, held
-by the transformer's attention modules and its trunk, replaces the
-process-global activation state ``_ACT`` (245-306). Its helpers cut the
-tokens into this rank's shard and gather them back (JAX
-``shard_activation('residual')``), and move attention between token shards
-and head shards for the Ulysses layout (JAX ``heads_partition``, 379-405).
-The ``tensor``, ``pipe`` and ``expert`` axes wait for their slices
-(ROADMAP.md queue A item 5, what is left of A12).
+the ranks out on the ``data``, ``fsdp`` and ``sp`` axes as a 2-D or 3-D
+``DeviceMesh`` (the JAX mesh's axes, sizes and device order, ``-1`` and
+``dcn_axes`` included) or takes the ``sp`` axis alone for serving;
+``batch_axes`` / ``batch_ranks`` (165-172) say over which ranks the batch
+is split and where this rank's rows lie (all ranks of one ``sp`` group
+hold the same rows); ``batch_draw`` draws a step's per-sample randomness
+for the global batch and keeps this rank's rows, as GSPMD splits JAX's
+one-key draw, and ``global_rows`` numbers this rank's rows in the global
+batch. One explicit ``SequenceParallel`` object, held by the
+transformer's attention modules and its trunk, replaces the
+process-global activation state ``_ACT`` (245-306; ``sp_mode`` picks its
+layout). Its helpers cut the tokens into this rank's shard and gather them
+back (JAX ``shard_activation('residual')``), and move attention between
+token shards and head shards for the Ulysses layout (JAX
+``heads_partition``, 379-405); under autograd each one's backward is its
+inverse collective (the gather's a reduce-scatter). The ``tensor``,
+``pipe`` and ``expert`` axes wait for their slices (ROADMAP.md queue A
+items 5.2, 5.4, 5.5).
 """
 
 from __future__ import annotations
@@ -33,9 +36,11 @@ from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
 SP_MODES = ('ring', 'ulysses')
-# the axes a training mesh takes, in the DeviceMesh's dimension order:
+# the axes the batch is split over, in the DeviceMesh's dimension order:
 # replicated over data, sharded over fsdp (HSDP)
 TRAIN_AXES = ('data', 'fsdp')
+# a training mesh's dimensions: with sp the 3-D ('data', 'fsdp', 'sp')
+MESH_AXES = TRAIN_AXES + ('sp',)
 # axes of the JAX mesh that wait for their slice, with the ROADMAP.md
 # queue A item that ports each
 WAITING_AXES = {'tensor': '5.2', 'pipe': '5.4', 'expert': '5.5'}
@@ -115,13 +120,16 @@ def make_mesh(axes: Dict[str, int],
       order, reshaped to the sizes in the order ``axes`` names them, with
       a dcn factor outermost within its axis. A product of sizes other
       than the world size raises as JAX's does (``mesh_shape``).
+    * the same with ``'sp': n`` above 1 beside them (training under
+      ``sp``) -> a 3-D ``DeviceMesh`` ('data', 'fsdp', 'sp'): the ranks of
+      one sp group hold the same rows and share their sequence; its group
+      is ``mesh.get_group('sp')``.
     * ``{'sp': n}`` alone -> {'sp': the process group of the n ranks},
       as before: the axis must span every process (-1 takes them all); a
       one-process ``sp`` of 1 has no group.
 
-    ``sp`` above 1 beside ``data``/``fsdp`` (training under ``sp``) and the
-    ``tensor``, ``pipe`` and ``expert`` axes raise ``NotImplementedError``,
-    naming the ROADMAP item that ports them."""
+    The ``tensor``, ``pipe`` and ``expert`` axes raise
+    ``NotImplementedError``, naming the ROADMAP item that ports them."""
     waiting = sorted(set(axes) & set(WAITING_AXES))
     if waiting:
         raise NotImplementedError(
@@ -129,7 +137,7 @@ def make_mesh(axes: Dict[str, int],
             f'ROADMAP.md queue A item '
             f'{", ".join(WAITING_AXES[a] for a in waiting)}); the port takes '
             f'data, fsdp and sp')
-    unknown = sorted(set(axes) - set(TRAIN_AXES) - {'sp'})
+    unknown = sorted(set(axes) - set(MESH_AXES))
     if unknown:
         raise ValueError(f'unknown mesh axes {unknown}')
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -140,31 +148,34 @@ def make_mesh(axes: Dict[str, int],
             raise ValueError(f'sp={n} must span every process ({world}); '
                              f'start them with setup_distributed')
         return {'sp': dist.group.WORLD if dist.is_initialized() else None}
-    train_axes = {k: v for k, v in axes.items() if k != 'sp'}
-    sizes = mesh_shape(train_axes, world, dcn_axes)
-    sp = axes.get('sp', 1)
-    if sp not in (1, -1) or (sp == -1 and world > 1):
-        raise NotImplementedError(
-            'training under sp (the ring and Ulysses backward) is not ported '
-            'yet (ROADMAP.md queue A item 5.3)')
+    sizes = mesh_shape(axes, world, dcn_axes)
+    if sizes.get('sp', 1) == 1:
+        sizes.pop('sp', None)
     if not dist.is_initialized():
         raise RuntimeError('a data/fsdp mesh needs a process group: start '
                            'it with setup_distributed (one process too)')
     device_type = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
     return DeviceMesh(device_type, mesh_ranks(sizes),
-                      mesh_dim_names=TRAIN_AXES)
+                      mesh_dim_names=mesh_axes(sizes))
+
+
+def mesh_axes(sizes) -> Tuple[str, ...]:
+    """The dimensions of the training mesh of ``sizes``: ('data', 'fsdp'),
+    and 'sp' last where it is an axis of them."""
+    return MESH_AXES if 'sp' in sizes else TRAIN_AXES
 
 
 def mesh_ranks(sizes: Dict[str, int]) -> torch.Tensor:
-    """The ranks on the ('data', 'fsdp') grid for ``mesh_shape``'s
+    """The ranks on the ('data', 'fsdp'[, 'sp']) grid for ``mesh_shape``'s
     ``sizes``: 0 .. n-1 reshaped to the sizes in their given order, as JAX
-    places its devices, then ordered (data, fsdp); an axis left out has
-    size 1."""
+    places its devices, then ordered as ``mesh_axes``; an axis left out
+    has size 1."""
+    dims = mesh_axes(sizes)
     ranks = torch.arange(math.prod(sizes.values())).reshape(
         tuple(sizes.values()))
-    ranks = ranks.permute([list(sizes).index(a) for a in TRAIN_AXES
+    ranks = ranks.permute([list(sizes).index(a) for a in dims
                            if a in sizes])
-    return ranks.reshape(tuple(sizes.get(a, 1) for a in TRAIN_AXES))
+    return ranks.reshape(tuple(sizes.get(a, 1) for a in dims))
 
 
 def batch_axes(mesh) -> Tuple[str, ...]:
@@ -176,15 +187,24 @@ def batch_axes(mesh) -> Tuple[str, ...]:
 
 def batch_order(mesh) -> Sequence[int]:
     """The ranks in the order of the rows they hold: the (data, fsdp)
-    grid read row by row, as JAX lays out ``P(('data', 'fsdp'))``."""
-    return mesh.mesh.flatten().tolist()
+    grid read row by row, as JAX lays out ``P(('data', 'fsdp'))``; of each
+    sp group (which holds the same rows) its first rank."""
+    grid = mesh.mesh
+    if 'sp' in mesh.mesh_dim_names:
+        grid = grid[..., 0]
+    return grid.flatten().tolist()
 
 
 def batch_ranks(mesh) -> Tuple[int, int]:
     """(this rank's index among the batch ranks, their count): its rows
-    of a global batch of n x b are [index x b, (index + 1) x b)."""
+    of a global batch of n x b are [index x b, (index + 1) x b). Every
+    rank of an sp group has its group's index."""
     order = batch_order(mesh)
-    return order.index(dist.get_rank()), len(order)
+    me = dist.get_rank()
+    if 'sp' in mesh.mesh_dim_names:
+        d, f, _ = mesh.get_coordinate()
+        me = int(mesh.mesh[d, f, 0])
+    return order.index(me), len(order)
 
 
 # This process's (index, count) in the global batch while a sharded step
@@ -253,35 +273,93 @@ class SequenceParallel:
         return x.narrow(dim, self.rank * (n // self.size), n // self.size)
 
     def gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+        """Every rank's ``x`` concatenated along ``dim`` in rank order.
+        Differentiable: the backward sums every rank's gradient of the
+        whole and gives each rank its slice (a reduce-scatter), so a rank's
+        shard gets the gradient of all ranks' uses of the gathered tensor
+        (``parallel/fsdp.py`` states what that makes of the parameter
+        gradients)."""
         if x.dtype == torch.bool:
             return self.gather(x.to(torch.uint8), dim).bool()
+        return _Gather.apply(x, self, dim)
+
+    def seq_to_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S/n, H, D) token shard -> (B, S, H/n, D) head shard, the
+        tokens in rank order (one all-to-all; differentiable, the backward
+        is ``heads_to_seq``)."""
+        if x.shape[2] % self.size:
+            raise ValueError(f'Ulysses needs heads % sp == 0, got '
+                             f'{x.shape[2]} heads over {self.size} ranks: '
+                             f'use sp_mode="ring"')
+        return _SeqToHeads.apply(x, self)
+
+    def heads_to_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """The inverse of ``seq_to_heads``: (B, S, H/n, D) -> (B, S/n, H,
+        D) (differentiable, the backward is ``seq_to_heads``)."""
+        return _HeadsToSeq.apply(x, self)
+
+    def _all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x.contiguous(), group=self.group)
         return torch.cat(parts, dim=dim)
 
-    def seq_to_heads(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, S/n, H, D) token shard -> (B, S, H/n, D) head shard, the
-        tokens in rank order (one all-to-all)."""
+    def _reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum over the ranks of ``x``, this rank's slice along
+        ``dim``."""
+        parts = x.chunk(self.size, dim=dim)
+        recv = torch.empty_like(parts[0], memory_format=torch.contiguous_format)
+        dist.reduce_scatter_tensor(recv, torch.cat(parts, dim=0),
+                                   group=self.group)
+        return recv
+
+    def _seq_to_heads(self, x: torch.Tensor) -> torch.Tensor:
         b, s, h, d = x.shape
         n = self.size
-        if h % n:
-            raise ValueError(f'Ulysses needs heads % sp == 0, got {h} heads '
-                             f'over {n} ranks: use sp_mode="ring"')
         send = x.reshape(b, s, n, h // n, d).permute(2, 0, 1, 3, 4)
         recv = torch.empty_like(send, memory_format=torch.contiguous_format)
         dist.all_to_all_single(recv, send.contiguous(), group=self.group)
         return recv.transpose(0, 1).reshape(b, n * s, h // n, d)
 
-    def heads_to_seq(self, x: torch.Tensor) -> torch.Tensor:
-        """The inverse of ``seq_to_heads``: (B, S, H/n, D) -> (B, S/n, H,
-        D)."""
+    def _heads_to_seq(self, x: torch.Tensor) -> torch.Tensor:
         b, s_all, hn, d = x.shape
         n = self.size
         send = x.reshape(b, n, s_all // n, hn, d).transpose(0, 1)
         recv = torch.empty_like(send, memory_format=torch.contiguous_format)
         dist.all_to_all_single(recv, send.contiguous(), group=self.group)
         return recv.permute(1, 2, 0, 3, 4).reshape(b, s_all // n, n * hn, d)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sp, dim):
+        ctx.sp, ctx.dim = sp, dim
+        return sp._all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.sp._reduce_scatter(grad, ctx.dim), None, None
+
+
+class _SeqToHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sp):
+        ctx.sp = sp
+        return sp._seq_to_heads(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.sp._heads_to_seq(grad), None
+
+
+class _HeadsToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sp):
+        ctx.sp = sp
+        return sp._heads_to_seq(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.sp._seq_to_heads(grad), None
 
 
 def stream_padding(sp, *lengths: int):
@@ -314,10 +392,38 @@ def token_validity(x: torch.Tensor, pad: int,
     return pad_tokens(valid.bool(), pad)
 
 
-def set_sequence_parallel(module: nn.Module, sp) -> None:
+def token_streams(sp, n_txt: int, n_img: int, device=None):
+    """Where the tokens a trunk holds under ``sp`` sit in the single-device
+    streams of ``n_txt`` text and ``n_img`` image tokens: {'txt': (index,
+    n_txt), 'img': (index, n_img), 'joint': (index, n_txt + n_img)} for
+    the text stream, the image stream and their [txt, img] concatenation
+    (``models/layers.py:DropoutRows``; a padded token takes the last
+    real one's place, its rows are dropped). None where the trunk holds the
+    streams as one device does: without ``sp``, or on a ``LocalRing`` that
+    pads nothing."""
+    pad_t, pad_i = stream_padding(sp, n_txt, n_img)
+    if sp is None or (not isinstance(sp, SequenceParallel)
+                      and not (pad_t or pad_i)):
+        return None
+    txt = torch.arange(n_txt + pad_t, device=device).clamp_(
+        max=max(n_txt - 1, 0))
+    img = torch.arange(n_img + pad_i, device=device).clamp_(
+        max=max(n_img - 1, 0))
+    if isinstance(sp, SequenceParallel):
+        txt, img = sp.shard(txt, dim=0), sp.shard(img, dim=0)
+    return dict(txt=(txt, n_txt), img=(img, n_img),
+                joint=(torch.cat([txt, img + n_txt]), n_txt + n_img))
+
+
+def set_sequence_parallel(module, sp) -> None:
     """Give ``module`` and each of its submodules that holds sequence-
     parallel state (the trunks and their attention modules) ``sp``: a
-    ``SequenceParallel``, a ``LocalRing`` or None (one device)."""
-    for m in module.modules():
-        if hasattr(m, 'sequence_parallel'):
-            m.sequence_parallel = sp
+    ``SequenceParallel``, a ``LocalRing`` or None (one device). A training
+    composition (not an ``nn.Module``) passes it to the denoisers its loss
+    runs (``fsdp_modules``: the student and the teacher)."""
+    roots = [module] if isinstance(module, nn.Module) \
+        else list(module.fsdp_modules().values())
+    for root in roots:
+        for m in root.modules():
+            if hasattr(m, 'sequence_parallel'):
+                m.sequence_parallel = sp

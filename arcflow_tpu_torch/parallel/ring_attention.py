@@ -20,9 +20,18 @@ JAX plain tier does). The JAX flash tier, the one that runs the TPU hop,
 gives such a row 0 instead (``ring_attention.py:183-190, 203``); the port
 does not copy that.
 
-Inference only: the backward (the JAX package rematerializes it through its
-plain tier) waits for training under ``sp`` (ROADMAP A12, now ROADMAP.md
-queue A item 5.3).
+Training: ``ring_attention`` is differentiable in q, k and v (the
+counterpart of JAX ``_ring_local_flash`` and its VJP, ``ring_attention.py:
+202-225``, which recomputes through the plain tier). The forward keeps q,
+k, v, O and the LSE; the backward runs n hops of the attention backward
+kernel (``ops/attention.py:flash_attention_bwd``, K3) on the forward's
+rotation schedule, each with the shard's *global* O and LSE, which give the
+exact partial dQ, dK and dV of the visiting block (P = exp(S - LSE), delta
+= rowsum(dO O)). dQ accumulates in place in fp32; each block's fp32 dK / dV
+accumulators travel with the block and take one last rotation home
+(``_home``). A keyless row's output, the mean of v, adds sum_q dO / S to
+every key's dv, added to each visiting block on the same rotation. CPU
+tensors take ``attention_bwd_ref`` per hop.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..ops import attention as attn_ops
 from ..ops.ring_hop import ring_hop
 
 
@@ -54,15 +64,6 @@ def ring_partition(q_shape: Sequence[int], size: int) -> int:
     return q_shape[1] // size
 
 
-def check_no_autograd(*tensors: torch.Tensor) -> None:
-    """Sequence-parallel attention has no backward yet."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            'sequence-parallel attention is inference only: training under '
-            'sp waits for its backward (ROADMAP A12, now ROADMAP.md queue A '
-            'item 5.3)')
-
-
 def _block_stats(v, kv_valid):
     """With a key mask, a block's fp32 sum of v over its keys (B, H, D) and
     whether any of its keys is valid (B,); None without one."""
@@ -71,12 +72,13 @@ def _block_stats(v, kv_valid):
     return v.sum(dim=1, dtype=torch.float32), kv_valid.bool().any(dim=1)
 
 
-def _hop(q, k, v, kv_valid, stats, state, last):
+def _hop(q, k, v, kv_valid, state, last):
     """Fold one visiting block into a shard's state: the kernel's carry and,
     with a key mask, the running fp32 sum of v and whether any key was
-    valid, from the block's ``stats``."""
+    valid (``_block_stats`` of the block)."""
     carry, v_sum, has_key = state
     carry, out = ring_hop(q, k, v, kv_valid, carry, last)
+    stats = _block_stats(v, kv_valid)
     if stats is not None:
         blk, any_valid = stats
         v_sum = blk if v_sum is None else v_sum + blk
@@ -84,26 +86,26 @@ def _hop(q, k, v, kv_valid, stats, state, last):
     return (carry, v_sum, has_key), out
 
 
-def _finish(out, state, s_total, return_lse):
-    """The shard's output (keyless rows get the mean of v) and, with
-    ``return_lse``, its log-sum-exp (B, H, Sq) = m + log l."""
+def _finish(out, state, s_total):
+    """The shard's output (keyless rows get the mean of v), its log-sum-exp
+    (B, H, Sq) = m + log l and whether each batch row has a valid key
+    (None without a key mask)."""
     (_, m, l), v_sum, has_key = state
     if v_sum is not None:
         v_mean = (v_sum / s_total)[:, None].to(out.dtype)      # (B, 1, H, D)
         out = torch.where(has_key[:, None, None, None], out, v_mean)
-    return (out, m + torch.log(l)) if return_lse else out
+    return out, m + torch.log(l), has_key
 
 
 def _rotation(ring, blocks):
-    """Start passing each shard's block (k, v, mask, ``_block_stats``) to
-    the next shard; returns a function that waits and gives the blocks each
-    shard holds next. ``blocks`` lists every shard's block on a
-    ``LocalRing`` (a re-indexing: the stats travel with their block) and
-    this rank's alone on a real ring (k, v and mask sent to the next rank
-    and received from the previous one, the stats taken of what arrived)."""
+    """Start passing each shard's block (a tuple of tensors, None for a
+    missing one) to the next shard; returns a function that waits and gives
+    the blocks each shard holds next. ``blocks`` lists every shard's block
+    on a ``LocalRing`` (a re-indexing) and this rank's alone on a real ring
+    (sent to the next rank, received from the previous one)."""
     if isinstance(ring, LocalRing):
         return lambda: blocks[-1:] + blocks[:-1]
-    block = blocks[0][:3]
+    block = blocks[0]
     dst = dist.get_global_rank(ring.group, (ring.rank + 1) % ring.size)
     src = dist.get_global_rank(ring.group, (ring.rank - 1) % ring.size)
     sends = [t.contiguous() for t in block if t is not None]
@@ -118,9 +120,121 @@ def _rotation(ring, blocks):
         for req in reqs:
             req.wait()
         got = iter(recvs)
-        k, v, mask = (None if t is None else next(got) for t in block)
-        return [(k, v, mask, _block_stats(v, mask))]
+        return [tuple(None if t is None else next(got) for t in block)]
     return wait
+
+
+def _home(ring, accumulators):
+    """The last rotation of the backward: each block's dK / dV accumulators
+    go from the shard that folded it last to the shard it started on."""
+    return _rotation(ring, accumulators)
+
+
+def _shards(ring, *tensors, dim=1):
+    """Each tensor cut into the ring's shards along ``dim`` (contiguous) on
+    a ``LocalRing``, or as it is (this rank's shard) on a real ring."""
+    if not isinstance(ring, LocalRing):
+        return [[t] for t in tensors]
+    return [None if t is None else
+            [p.contiguous() for p in t.chunk(ring.size, dim=dim)]
+            for t in tensors]
+
+
+def _ring_forward(q, k, v, mask, ring):
+    """The hops: (O, LSE, has_key) of every shard of q, concatenated on a
+    ``LocalRing``; the next rotation is issued before each hop's kernels."""
+    n = ring.size
+    if isinstance(ring, LocalRing):
+        ring_partition(q.shape, n)
+        ring_partition(k.shape, n)
+        s_total = k.shape[1]
+    else:
+        s_total = n * k.shape[1]
+    qs, ks, vs, masks = _shards(ring, q, k, v, mask)
+    masks = masks or [None] * len(qs)
+    blocks = list(zip(ks, vs, masks))
+    states, outs = [(None, None, None)] * len(qs), [None] * len(qs)
+    for j in range(n):
+        pending = _rotation(ring, blocks) if j + 1 < n else None
+        for r, q_r in enumerate(qs):
+            states[r], outs[r] = _hop(q_r, *blocks[r], states[r],
+                                      last=j + 1 == n)
+        if pending is not None:
+            blocks = pending()
+    shards = [_finish(o, st, s_total) for o, st in zip(outs, states)]
+    out = torch.cat([o for o, _, _ in shards], dim=1)
+    lse = torch.cat([x for _, x, _ in shards], dim=-1)
+    return out, lse, shards[0][2]
+
+
+def _ring_backward(ring, q, k, v, mask, out, lse, dout, has_key):
+    """(dq, dk, dv) of the ring: n hops of the attention backward on the
+    forward's schedule. dQ of every query shard accumulates in fp32; the
+    visiting block's fp32 (dK, dV) accumulators travel with it and go home
+    after the last hop; keyless rows' dv (sum_q dO / S for every key) rides
+    along."""
+    n = ring.size
+    s_total = k.shape[1] if isinstance(ring, LocalRing) else n * k.shape[1]
+    qs, os_, dos, ks, vs, masks = _shards(ring, q, out, dout, k, v, mask)
+    (lses,) = _shards(ring, lse, dim=-1)
+    masks = masks or [None] * len(qs)
+    keyless = [None] * len(qs)
+    if has_key is not None:
+        gone = ~has_key[:, None, None]                          # (B, 1, 1)
+        keyless = [torch.where(gone, do.sum(dim=1, dtype=torch.float32)
+                               / s_total, 0.0)[:, None] for do in dos]
+    blocks = list(zip(ks, vs, masks))
+    dqs = [torch.zeros(q_r.shape, dtype=torch.float32, device=q.device)
+           for q_r in qs]
+    held = pending_acc = None
+    for j in range(n):
+        pending = _rotation(ring, blocks) if j + 1 < n else None
+        parts = [attn_ops.flash_attention_bwd(q_r, k_b, v_b, o_r, do_r,
+                                              lse_r, m_b)
+                 for q_r, o_r, do_r, lse_r, (k_b, v_b, m_b)
+                 in zip(qs, os_, dos, lses, blocks)]
+        for dq, (dq_p, _, _) in zip(dqs, parts):
+            dq.add_(dq_p)
+        # the accumulators of the blocks held now: zero at the first hop,
+        # else what the previous shard sent after its hop
+        held = [(None, None)] * len(qs) if pending_acc is None \
+            else pending_acc()
+        accs = []
+        for (dk_acc, dv_acc), (_, dk_p, dv_p), extra in zip(held, parts,
+                                                           keyless):
+            dk_acc = dk_p.float() if dk_acc is None else dk_acc.add_(dk_p)
+            dv_acc = dv_p.float() if dv_acc is None else dv_acc.add_(dv_p)
+            if extra is not None:
+                dv_acc = dv_acc.add_(extra)
+            accs.append((dk_acc, dv_acc))
+        pending_acc = (_home if j + 1 == n else _rotation)(ring, accs)
+        if pending is not None:
+            blocks = pending()
+    home = pending_acc()
+    dq = torch.cat(dqs, dim=1).to(q.dtype)
+    dk = torch.cat([a for a, _ in home], dim=1).to(k.dtype)
+    dv = torch.cat([b for _, b in home], dim=1).to(v.dtype)
+    return dq, dk, dv
+
+
+class _RingAttention(torch.autograd.Function):
+    """The ring with its hand-written backward. ``kv_valid`` and the ring
+    get no gradient; the LSE is an output without one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, ring):
+        out, lse, has_key = _ring_forward(q, k, v, mask, ring)
+        ctx.ring = ring
+        ctx.save_for_backward(q, k, v, mask, out, lse, has_key)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, mask, out, lse, has_key = ctx.saved_tensors
+        dq, dk, dv = _ring_backward(ctx.ring, q, k, v, mask, out, lse, dout,
+                                    has_key)
+        return dq, dk, dv, None, None
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -128,7 +242,8 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    return_lse: bool = False):
     """Non-causal softmax(q k^T / sqrt(D)) v on (B, S, H, D) with the
     sequence cut over a ring of ``size`` shards, one K4 hop per shard and
-    visiting block.
+    visiting block; differentiable in q, k and v (n K3 hops per shard in
+    the backward).
 
     ``ring`` is a ``LocalRing`` (q, k, v and ``kv_valid`` (B, S) are the
     full sequence on one device and so is the result) or the
@@ -138,35 +253,6 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     holds, and the next rotation is issued before the hop's kernels. With
     ``return_lse`` also returns the log-sum-exp (B, H, S) in fp32.
     """
-    check_no_autograd(q, k, v)
     mask = None if kv_valid is None else kv_valid.to(torch.uint8)
-    n = ring.size
-    if isinstance(ring, LocalRing):
-        sq = ring_partition(q.shape, n)
-        ring_partition(k.shape, n)
-        qs, ks, vs = ([t.contiguous() for t in x.split(sq, dim=1)]
-                      for x in (q, k, v))
-        masks = [None] * n if mask is None else \
-            [t.contiguous() for t in mask.split(sq, dim=1)]
-        blocks = [(k_b, v_b, m_b, _block_stats(v_b, m_b))
-                  for k_b, v_b, m_b in zip(ks, vs, masks)]
-        s_total = k.shape[1]
-    else:
-        qs, s_total = [q], n * k.shape[1]
-        blocks = [(k, v, mask, _block_stats(v, mask))]
-    states, outs = [(None, None, None)] * len(qs), [None] * len(qs)
-    for j in range(n):
-        pending = _rotation(ring, blocks) if j + 1 < n else None
-        for r, q_r in enumerate(qs):
-            states[r], outs[r] = _hop(q_r, *blocks[r], states[r],
-                                      last=j + 1 == n)
-        if pending is not None:
-            blocks = pending()
-    shards = [_finish(o, st, s_total, return_lse)
-              for o, st in zip(outs, states)]
-    if len(shards) == 1:
-        return shards[0]
-    if not return_lse:
-        return torch.cat(shards, dim=1)
-    return (torch.cat([o for o, _ in shards], dim=1),
-            torch.cat([lse for _, lse in shards], dim=-1))
+    out, lse = _RingAttention.apply(q, k, v, mask, ring)
+    return (out, lse) if return_lse else out

@@ -15,8 +15,10 @@ On a mesh (``parallel/mesh.py:make_mesh``, the model sharded with
 per-sample draws are its rows of the global batch's (``batch_rows``), FSDP2
 averages the gradients over the ranks, and the logged scalars are means
 over the batch ranks and the per-sample values are gathered in batch
-order, so the log is the one-device log of the global batch. The norm and
-with it the skip are the same on every rank (``optim.global_norm``). Under
+order, so the log is the one-device log of the global batch; under
+``sp`` the ranks of an sp group hold the same rows, which count once. The
+norm and with it the skip are the same on every rank
+(``optim.global_norm``, over the gradients FSDP2 has averaged). Under
 gradient accumulation chunk i of every rank together is chunk i of the
 global batch, as JAX chunks it (the loaders deal its rows so,
 ``data.samplers.rank_rows``), and the gradients are reduced once, after
@@ -67,8 +69,10 @@ def _merge_logs(logs):
 
 def global_logs(log_vars: dict, mesh) -> dict:
     """``log_vars`` of this rank's rows -> those of the global batch: the
-    scalars' means over the batch ranks (one all-reduce), the per-sample
-    tensors gathered in batch order."""
+    scalars' means over the ranks (one all-reduce; the ranks of an sp group
+    hold the same rows and values, so this is the mean over the batch
+    ranks), the per-sample tensors gathered in batch order, each row once
+    (``batch_order`` takes one rank of each sp group)."""
     out = dict(log_vars)
     dev = torch.device(mesh.device_type)
     scalars = [k for k, v in log_vars.items()
@@ -83,7 +87,8 @@ def global_logs(log_vars: dict, mesh) -> dict:
     for k, v in log_vars.items():
         if isinstance(v, torch.Tensor) and v.dim() > 0:
             v = v.detach().to(dev).contiguous()
-            parts = [torch.empty_like(v) for _ in order]
+            parts = [torch.empty_like(v)
+                     for _ in range(dist.get_world_size())]
             dist.all_gather(parts, v)
             out[k] = torch.cat([parts[r] for r in order])
     return out

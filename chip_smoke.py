@@ -51,7 +51,7 @@ line each, and any failure exits non-zero:
     ``Config`` and ``MODELS`` (frozen bf16 trunk shared with the teacher,
     fp32 LoRA rank 256 + heads, checkpointing, LoRA dropout 0.05, nfe 2, 4
     intermediate states; 652,405,884 adapter parameters) with random
-    weights from a seed, 3 ``train_step``s of ``build_train_step`` on one
+    weights from a seed, 2 ``train_step``s of ``build_train_step`` on one
     batch of random prompt embeds: finite losses and grad norms, the
     adapter moved, the frozen trunk bit-identical, the EMA equal to the
     adapter (copy-through before iteration 100), exactly 12 x 57 forward
@@ -176,7 +176,7 @@ line each, and any failure exits non-zero:
     that config (60 blocks, K=16, LoRA 256 with dropout 0.05,
     checkpointing, the trunk in int8 and bf16 and shared with the tied
     teacher, CFG 4.0, nfe 2, 4 intermediate states; 968,551,548 adapter
-    parameters, 844 int8 layers) with random weights from a seed, 3
+    parameters, 844 int8 layers) with random weights from a seed, 2
     ``train_step``s on one batch: finite losses and grad norms, the adapter
     moved, the frozen trunk bit-identical, the teacher's trunk in the
     student's storage, the EMA equal to the adapter, exactly 12 x 60
@@ -203,7 +203,7 @@ line each, and any failure exits non-zero:
     ``parallel.mesh`` data=1, fsdp=-1 (the per-slice half of
     ``_multihost_train.py``) on one card, so the 12B trunk and the adapter
     go through FSDP2, the sharded AdamW, EMA and checkpoint; cuts: frozen
-    trunk bf16, batch 1, 3 iterations, a checkpoint at the third, the
+    trunk bf16, batch 1, 2 iterations, a checkpoint at the second, the
     data ``SmokePromptEmbeds`` (the ImagePrompt cache needs zstandard),
     random weights from a seed. The shipped data=2, fsdp=-1 must be
     refused with JAX's one-device message; against the same config
@@ -280,6 +280,23 @@ Around a training run (PR 15):
     records read back by ``ImageNet`` as the encoder's latents.
     ``tools.cache_image_prompt_data`` writes zstd records, and the card's
     machine has no ``zstandard``: the phase says it did not run it.
+38. (right after phase 11r, on phase 11's model, state and batch) FLUX-12B
+    training with every attention on ``LocalRing(4)``: from one state
+    snapshot, the one-device step, the one-device step with every
+    attention backward zeroed, the ring step with a planted fault (shard
+    0's dK / dV accumulators not sent home), then two counted ring steps
+    of exactly 12 x 57 x 16 K4, 2 x 57 x 16 K3 and no K1 launches; the
+    first against the one-device step (loss, adapter gradients, the
+    adapter's update within TRAIN_SLICE_REL_L2; the ring's error over the
+    attention backward's share within SP_SHARE_REL_L2, which the fault
+    must break); the state is put back after;
+39. (inside phase 27, on its model) Qwen (1 joint block, full width, int8
+    trunk, 384 of 512 text tokens valid, CFG negatives) with every
+    attention on ``LocalRing(4)``: one loss and backward against the one
+    without ``sp`` on the same draws (TRAIN_SLICE_REL_L2), the ring's error
+    over the attention backward's share within SP_SHARE_REL_L2, which the
+    planted fault must break (as phase 38), 192 K4 and 32 key-masked K3
+    launches, no K1.
 
 ``python3 chip_smoke.py --ranks 4`` (four cards) instead spawns 4 NCCL
 ranks and serves FLUX-12B through ``pipe.shard({'sp': 4})`` in ring and in
@@ -293,8 +310,16 @@ replica 0, the FLUX checkpoint restored on the same ranks bitwise, per
 rank s per iteration, peak memory and the profiler's NCCL all-gather /
 reduce-scatter time of one more step, and FLUX's step with the LoRA
 dropout drawn as now, as before (every rank drawing the whole global
-batch's masks) and off. ``--ranks 4 --train-only`` runs the training
-alone.
+batch's masks) and off; then FLUX-12B trained under ``sp`` through
+``train_model`` with the config's mesh overridden (``sp=4`` ring, ``sp=4``
+Ulysses, ``fsdp=2 x sp=2`` ring; 2 iterations each, phase 31's cuts)
+against one card's first iteration on the same rows (the parent's, before
+the ranks start): the launches per rank and iteration, every rank's
+losses equal to rank 0's, the loss and the timestep embedder's gradients
+within TRAIN_SLICE_REL_L2 and the adapter's update nonzero and within
+SP_UPDATE_REL_L2, s per iteration and peak memory per rank. ``--ranks 4
+--train-only`` runs the training alone, ``--ranks 4 --sp-train-only`` the
+``sp`` training alone.
 
 Then one JSON line of per-kernel numbers (each with its bound on the card
 and the time of one PyTorch library call for the same function, where there
@@ -393,6 +418,9 @@ FLUX_TRAIN_PARAMS = (652_405_884, 11_901_408_320)
 # phase 11r: runner iterations from phase 11's step, and the one after
 # which a hook raises SIGTERM (the runner must stop there, saved)
 RUNNER_ITERS, RUNNER_SIGTERM_AFTER = 3, 2
+# bare steps of phases 11 and 28 (phases 38-39 took the time of a third
+# step of each, and of phase 31's third iteration)
+TRAIN_STEPS = 2
 # free disk the phase 11r checkpoint needs beyond its own bytes
 CKPT_DISK_MARGIN = 2 ** 30
 # DiT forwards per train step: nfe student forwards with grad, nfe x
@@ -603,7 +631,8 @@ UPSTREAM_OF_ATTENTION = ('time_text_embed.', 'joint_blocks.')
 # device time by kernel family in the profile: the first family with a
 # substring in the kernel's name takes it (cuDNN's implicit-GEMM convs
 # before cuBLAS's GEMMs)
-KERNEL_FAMILIES = (('w4a8 kernel', ('w4a8_matmul',)),
+KERNEL_FAMILIES = (('NCCL', ('nccl',)), ('w4a8 kernel', ('w4a8_matmul',)),
+                   ('ring hop kernel', ('ring_hop',)),
                    ('int8 GEMM (cuBLASLt)', ('s8s8', 'i8i8', 'imma',
                                              'int8', '_s8_')),
                    ('attention backward kernels', ('attention_bwd',)),
@@ -681,8 +710,12 @@ K7_ATOL, K7_RTOL, K7_REL_L2, K7_COSINE = 2e-3, 2 ** -7, 1e-2, 0.999
 RANKS_QWEN_LAYERS = 2
 
 
+T0 = time.perf_counter()
+
+
 def log(line):
-    print(line, flush=True)
+    """A phase's line, with the seconds since the script started."""
+    print(f'{line} [{time.perf_counter() - T0:.1f} s]', flush=True)
 
 
 def smi_line():
@@ -1643,7 +1676,7 @@ def phase_train_full():
 
     torch.cuda.reset_peak_memory_stats()
     steps = []
-    for _ in range(3):
+    for _ in range(TRAIN_STEPS):
         attn.LAUNCHES = attn.BWD_LAUNCHES = 0   # the main path's counted run
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1707,9 +1740,263 @@ def phase_train_full():
         frozen_host=frozen_host, warm=warm, n_blocks=n_blocks)
 
 
+# phase 38: every attention of the FLUX-12B step on LocalRing(SP): per
+# step 12 x 57 forwards of SP x SP K4 hops and 2 x 57 backwards of SP x SP
+# K3 hops, and no K1
+SP_TRAIN_LAUNCHES = (TRAIN_FORWARDS * SP * SP, TRAIN_BACKWARDS * SP * SP, 0)
+# The ring step against the one-device step of the same state and draws:
+# the two differ in the forward kernels (K4 hops against K1, bf16 P.V in
+# other tiles) and in the order of the backward's sums, as phase 10's
+# kernels differ from the plain fp32 versions, so the loss, the adapter
+# gradients and the adapter's update stay within TRAIN_SLICE_REL_L2. At
+# random weights the residual stream carries most of every gradient (see
+# phase 10), so the ring's backward is also held over the share of the
+# gradient that the attention backward carries (one device, minus one
+# device with every attention backward zeroed), for the adapter tensors
+# upstream of an attention: SP_SHARE_REL_L2 = 0.1 of that share. The
+# bf16 noise of the two forwards, of the order of phase 16's 3e-3 on O,
+# stays well under it; one block's dK / dV accumulators not sent home
+# takes a quarter of every dK and dV, of the order of that share. Phase 39
+# holds Qwen's ring so too: there each side carries about phase 27's
+# kernel-against-plain noise (up to 3e-2 of the share, one block and
+# CFG), and the two sides' bf16 roundings differ, so the ring against one
+# device read 4.3-6.4e-2 (NVIDIA H100 80GB HBM3, 700 W), above
+# QWEN_SHARE_REL_L2, which bounds one side.
+SP_SHARE_REL_L2 = 0.1
+
+
+def state_snapshot(state):
+    """Copies of what a train step changes: the adapter, its EMA, the
+    optimizers' slots, the generator and the step."""
+    tensors = [p for sub in (*state.trainable.values(), *state.ema.values())
+               for p in sub.values()]
+    for tx in state.optimizers.values():
+        for slots in tx.state.values():
+            tensors += [t for t in slots.values()
+                        if isinstance(t, torch.Tensor)]
+    return dict(tensors=tensors, copies=[t.detach().clone() for t in tensors],
+                generator=state.generator.get_state(), step=state.step)
+
+
+def state_restore(state, snap):
+    with torch.no_grad():
+        for t, c in zip(snap['tensors'], snap['copies']):
+            t.copy_(c)
+    state.generator.set_state(snap['generator'])
+    state.step = snap['step']
+
+
+def step_with_grads(step, state, batch, keep=None):
+    """One train step; returns (loss, the adapter gradients it clipped, as
+    fp32 copies, ``keep`` selecting names, the adapter after it on the
+    host)."""
+    from arcflow_tpu_torch.runner import train_step as ts
+    names = list(state.trainable['diffusion'])
+    clip, grads = ts.clip_and_skip, {}
+
+    def spy(gs, iteration, cfg):
+        if not grads:
+            grads.update({n: g.detach().float().clone()
+                          for n, g in zip(names, gs)
+                          if keep is None or n.startswith(keep)})
+        return clip(gs, iteration, cfg)
+    with mock.patch.object(ts, 'clip_and_skip', spy):
+        state, logs = step(state, batch)
+    torch.cuda.synchronize()
+    return float(logs['loss']), grads, {
+        n: p.detach().to('cpu', copy=True)
+        for n, p in state.trainable['diffusion'].items()}
+
+
+def ring_over_share(ref, zero, got, fault, bound):
+    """The ring's error over the share of each gradient that the attention
+    backward carries (``ref``, one device, minus ``zero``, one device with
+    every attention backward zeroed), for the tensors of ``zero``: raises
+    unless every one of ``got`` is within ``bound`` of ``ref`` and the
+    planted ``fault`` breaks ``bound`` for one. Returns both by name."""
+    share = {n: (ref[n] - zero[n]).norm().item() for n in zero}
+    err = {n: (got[n] - ref[n]).norm().item() / share[n]
+           for n in share if share[n] > 0}
+    fault = {n: (fault[n] - ref[n]).norm().item() / share[n] for n in err}
+    if not err or max(err.values()) > bound:
+        raise AssertionError(f'ring backward over the attention backward\'s '
+                             f'share {err} > {bound}, shares {share}')
+    if max(fault.values()) <= bound:
+        raise AssertionError(f'a block\'s dK / dV not sent home kept every '
+                             f'tensor within {bound}: {fault}')
+    return err, fault
+
+
+def lost_home_block():
+    """Planted fault: the last rotation of every ring backward leaves shard
+    0's block without its dK / dV accumulators (zeros), as if they were not
+    sent home."""
+    real = ring_mod._home
+
+    def lost(ring, accs):
+        wait = real(ring, accs)
+        return lambda: [tuple(torch.zeros_like(t) for t in a) if i == 0
+                        else a for i, a in enumerate(wait())]
+    return mock.patch.object(ring_mod, '_home', lost)
+
+
+def phase_train_local_ring(run):
+    """Phase 38: phase 11's FLUX-12B model and state with every attention on
+    ``LocalRing(SP)``, two train steps against the one-device step of the
+    same state, batch and draws."""
+    model, state, step, batch = (run[k] for k in ('model', 'state', 'step',
+                                                  'batch'))
+    n_blocks = run['n_blocks']
+    snap = state_snapshot(state)
+    before = {n: p.detach().to('cpu', copy=True)
+              for n, p in state.trainable['diffusion'].items()}
+    ref_loss, ref_grads, ref_after = step_with_grads(step, state, batch)
+    state_restore(state, snap)
+    zeroed = lambda *a: tuple(torch.zeros_like(t) for t in a[:3])  # noqa
+    with mock.patch.object(attn, 'flash_attention_bwd', zeroed):
+        _, zero_grads, _ = step_with_grads(step, state, batch,
+                                           UPSTREAM_OF_ATTENTION)
+    state_restore(state, snap)
+    set_sequence_parallel(model, LocalRing(SP))
+    try:
+        with lost_home_block():
+            _, fault_grads, _ = step_with_grads(step, state, batch,
+                                                UPSTREAM_OF_ATTENTION)
+        state_restore(state, snap)
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for i in range(2):
+            # the main path's counted run
+            hop.LAUNCHES = attn.LAUNCHES = attn.BWD_LAUNCHES = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, grads, after = step_with_grads(step, state, batch)
+            dt = time.perf_counter() - t
+            launches = (hop.LAUNCHES, attn.BWD_LAUNCHES, attn.LAUNCHES)
+            want = tuple(n_blocks * x for x in SP_TRAIN_LAUNCHES)
+            if launches != want:
+                raise AssertionError(f'ring step {i + 1}: launches (K4, K3, '
+                                     f'K1) {launches}, want {want}')
+            if not math.isfinite(loss):
+                raise AssertionError(f'ring step {i + 1}: loss {loss}')
+            steps.append(dict(s=dt, loss=loss))
+            if i == 0:
+                first = grads, after
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        set_sequence_parallel(model, None)
+    grads, after = first
+    rel_loss = abs(steps[0]['loss'] - ref_loss) / abs(ref_loss)
+    flat = lambda d: torch.cat([t.flatten() for t in d.values()])  # noqa
+    rel_grad = rel_l2(flat(grads), flat(ref_grads))
+    rel_update = rel_l2(flat({n: after[n] - before[n] for n in after}),
+                        flat({n: ref_after[n] - before[n] for n in after}))
+    if max(rel_loss, rel_grad, rel_update) > TRAIN_SLICE_REL_L2:
+        raise AssertionError(f'ring against one device: loss rel '
+                             f'{rel_loss:.3e}, gradients {rel_grad:.3e}, '
+                             f'update {rel_update:.3e} > '
+                             f'{TRAIN_SLICE_REL_L2}')
+    err, fault = ring_over_share(ref_grads, zero_grads, grads, fault_grads,
+                                 SP_SHARE_REL_L2)
+    worst = max(err, key=err.get)
+    state_restore(state, snap)
+    del snap
+    log(f'phase 38 FLUX-12B training on LocalRing({SP}) (phase 11\'s model, '
+        f'state and batch; every attention a ring of {SP} shards of '
+        f'{FLUX_SHAPE[1] // SP} tokens; LoRA dropout on, as configured): ok '
+        f'| launches per step K4 {launches[0]}, K3 {launches[1]}, K1 '
+        f'{launches[2]} | steps ' + ', '.join(
+            f'{st["s"]:.4f} s (loss {st["loss"]:.5e})' for st in steps)
+        + f' against the one-device step\'s loss {ref_loss:.5e} (phase 11 '
+        f'bare warm {run["warm"]:.4f} s) | first step against one device: '
+        f'loss rel {rel_loss:.3e}, adapter gradients rel L2 {rel_grad:.3e}, '
+        f'the adapter\'s update rel L2 {rel_update:.3e} (bound '
+        f'{TRAIN_SLICE_REL_L2}) | {len(err)} tensors upstream of an '
+        f'attention, the ring\'s error over the attention backward\'s share: '
+        f'worst {worst} {err[worst]:.3e} (bound {SP_SHARE_REL_L2}) | planted '
+        f'fault, shard 0\'s dK / dV not sent home: '
+        f'{min(fault.values()):.3e} to {max(fault.values()):.3e}, refused | '
+        f'peak memory {peak_gib:.2f} GiB')
+    return dict(k4=launches[0], k3=launches[1], s=[st['s'] for st in steps],
+                peak_gib=peak_gib)
+
+
+def phase_qwen_train_local_ring(model, batch, seed):
+    """Phase 39: phase 27's Qwen model (1 joint block, full width, int8
+    trunk, 384 of 512 text tokens valid, CFG negatives with 128) with every
+    attention on ``LocalRing(SP)``: one loss and backward against the one
+    without ``sp`` on the same draws, the key-masked K3 hops included. As
+    in phase 38, the ring's backward is also held over the attention
+    backward's share of the gradients upstream of an attention
+    (QWEN_UPSTREAM_OF_ATTENTION) within SP_SHARE_REL_L2, which the planted
+    fault (shard 0's dK / dV not sent home) must break."""
+    adapter = model.init_params()[0]['diffusion']
+    calls = []
+    real_ring = layers.ring_attention
+
+    def spied(q, k, v, kv_valid, ring, **kw):
+        calls.append(kv_valid is not None)
+        return real_ring(q, k, v, kv_valid, ring, **kw)
+
+    def run():
+        for p in adapter.values():
+            p.grad = None
+        draws = torch.Generator(device='cuda').manual_seed(seed)
+        loss, _ = model.loss(batch, draws, running_status=dict(iteration=0))
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {n: (p.grad if p.grad is not None else
+                                 torch.zeros_like(p)).float().clone()
+                             for n, p in adapter.items()}
+    ref_loss, ref_grads = run()
+    zeroed = lambda *a: tuple(torch.zeros_like(t) for t in a[:3])  # noqa
+    with mock.patch.object(attn, 'flash_attention_bwd', zeroed):
+        zero_grads = {n: g for n, g in run()[1].items()
+                      if n.startswith(QWEN_UPSTREAM_OF_ATTENTION)}
+    set_sequence_parallel(model, LocalRing(SP))
+    try:
+        with lost_home_block():
+            fault_grads = run()[1]
+        # the main path's counted run
+        hop.LAUNCHES = attn.LAUNCHES = attn.BWD_LAUNCHES = 0
+        with mock.patch.object(layers, 'ring_attention', spied):
+            loss, grads = run()
+        launches = (hop.LAUNCHES, attn.BWD_LAUNCHES, attn.LAUNCHES)
+    finally:
+        set_sequence_parallel(model, None)
+    want = SP_TRAIN_LAUNCHES
+    if launches != want or not calls or not all(calls):
+        raise AssertionError(f'launches (K4, K3, K1) {launches}, want '
+                             f'{want}; key-masked ring calls {calls}')
+    flat = lambda d: torch.cat([t.flatten() for t in d.values()])  # noqa
+    rel_loss = abs(loss - ref_loss) / abs(ref_loss)
+    rel_grad = rel_l2(flat(grads), flat(ref_grads))
+    if max(rel_loss, rel_grad) > TRAIN_SLICE_REL_L2:
+        raise AssertionError(f'loss rel {rel_loss:.3e}, adapter gradients '
+                             f'rel L2 {rel_grad:.3e} > {TRAIN_SLICE_REL_L2}')
+    err, fault = ring_over_share(ref_grads, zero_grads, grads, fault_grads,
+                                 SP_SHARE_REL_L2)
+    worst = max(err, key=err.get)
+    part = (ref_grads[worst] - zero_grads[worst]).norm().item() \
+        / ref_grads[worst].norm().item()
+    log(f'phase 39 Qwen training on LocalRing({SP}) (phase 27\'s model: 1 '
+        f'joint block, full width, int8 trunk, {QWEN_TXT_VALID} of '
+        f'{QWEN_TXT} text tokens valid, CFG negatives {QWEN_NEG_VALID}): ok '
+        f'| launches K4 {launches[0]}, K3 {launches[1]}, K1 {launches[2]}, '
+        f'all {len(calls)} ring calls key-masked | loss {loss:.6e} against '
+        f'{ref_loss:.6e} without sp, rel {rel_loss:.3e}; adapter gradients '
+        f'rel L2 {rel_grad:.3e} (bound {TRAIN_SLICE_REL_L2}) | {len(err)} '
+        f'tensors upstream of an attention, the ring\'s error over the '
+        f'attention backward\'s share: worst {worst} {err[worst]:.3e} (bound '
+        f'{SP_SHARE_REL_L2}), that share {part:.3e} of its gradient | '
+        f'planted fault, shard 0\'s dK / dV not sent home: '
+        f'{min(fault.values()):.3e} to {max(fault.values()):.3e}, refused')
+    return dict(k4=launches[0], k3=launches[1])
+
+
 class LaunchesPerIter(Hook):
-    """Reads the attention launch counts after each iteration and sets
-    them to 0 for the next (first among the hooks, none of which
+    """Reads the attention launch counts (K1, K3, K4) after each iteration
+    and sets them to 0 for the next (first among the hooks, none of which
     launches)."""
 
     priority = 0
@@ -1718,8 +2005,8 @@ class LaunchesPerIter(Hook):
         self.per_iter = []
 
     def after_train_iter(self, runner):
-        self.per_iter.append((attn.LAUNCHES, attn.BWD_LAUNCHES))
-        attn.LAUNCHES = attn.BWD_LAUNCHES = 0
+        self.per_iter.append((attn.LAUNCHES, attn.BWD_LAUNCHES, hop.LAUNCHES))
+        attn.LAUNCHES = attn.BWD_LAUNCHES = hop.LAUNCHES = 0
 
 
 class Timings(Hook):
@@ -1838,7 +2125,8 @@ def phase_train_runner(run):
             device='cuda')
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        attn.LAUNCHES = attn.BWD_LAUNCHES = 0   # the main path's counted run
+        # the main path's counted run
+        attn.LAUNCHES = attn.BWD_LAUNCHES = hop.LAUNCHES = 0
         t = time.perf_counter()
         with mock.patch.object(run['model'], 'val_step',
                                probe.spy(run['model'].val_step)):
@@ -1847,14 +2135,14 @@ def phase_train_runner(run):
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         ran = runner.iter - start
         want = (TRAIN_FORWARDS * run['n_blocks'],
-                TRAIN_BACKWARDS * run['n_blocks'])
+                TRAIN_BACKWARDS * run['n_blocks'], 0)
         if ran != RUNNER_SIGTERM_AFTER or not runner.preempted:
             raise AssertionError(f'{ran} iterations ran (preempted '
                                  f'{runner.preempted}), want '
                                  f'{RUNNER_SIGTERM_AFTER} then SIGTERM')
         if counter.per_iter != [want] * ran:
-            raise AssertionError(f'launches (forward, backward) per '
-                                 f'iteration {counter.per_iter}, want {want}')
+            raise AssertionError(f'launches (K1, K3, K4) per iteration '
+                                 f'{counter.per_iter}, want {want}')
         saved_at = manager.latest_step()
         if saved_at != state.step:
             raise AssertionError(f'latest checkpoint {saved_at}, state step '
@@ -1939,7 +2227,7 @@ def phase_train_runner(run):
         f'state, {len(hooks)} hooks: {", ".join(type(h).__name__ for h in hooks)}'
         f'): ok | SIGTERM after iteration {RUNNER_SIGTERM_AFTER} of '
         f'{RUNNER_ITERS}: {ran} iterations ran, steps {start} -> '
-        f'{live_step}, force-saved at {saved_at} | launches per '
+        f'{live_step}, force-saved at {saved_at} | launches (K1, K3, K4) per '
         f'iteration {counter.per_iter} | s per iteration through the runner '
         + ', '.join(f'{x:.4f}' for x in per_iter)
         + f' (phase 11 bare warm step {run["warm"]:.4f} s; phase 34\'s '
@@ -1967,7 +2255,7 @@ def phase_train_runner(run):
 
 # phase 31: iterations of the FLUX-12B config through train_model over a
 # mesh of one device, a checkpoint at the last
-MESH_ITERS = 3
+MESH_ITERS = 2
 # --ranks: (name, config, iterations, rows a rank or None as shipped) of
 # each shipped config over its shipped mesh, a checkpoint at the last:
 # FLUX-12B at phase 11r's batch 1, Qwen-Image 20B at its shipped 4 rows a
@@ -2179,12 +2467,14 @@ def mesh_train_run(cfg, work, seed, keep_first=False):
     attention launches read per iteration (LaunchesPerIter), the synced
     step and iteration times (IterTimerHook), the loss and gradient norm
     of each iteration; returns what it read, the state and the model."""
-    counter, timings, logs = LaunchesPerIter(), Timings(), IterLogs(keep_first)
+    counter = LaunchesPerIter()
+    timings, logs = Timings(), IterLogs(keep_first)
     managers = []
     hooks = [counter, timings, logs, IterTimerHook(interval=1, sync=True)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    attn.LAUNCHES = attn.BWD_LAUNCHES = 0   # the main path's counted run
+    # the main path's counted run
+    attn.LAUNCHES = attn.BWD_LAUNCHES = hop.LAUNCHES = 0
     t = time.perf_counter()
     with random_weights(seed), mesh_train_hooks(hooks, managers), \
             logs.first_grads():
@@ -2270,10 +2560,10 @@ def phase_mesh_train(runner_s, bare_s):
                              keep_first=True)
         state, manager = run['state'], run['manager']
         n_blocks = FLUX_12B['num_layers'] + FLUX_12B['num_single_layers']
-        want = (TRAIN_FORWARDS * n_blocks, TRAIN_BACKWARDS * n_blocks)
+        want = (TRAIN_FORWARDS * n_blocks, TRAIN_BACKWARDS * n_blocks, 0)
         if run['launches'] != [want] * MESH_ITERS:
-            raise AssertionError(f'launches (forward, backward) per '
-                                 f'iteration {run["launches"]}, want {want}')
+            raise AssertionError(f'launches (K1, K3, K4) per iteration '
+                                 f'{run["launches"]}, want {want}')
         adapter = state.trainable['diffusion']
         n_sharded = sum(is_sharded(p) for p in adapter.values())
         if n_sharded != len(adapter) or state.step != MESH_ITERS:
@@ -2355,13 +2645,16 @@ def phase_mesh_train(runner_s, bare_s):
                 backward=sum(c[1] for c in run['launches']))
 
 
-def nccl_split(by_name, wall, busy):
-    """The profiler's NCCL all-gather, reduce-scatter and all-reduce kernel
-    ms of one step, with their shares of the profiled wall and device-busy
-    time. A NCCL kernel's device time includes its wait for the other
-    ranks, so the shares bound the collectives' cost from above."""
+def nccl_split(by_name, wall, busy,
+               kinds=('AllGather', 'ReduceScatter', 'AllReduce')):
+    """The profiler's NCCL kernel ms of one step by kind (all-gather,
+    reduce-scatter and all-reduce by default; 'SendRecv' for the ring's
+    rotations and the all-to-alls), with their shares of the profiled
+    wall and device-busy time. A NCCL kernel's device time includes its
+    wait for the other ranks, so the shares bound the collectives' cost
+    from above."""
     out = {}
-    for kind in ('AllGather', 'ReduceScatter', 'AllReduce'):
+    for kind in kinds:
         ms = sum(v[0] for name, v in by_name.items()
                  if 'nccl' in name.lower() and kind in name)
         out[kind] = dict(ms=ms, share_of_wall=ms / 1e3 / wall,
@@ -2513,7 +2806,7 @@ def check_mesh_ranks(ranks, n):
         for r in ranks:
             got = r[name]
             want = [got['micro_batches'] * TRAIN_FORWARDS * n_blocks,
-                    got['micro_batches'] * TRAIN_BACKWARDS * n_blocks]
+                    got['micro_batches'] * TRAIN_BACKWARDS * n_blocks, 0]
             if got['launches'] != [want] * got['iters']:
                 bad.append((r['rank'], name, 'launches', got['launches']))
             if got['n_shards_bad']:
@@ -2563,6 +2856,230 @@ def check_mesh_ranks(ranks, n):
             + ' (rank 0) | every rank\'s shards equal to their part of the '
             'checkpoint gathered from data replica 0' + extra + ' | '
             + ' ; '.join(lines))
+
+
+# --ranks: FLUX-12B trained under sp (phase 31's cuts, SP_RANK_ITERS
+# iterations, no checkpoint) over n ranks: (name, mesh, sp_mode)
+SP_RANK_ITERS = 2
+
+
+def sp_rank_cases(n):
+    return (('ring', dict(data=1, fsdp=1, sp=n), 'ring'),
+            ('ulysses', dict(data=1, fsdp=1, sp=n), 'ulysses'),
+            ('fsdp2_sp', dict(data=1, fsdp=2, sp=n // 2), 'ring'))
+
+
+def sp_rank_launches(axes, mode, n_blocks):
+    """(K1, K3, K4) launches per rank and iteration: a ring of sp shards
+    folds sp hops per attention, forward and backward; Ulysses runs K1 and
+    K3 once per attention on its head shard."""
+    sp = axes['sp']
+    if mode == 'ring':
+        return [0, TRAIN_BACKWARDS * n_blocks * sp,
+                TRAIN_FORWARDS * n_blocks * sp]
+    return [TRAIN_FORWARDS * n_blocks, TRAIN_BACKWARDS * n_blocks, 0]
+
+
+# The first iteration's update of the adapter under sp (after minus
+# before) against one card's, by relative L2. AdamW's first step moves
+# every entry by about lr (g / (|g| + eps), the sign of g), so an entry
+# whose gradient lies within the two runs' bf16 noise of 0 may move the
+# other way (2 lr): sound runs read 0.09-0.1 (NVIDIA H100 80GB HBM3, 700
+# W), the sign of some 0.2% of the entries. An update that is lost reads
+# 1, one with its signs flipped 2; SP_UPDATE_REL_L2 lies between. A
+# gradient off by a factor keeps the signs: the first iteration's
+# gradients of the timestep embedder, which feeds both the sharded blocks
+# and the replicated head (the case a wrong gradient convention over sp
+# shows), are held within TRAIN_SLICE_REL_L2.
+SP_UPDATE_REL_L2 = 0.3
+
+
+def no_final_checkpoint():
+    """``train_model`` without the checkpoint ``CheckpointHook`` forces at
+    the end of a run (the sp runs check training, not checkpoints: phase
+    31 and ``--ranks``' mesh training hold those)."""
+    return mock.patch.object(CheckpointHook, 'after_run',
+                             lambda self, runner: None)
+
+
+def _concat_batches(parts):
+    if isinstance(parts[0], dict):
+        return {k: _concat_batches([p[k] for p in parts]) for k in parts[0]}
+    return np.concatenate(parts)
+
+
+@contextlib.contextmanager
+def joined_rows(count):
+    """One card's loader yields the global batch of ``count`` batch ranks:
+    their rows (each rank's loader of one row each) concatenated."""
+    real = t_train.build_dataloader
+
+    def build(dataset, samples, num_replicas=1, rank=0, **kwargs):
+        its = [real(dataset, samples // count, num_replicas=count, rank=r,
+                    **kwargs) for r in range(count)]
+
+        def gen():
+            while True:
+                yield _concat_batches([next(it) for it in its])
+        return gen()
+    with mock.patch.object(t_train, 'build_dataloader', build):
+        yield
+
+
+def sp_train_references(out_dir, n):
+    """--ranks' one-card references for the sp training: the FLUX-12B
+    config's first iteration on one card on the global batch of 1 row (the
+    sp = n cases) and of 2 rows (fsdp = 2 x sp = n / 2), its loss, its
+    timestep embedder's gradients and the adapter before and after, saved
+    for the ranks."""
+    out = {}
+    for rows in sorted({a['data'] * a['fsdp'] for _, a, _ in
+                        sp_rank_cases(n)}):
+        cfg = mesh_train_config(FLUX_TRAIN_CONFIG, 1, 0, unsharded=True,
+                                samples=rows)
+        with joined_rows(rows), no_final_checkpoint():
+            run = mesh_train_run(cfg, os.path.join(out_dir, f'ref{rows}'),
+                                 SEED + 40, keep_first=True)
+        before, after = run['adapters']
+        torch.save(dict(loss=run['rows'][0]['loss'], grads=run['grads'],
+                        before=before, after=after),
+                   os.path.join(out_dir, f'sp_ref{rows}.pt'))
+        out[rows] = dict(loss=run['rows'][0]['loss'],
+                         s=run['s_per_step'][0], peak_gib=run['peak_gib'])
+        del run, before, after
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_rank_main(out_dir):
+    """One rank of ``--ranks N``'s training under sp: FLUX-12B through
+    ``train_model`` with the config's mesh overridden by each of
+    ``sp_rank_cases`` and ``parallel.sp_mode`` set, from phase 31's random
+    weights, against the one-card references; writes ``sp{r}.json``."""
+    setup_distributed(timeout=600.0)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n_blocks = FLUX_12B['num_layers'] + FLUX_12B['num_single_layers']
+    res = dict(rank=rank)
+    for name, axes, mode in sp_rank_cases(n):
+        cfg = mesh_train_config(FLUX_TRAIN_CONFIG, SP_RANK_ITERS, 0,
+                                mesh=axes)
+        cfg.merge_from_dict({'parallel.sp_mode': mode})
+        with no_final_checkpoint():
+            run = mesh_train_run(cfg, os.path.join(out_dir, 'sp', name),
+                                 SEED + 40, keep_first=True)
+        rows = axes['data'] * axes['fsdp']
+        ref = torch.load(os.path.join(out_dir, f'sp_ref{rows}.pt'))
+        before, after = run['adapters']
+        names = list(ref['before'])
+        upd = torch.cat([(after[k] - before[k]).flatten() for k in names])
+        ref_upd = torch.cat([(ref['after'][k] - ref['before'][k]).flatten()
+                             for k in names])
+        res[name] = dict(
+            mesh=axes, sp_mode=mode, iters=SP_RANK_ITERS,
+            launches=run['launches'],
+            want_launches=sp_rank_launches(axes, mode, n_blocks),
+            rows=run['rows'], s_per_iter=run['s_per_iter'],
+            s_per_step=run['s_per_step'], peak_gib=run['peak_gib'],
+            build_peak_gib=run['build_peak_gib'],
+            ref_loss=ref['loss'],
+            loss_rel=abs(run['rows'][0]['loss'] - ref['loss'])
+            / abs(ref['loss']),
+            before_equal=all(torch.equal(before[k], ref['before'][k])
+                             for k in names),
+            grad_rel={k: rel_l2(g, ref['grads'][k])
+                      for k, g in run['grads'].items()},
+            update_norm=upd.norm().item(), update_rel=rel_l2(upd, ref_upd))
+        del ref, before, after, upd, ref_upd
+        # one more step under the profiler: where its time goes
+        mesh = mesh_mod.make_mesh(dict(axes))
+        model, state = run['model'], run['state']
+        step = build_train_step(model, state.optimizers, model.train_cfg,
+                                ema_config_from_cfg(cfg), mesh=mesh)
+        index, _ = batch_ranks(mesh)
+        batch = to_device(t_train.build_dataset(cfg.data.train).batch(
+            np.random.default_rng([SEED, index]), 1),
+            torch.device('cuda', torch.cuda.current_device()))
+        wall, busy, by_name = profile_split(lambda: step(state, batch))
+        families = split_families(by_name)
+        res[name].update(
+            profiled_wall_s=wall, device_busy_s=busy,
+            families={f: ms for f, (ms, _, _) in families.items()},
+            nccl=nccl_split(by_name, wall, busy, ('SendRecv', 'AllGather',
+                                                  'ReduceScatter',
+                                                  'AllReduce')))
+        del run, model, state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f'sp{rank}.json'), 'w') as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def check_sp_ranks(ranks, n, refs):
+    """--ranks' training under sp read across the ranks: the launches per
+    iteration, every rank's losses equal to rank 0's, and rank 0's first
+    iteration against one card's (loss and the timestep embedder's
+    gradients within TRAIN_SLICE_REL_L2, the adapter's update nonzero and
+    within SP_UPDATE_REL_L2, the same start)."""
+    bad = []
+    for name, axes, mode in sp_rank_cases(n):
+        for r in ranks:
+            got = r[name]
+            if got['launches'] != [got['want_launches']] * got['iters']:
+                bad.append((r['rank'], name, 'launches', got['launches']))
+            if [x['loss'] for x in got['rows']] != [
+                    x['loss'] for x in ranks[0][name]['rows']]:
+                bad.append((r['rank'], name, 'loss', got['rows']))
+            if not all(math.isfinite(x['loss']) for x in got['rows']):
+                bad.append((r['rank'], name, 'finite', got['rows']))
+            if not got['before_equal']:
+                bad.append((r['rank'], name, 'start'))
+            if got['loss_rel'] > TRAIN_SLICE_REL_L2 or not got['grad_rel'] \
+                    or max(got['grad_rel'].values()) > TRAIN_SLICE_REL_L2:
+                bad.append((r['rank'], name, 'one card', got['loss_rel'],
+                            got['grad_rel']))
+            if not got['update_norm'] > 0 \
+                    or got['update_rel'] > SP_UPDATE_REL_L2:
+                bad.append((r['rank'], name, 'update', got['update_norm'],
+                            got['update_rel']))
+    if bad:
+        raise AssertionError(f'--ranks {n} training under sp failed: {bad}')
+    for name, axes, mode in sp_rank_cases(n):
+        x = ranks[0][name]
+        rows = axes['data'] * axes['fsdp']
+        log(f'phase RS FLUX-12B training under sp on {n} NCCL ranks '
+            f'({name}: mesh {axes}, sp_mode {mode}; phase 31\'s cuts, '
+            f'{rows} row(s) a step, LoRA dropout on, {x["iters"]} '
+            f'iterations): ok | launches per rank and iteration (K1, K3, '
+            f'K4) {x["launches"][0]} on every rank | losses '
+            + ', '.join(f'{row["loss"]:.5e}' for row in x['rows'])
+            + f' on every rank | first iteration against one card (loss '
+            f'{x["ref_loss"]:.5e}, s per step {refs[rows]["s"]:.4f}, peak '
+            f'{refs[rows]["peak_gib"]:.2f} GiB): loss rel '
+            f'{x["loss_rel"]:.3e}, timestep embedder gradients rel L2 '
+            + ', '.join(f'{v:.3e}' for v in x['grad_rel'].values())
+            + f' (bound {TRAIN_SLICE_REL_L2}), the adapter\'s update (norm '
+            f'{x["update_norm"]:.4e}) rel L2 {x["update_rel"]:.3e} (bound '
+            f'{SP_UPDATE_REL_L2}) | rank 0 profiled step: wall '
+            f'{x["profiled_wall_s"]:.4f} s, device busy '
+            f'{x["device_busy_s"]:.4f} s, idle share '
+            f'{1 - x["device_busy_s"] / x["profiled_wall_s"]:.4f}; by '
+            f'family ' + ', '.join(
+                f'{f} {ms:.1f} ms' for f, ms in sorted(
+                    x['families'].items(), key=lambda kv: -kv[1]))
+            + '; NCCL ' + ', '.join(
+                f'{k} {v["ms"]:.1f} ms ({100 * v["share_of_wall"]:.1f}% of '
+                f'wall)' for k, v in x['nccl'].items()) + ' | '
+            + ' ; '.join(
+                f'rank {r["rank"]}: s per iteration '
+                + ', '.join(f'{v:.4f}' for v in r[name]['s_per_iter'])
+                + f', peak {r[name]["peak_gib"]:.2f} GiB training '
+                f'({r[name]["build_peak_gib"]:.2f} building)'
+                for r in ranks))
 
 
 def k7_bound(b, s, h, valid_keys=None):
@@ -4228,9 +4745,11 @@ def serve_ranks(n, out_dir):
     return ranks
 
 
-def main_ranks(n, serve=True):
+def main_ranks(n, serve=True, mesh_train=True):
     """``--ranks n``: serving over sp = n (unless ``serve`` is off:
-    ``--train-only``), then mesh training over data=2, fsdp=n/2."""
+    ``--train-only``), mesh training over data=2, fsdp=n/2 (unless
+    ``mesh_train`` is off: ``--sp-train-only``, which serves nothing
+    either), then FLUX-12B training under sp (``sp_rank_cases``)."""
     smi = phase_facts()
     if torch.cuda.device_count() < n:
         raise SystemExit(f'FAIL ranks: --ranks {n} needs {n} cards, '
@@ -4238,16 +4757,29 @@ def main_ranks(n, serve=True):
     phase_build()
     out_dir = tempfile.mkdtemp(prefix='ranks-', dir=_build.BUILD_DIR)
     ranks = serve_ranks(n, out_dir) if serve else None
+    train = None
+    if mesh_train:
+        t = time.perf_counter()
+        spawn(mesh_rank_main, n, (out_dir,), timeout=1200.0)
+        train_wall = time.perf_counter() - t
+        train = [json.load(open(os.path.join(out_dir, f'train{r}.json')))
+                 for r in range(n)]
+        shutil.rmtree(os.path.join(out_dir, 'work'), ignore_errors=True)
+        check_mesh_ranks(train, n)
+        log(f'phase RT mesh training on {n} NCCL ranks: ok in '
+            f'{train_wall:.1f} s (both configs, builds, checkpoints and '
+            f'profiles included)')
     t = time.perf_counter()
-    spawn(mesh_rank_main, n, (out_dir,), timeout=1200.0)
-    train_wall = time.perf_counter() - t
-    train = [json.load(open(os.path.join(out_dir, f'train{r}.json')))
-             for r in range(n)]
-    shutil.rmtree(os.path.join(out_dir, 'work'), ignore_errors=True)
-    check_mesh_ranks(train, n)
-    log(f'phase RT mesh training on {n} NCCL ranks: ok in {train_wall:.1f} '
-        f's (both configs, builds, checkpoints and profiles included)')
-    print(json.dumps({'ranks': ranks, 'train': train}))
+    refs = sp_train_references(out_dir, n)
+    spawn(sp_rank_main, n, (out_dir,), timeout=1500.0)
+    sp_wall = time.perf_counter() - t
+    sp_train = [json.load(open(os.path.join(out_dir, f'sp{r}.json')))
+                for r in range(n)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    check_sp_ranks(sp_train, n, refs)
+    log(f'phase RS training under sp on {n} NCCL ranks: ok in {sp_wall:.1f} '
+        f's (the one-card references, builds and iterations included)')
+    print(json.dumps({'ranks': ranks, 'train': train, 'sp_train': sp_train}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -4894,7 +5426,6 @@ def phase_qwen_train_reduced():
     readings = train_slice_vs_plain(
         model, batch, QWEN_UPSTREAM_OF_ATTENTION,
         (TRAIN_FORWARDS, TRAIN_BACKWARDS), SEED + 28, QWEN_SHARE_REL_L2)
-    del model, batch
     log(f'phase 27 Qwen training reduced slice (1 joint block, full width, '
         f'int8 trunk, LoRA 256, CFG teacher at batch 2, {QWEN_TXT_VALID} of '
         f'{QWEN_TXT} text tokens valid): ok | {readings} | K3 key-padded at '
@@ -4906,7 +5437,9 @@ def phase_qwen_train_reduced():
         f'{masked["library_ms"]:.4f} ms, bound {masked["bound_ms"]:.4f} ms '
         f'({masked["bound_by"]}, {100 * masked["bound_ms"] / masked["ms"]:.1f}'
         f'% of it)')
-    return masked
+    ring = phase_qwen_train_local_ring(model, batch, SEED + 28)
+    del model, batch
+    return masked, ring
 
 
 def phase_qwen_train_full():
@@ -4944,7 +5477,7 @@ def phase_qwen_train_full():
 
     torch.cuda.reset_peak_memory_stats()
     steps = []
-    for _ in range(3):
+    for _ in range(TRAIN_STEPS):
         attn.LAUNCHES = attn.BWD_LAUNCHES = 0   # the main path's counted run
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -5034,15 +5567,16 @@ def phase_qwen_train_runner(run):
             run['model'], state, run['step'], itertools.repeat(run['batch']),
             start + QWEN_RUNNER_ITERS, work_dir=work, hooks=hooks,
             device='cuda')
-        attn.LAUNCHES = attn.BWD_LAUNCHES = 0   # the main path's counted run
+        # the main path's counted run
+        attn.LAUNCHES = attn.BWD_LAUNCHES = hop.LAUNCHES = 0
         runner.run()
         want = (TRAIN_FORWARDS * run['n_blocks'],
-                TRAIN_BACKWARDS * run['n_blocks'])
+                TRAIN_BACKWARDS * run['n_blocks'], 0)
         if runner.iter - start != QWEN_RUNNER_ITERS or \
                 counter.per_iter != [want] * QWEN_RUNNER_ITERS:
             raise AssertionError(f'{runner.iter - start} iterations, '
-                                 f'launches per iteration {counter.per_iter}, '
-                                 f'want {want}')
+                                 f'launches (K1, K3, K4) per iteration '
+                                 f'{counter.per_iter}, want {want}')
         with open(os.path.join(work, 'metrics.jsonl')) as f:
             rows = [json.loads(line) for line in f]
         if len(rows) != QWEN_RUNNER_ITERS or not all(
@@ -5054,8 +5588,9 @@ def phase_qwen_train_runner(run):
     host_ms = [1e3 * (r['time_iter'] - r['time_step']) for r in timings.rows]
     log(f'phase 28r Qwen-Image 20B through IterBasedRunner (phase 28 model '
         f'and state, {len(hooks)} hooks: '
-        f'{", ".join(type(h).__name__ for h in hooks)}): ok | launches per '
-        f'iteration {counter.per_iter} | s per iteration through the runner '
+        f'{", ".join(type(h).__name__ for h in hooks)}): ok | launches (K1, '
+        f'K3, K4) per iteration {counter.per_iter} | s per iteration through '
+        f'the runner '
         + ', '.join(f'{x:.4f}' for x in per_iter)
         + f' (phase 28 bare warm step {run["warm"]:.4f} s) | runner host '
         f'time per iteration (iteration minus synced step) '
@@ -5688,8 +6223,11 @@ def main():
     if sys.argv[1:2] == ['--imagenet']:
         return main_imagenet()
     if sys.argv[1:2] == ['--ranks']:
+        sp_only = '--sp-train-only' in sys.argv[3:]
         return main_ranks(int(sys.argv[2]),
-                          serve='--train-only' not in sys.argv[3:])
+                          serve=not sp_only
+                          and '--train-only' not in sys.argv[3:],
+                          mesh_train=not sp_only)
     smi = phase_facts()
     torch.manual_seed(SEED)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5739,6 +6277,7 @@ def main():
     torch.cuda.empty_cache()
     train_launches, train_run = phase_train_full()
     runner_launches = phase_train_runner(train_run)
+    flux_ring_train = phase_train_local_ring(train_run)
     bare_step_s = train_run['warm']
     del train_run
     gc.collect()
@@ -5768,7 +6307,7 @@ def main():
     # come after it; kernel_ms pools the records kept over its windows
     gc.collect()
     torch.cuda.empty_cache()
-    masked_bwd = phase_qwen_train_reduced()
+    masked_bwd, qwen_ring = phase_qwen_train_reduced()
     gc.collect()
     torch.cuda.empty_cache()
     qwen_train, qwen_run = phase_qwen_train_full()
@@ -5803,7 +6342,12 @@ def main():
                    'flux_train_runner': runner_launches['backward'],
                    'flux_mesh_train': mesh_launches['backward'],
                    'qwen_train': qwen_train['backward'],
-                   'qwen_train_runner': qwen_runner['backward']}
+                   'qwen_train_runner': qwen_runner['backward'],
+                   'flux_train_local_ring': flux_ring_train['k3'],
+                   'qwen_train_local_ring': qwen_ring['k3']}
+    hop_by_path = {'flux_local_ring': ring_launches,
+                   'flux_train_local_ring': flux_ring_train['k4'],
+                   'qwen_train_local_ring': qwen_ring['k4']}
     print(json.dumps({'kernels': [
         {'name': 'attention_fwd', 'route': 'cuda',
          'source': 'arcflow_tpu_torch/csrc/attention_fwd.cu',
@@ -5854,8 +6398,8 @@ def main():
         {'name': 'ring_hop', 'route': 'cuda',
          'source': 'arcflow_tpu_torch/csrc/ring_hop.cu',
          'replaces': 'arcflow_tpu/parallel/ring_attention.py:116',
-         'launches': ring_launches,
-         'launches_by_path': {'flux_local_ring': ring_launches},
+         'launches': sum(hop_by_path.values()),
+         'launches_by_path': hop_by_path,
          'max_abs_err': k4_err, 'ms': k4_timed['ms'],
          'plain_ms': k4_timed['plain_ms'], 'bound_ms': k4_timed['bound_ms'],
          'bound_by': k4_timed['bound_by'],

@@ -213,16 +213,16 @@ def test_ring_partition_guards():
         ring_attention(q, q, q, None, LocalRing(4))
 
 
-def test_autograd_is_refused():
-    """Training under sp waits: the ring and the routed ``attention`` raise
-    rather than return an output without a backward."""
-    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(1, s=16))
-    with pytest.raises(NotImplementedError, match='ROADMAP A12'):
-        ring_attention(q, k, v, None, LocalRing(2))
-    with pytest.raises(NotImplementedError, match='ROADMAP A12'):
-        t_layers.attention(q, k, v, sp=LocalRing(2))
-    with torch.no_grad():
-        ring_attention(q, k, v, None, LocalRing(2))
+@pytest.mark.parametrize('axis', ['tensor', 'pipe', 'expert'])
+def test_waiting_axes_beside_sp_are_refused_by_name(axis):
+    """The ring trains now (``tests/test_torch_sp_train.py``); the mesh
+    axes that wait for their slices are still refused by name, beside
+    ``sp`` as beside ``data`` / ``fsdp``."""
+    from arcflow_tpu_torch.parallel import make_mesh
+    with pytest.raises(NotImplementedError, match=f"'{axis}'.*queue A item"):
+        make_mesh({'sp': 1, axis: 2})
+    with pytest.raises(NotImplementedError, match=f"'{axis}'.*queue A item"):
+        make_mesh({'data': 1, 'fsdp': 1, 'sp': 2, axis: 2})
 
 
 def _local_ring_model_case(family, size, n_txt):

@@ -240,6 +240,18 @@ def test_mesh_takes_only_the_sp_axis():
     assert make_mesh({'sp': -1}) == {'sp': None}
 
 
+@pytest.mark.parametrize('axis', ['tensor', 'pipe', 'expert'])
+def test_training_mesh_with_sp_refuses_waiting_axes(axis):
+    """``sp`` beside ``data`` / ``fsdp`` trains (a 3-D mesh,
+    ``tests/test_torch_sp_train.py``); ``tensor``, ``pipe`` and ``expert``
+    beside them are refused by name, with the queue item that ports
+    each."""
+    from arcflow_tpu_torch.parallel.mesh import WAITING_AXES
+    with pytest.raises(NotImplementedError,
+                       match=rf"'{axis}'.*item {WAITING_AXES[axis]}"):
+        make_mesh({'data': 1, 'fsdp': -1, 'sp': 1, axis: 2})
+
+
 def test_sharding_one_process_keeps_one_device():
     pipe = ArcFluxPipeline(TArcFlux(dtype=torch.float32, **FLUX_CFG))
     pipe.shard({'sp': 1}, sp_mode='ring')
