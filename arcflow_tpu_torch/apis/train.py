@@ -17,12 +17,19 @@ x |data| x |fsdp|``. ``sp`` beside them (a 3-D mesh) cuts every
 sequence of the trunks over the ranks of an sp group, which hold the same
 rows, in the layout of ``parallel.sp_mode`` ('ulysses' by default, as in
 JAX, or 'ring'): the model (student and tied teacher) gets the group's
-``SequenceParallel`` state. A mesh of one device runs the same code (in a
-process group of one, started here and ended on return). ``fsdp_axis``
-must be 'fsdp'; ``min_shard_size`` does not apply (FSDP2 shards every
-parameter). A ``tensor_axis`` and the ``tensor`` / ``pipe`` / ``expert``
-axes are refused by name, as is the host offload of the cold state (the
-H100 holds it).
+``SequenceParallel`` state. ``pipe`` and ``expert`` beside ``data``
+(``configs/flux/_pipeline_train.py``; ``fsdp`` 1) place the model's
+stages and experts on their ranks (``parallel/model_parallel.py:
+partition_model``, no FSDP2): the block stacks the pipe degree divides run
+as ``parallel.pipeline`` pipelines of ``pipe_microbatches`` microbatches
+and ``pipe_interleave`` chunks a stage, and the MoE layers' experts split
+over ``expert``; the ranks along both axes hold the same rows. A mesh of
+one device runs the same code (in a process group of one, started here and
+ended on return). ``fsdp_axis`` is 'fsdp' or None (``_pipeline_train.py``:
+nothing sharded over fsdp, whose size must then be 1); ``min_shard_size``
+does not apply (FSDP2 shards every parameter). A ``tensor_axis`` and the
+``tensor`` axis are refused by name, as is the host offload of the cold
+state (the H100 holds it).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..config import Config
 from ..data import (Prefetcher, build_bucketized_loader, build_dataloader,
                     build_dataset, collate, load_datalist)
 from ..parallel.fsdp import shard_model
+from ..parallel.model_parallel import model_axes, partition_model
 from ..parallel.mesh import (SequenceParallel, batch_ranks, make_mesh,
                              set_sequence_parallel, setup_distributed)
 from ..registry import MODELS
@@ -76,15 +84,25 @@ def parallel_from_cfg(cfg: Config) -> Optional[dict]:
         raise NotImplementedError(
             f'parallel.tensor_axis {parallel["tensor_axis"]!r}: the tensor '
             f'axis waits for ROADMAP.md queue A item 5.2')
-    if parallel.get('fsdp_axis', 'fsdp') != 'fsdp':
-        raise ValueError(f'parallel.fsdp_axis must be "fsdp", got '
-                         f'{parallel["fsdp_axis"]!r}')
     axes = dict(parallel['mesh'])
+    fsdp_axis = parallel.get('fsdp_axis', 'fsdp')
+    if fsdp_axis not in ('fsdp', None):
+        raise ValueError(f'parallel.fsdp_axis must be "fsdp" or None, got '
+                         f'{fsdp_axis!r}')
+    if fsdp_axis is None and axes.get('fsdp', 1) != 1:
+        raise ValueError(f'parallel.fsdp_axis None shards nothing over '
+                         f'fsdp, but the mesh has fsdp={axes["fsdp"]}')
+    for key, axis in (('pipe_axis', 'pipe'), ('expert_axis', 'expert')):
+        if parallel.get(key, axis) not in (axis, None):
+            raise ValueError(f'parallel.{key} must be "{axis}" or None, got '
+                             f'{parallel[key]!r}')
     if set(axes) <= {'sp'}:         # sp alone: every rank holds the batch
         axes = dict(data=1, **axes)
     return dict(axes=axes,
                 dcn_axes=dict(parallel.get('dcn_mesh') or {}) or None,
-                sp_mode=parallel.get('sp_mode', 'ulysses'))
+                sp_mode=parallel.get('sp_mode', 'ulysses'),
+                pipe_microbatches=parallel.get('pipe_microbatches'),
+                pipe_interleave=parallel.get('pipe_interleave', 1) or 1)
 
 
 def _test_set_cfg(test_cfg: dict, can_encode: bool = True) -> dict:
@@ -163,19 +181,23 @@ def train_model(cfg: Config, work_dir: Optional[str] = None,
                 and dist.get_world_size() > 1:
             raise ValueError(f'{dist.get_world_size()} processes and no '
                              f'parallel.mesh: set one (e.g. data=-1)')
+        pipe = {}
+        if mesh_args is not None:
+            pipe = dict(microbatches=mesh_args.pop('pipe_microbatches'),
+                        interleave=mesh_args.pop('pipe_interleave'))
         sp_mode = None if mesh_args is None else mesh_args.pop('sp_mode')
         mesh = None if mesh_args is None else make_mesh(**mesh_args)
         if device.type == 'cuda' and dist.is_initialized():
             device = torch.device('cuda', torch.cuda.current_device())
         return _train(cfg, work_dir, resume, seed, max_iters, device, mesh,
-                      sp_mode)
+                      sp_mode, pipe)
     finally:
         if started:
             dist.destroy_process_group()
 
 
 def _train(cfg, work_dir, resume, seed, max_iters, device, mesh,
-           sp_mode=None):
+           sp_mode=None, pipe=None):
     work_dir = work_dir or cfg.get('work_dir', 'work_dirs/default')
     os.makedirs(work_dir, exist_ok=True)
     logger = build_logger(work_dir)
@@ -193,12 +215,16 @@ def _train(cfg, work_dir, resume, seed, max_iters, device, mesh,
     if mesh is not None and 'sp' in mesh.mesh_dim_names:
         set_sequence_parallel(model, SequenceParallel(mesh.get_group('sp'),
                                                       sp_mode))
-    if mesh is not None:
+    if model_axes(mesh):
+        partition_model(model, mesh, **(pipe or {}))
+    elif mesh is not None:
         shard_model(model, mesh)
+    if mesh is not None:
         logger.info(f'mesh parallelism: '
                     f'{dict(zip(mesh.mesh_dim_names, mesh.shape))}'
                     + (f', sp_mode {sp_mode}' if 'sp' in mesh.mesh_dim_names
-                       else ''))
+                       else '') + (f', pipe {pipe}' if 'pipe' in
+                                   mesh.mesh_dim_names else ''))
     trainable, frozen = model.init_params()
     logger.info(f'trainable params: {count_params(trainable):,}; '
                 f'frozen params: {count_params(frozen):,}')
@@ -206,6 +232,7 @@ def _train(cfg, work_dir, resume, seed, max_iters, device, mesh,
     state = TrainState.create(torch.Generator(device).manual_seed(seed),
                               trainable, frozen, optimizers,
                               ema_keys=model.ema_keys)
+    state.model_parallel = getattr(model, 'model_parallel', None)
 
     ckpt_cfg = dict(cfg.get('checkpoint_config', {}) or {})
     out_dir = ckpt_cfg.pop('out_dir', os.path.join(work_dir, 'checkpoints'))

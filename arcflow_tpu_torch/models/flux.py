@@ -35,8 +35,16 @@ one. Streams ``sp`` divides are not padded and run unmasked, as before.
 The LoRA dropout of a block draws each row's masks for the whole
 single-device stream and keeps those of the tokens the rank holds
 (``parallel.mesh.token_streams``), so a step under ``sp`` draws the masks
-of the step on one device. MoE and pipeline parallelism wait for their
-slices.
+of the step on one device. MoE blocks under ``sp`` are refused
+(``check_moe_sp``).
+
+MoE (JAX ``flux.py:94-135, 308-352``): ``moe_experts`` > 0 makes both
+stream MLPs of every joint block an expert-choice ``MoEFeedForward``; the
+single blocks stay dense, as in JAX. Pipeline parallelism (JAX
+``_apply_stacked_blocks``, ``flux.py:201-260``): with a pipe state
+(``pipe``, set by ``parallel.set_pipe``) each block stack whose depth the
+pipe degree divides runs as a pipeline (``run_stack``), the others plain;
+FLUX at pipe 2 pipelines its 38 single blocks and not its 19 joint ones.
 
 ControlNet (JAX ``flux.py:263-275, 318-390``): ``controlnet_block_samples``
 (n residuals (B, N_img, D)) are added to the image stream at the end of the
@@ -63,6 +71,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..parallel.mesh import (SequenceParallel, global_rows, pad_tokens,
                              stream_padding, token_streams, token_validity)
+from ..parallel.pipeline import pipe_partition, pipeline_run
 from ..registry import MODULES
 from .layers import (AdaLayerNormContinuous, AdaLayerNormZero,
                      AdaLayerNormZeroSingle, DropoutRows, FeedForward,
@@ -86,6 +95,16 @@ def check_fixed(**fields):
                              f'{got!r}')
 
 
+def check_moe_sp(moe_experts: int, sp) -> None:
+    """Refuse MoE blocks on sequence shards: JAX routes each expert's
+    top-C over the whole sequence, a rank here holds a shard of it."""
+    if moe_experts > 0 and isinstance(sp, SequenceParallel):
+        raise NotImplementedError(
+            'moe_experts > 0 under sequence parallelism: the experts route '
+            'over the whole sequence, a rank holds a shard of it (ROADMAP.md '
+            'queue A item 5.8)')
+
+
 def run_block(block: nn.Module, index: int, dropout_seed: Optional[int],
               checkpointing: bool, *args, streams=None):
     """Run ``block(*args)`` with its dropout generators, under activation
@@ -102,6 +121,26 @@ def run_block(block: nn.Module, index: int, dropout_seed: Optional[int],
     if checkpointing and torch.is_grad_enabled():
         return checkpoint(run, dropout_seed, *args, use_reentrant=False)
     return run(dropout_seed, *args)
+
+
+def run_stack(blocks: nn.ModuleList, call, carry: tuple, riders: tuple,
+              pipe) -> tuple:
+    """The blocks of a stack in order: ``carry = call(j, block, carry,
+    riders)`` for block j, where ``carry`` is a tuple of (B, ...)
+    activations and ``riders`` the per-sample inputs (B, ...) or None
+    (temb, the key masks, ControlNet residuals). Where ``pipe`` (a
+    ``parallel.LocalPipe`` / ``PipeGroup``, set by ``parallel.set_pipe``)
+    divides the depth, the stack runs as its pipeline
+    (``parallel.pipeline.pipeline_run``: the riders ride the
+    microbatches), else the plain loop (JAX ``flux.py:201-260
+    _apply_stacked_blocks``)."""
+    if pipe_partition(pipe, len(blocks), carry[0].shape[0]) is None:
+        for j, block in enumerate(blocks):
+            carry = call(j, block, carry, riders)
+        return carry
+    return pipeline_run(lambda j, c, r: call(j, blocks[j], c, r),
+                        len(blocks), carry, riders, pipe,
+                        params=blocks.parameters())
 
 
 def dropout_generator(seed: Optional[int], index: int, rows: range, device
@@ -163,19 +202,24 @@ class TimeTextEmbed(nn.Module):
 
 class FluxJointBlock(nn.Module):
     """Dual-stream block: AdaLN-zero per stream, joint attention (with an
-    optional key-padding mask (B, 1, 1, S_kv)), gated MLP."""
+    optional key-padding mask (B, 1, 1, S_kv)), gated MLP; with
+    ``moe_experts`` > 0 both stream MLPs are expert-choice MoE FFNs (JAX
+    ``flux.py:94-135``)."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
-                 lora_rank: int = 0, lora_dropout: float = 0.0, device=None,
-                 dtype=None):
+                 lora_rank: int = 0, lora_dropout: float = 0.0,
+                 moe_experts: int = 0, moe_capacity_factor: float = 1.0,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.img_norm1 = AdaLayerNormZero(dim, **kw)
         self.txt_norm1 = AdaLayerNormZero(dim, **kw)
         self.attn = JointAttention(dim, num_heads, head_dim, **kw)
-        lora = dict(lora_rank=lora_rank, lora_dropout=lora_dropout)
-        self.ff_img = FeedForward(dim, **lora, **kw)
-        self.ff_txt = FeedForward(dim, **lora, **kw)
+        ff = dict(lora_rank=lora_rank, lora_dropout=lora_dropout,
+                  moe_experts=moe_experts,
+                  moe_capacity_factor=moe_capacity_factor)
+        self.ff_img = FeedForward(dim, **ff, **kw)
+        self.ff_txt = FeedForward(dim, **ff, **kw)
 
     def forward(self, img, txt, rope, temb, mask=None, cn=None,
                 generator=None):
@@ -273,6 +317,7 @@ class FluxBackbone(nn.Module):
                  pooled_projection_dim: int = 768,
                  axes_dims_rope: Sequence[int] = (16, 56, 56),
                  lora_rank: int = 0, lora_dropout: float = 0.0,
+                 moe_experts: int = 0, moe_capacity_factor: float = 1.0,
                  checkpointing: bool = True, patch_size: int = 2,
                  guidance_embeds: bool = True, pretrained=None,
                  pretrained_adapter=None, out_channels: Optional[int] = None,
@@ -290,7 +335,9 @@ class FluxBackbone(nn.Module):
         self.axes_dims_rope = tuple(axes_dims_rope)
         self.lora_dropout = lora_dropout
         self.checkpointing = checkpointing
+        self.moe_experts = moe_experts
         self.sequence_parallel = None
+        self.pipe = None
         inner = num_attention_heads * attention_head_dim
         self.inner_dim = inner
         kw = dict(device=device, dtype=dtype)
@@ -301,7 +348,8 @@ class FluxBackbone(nn.Module):
             inner, pooled_projection_dim, **lora, **kw)
         self.joint_blocks = nn.ModuleList([
             FluxJointBlock(inner, num_attention_heads, attention_head_dim,
-                           **lora, **kw)
+                           **lora, moe_experts=moe_experts,
+                           moe_capacity_factor=moe_capacity_factor, **kw)
             for _ in range(num_layers)])
         self.single_blocks = nn.ModuleList([
             FluxSingleBlock(inner, num_attention_heads, attention_head_dim,
@@ -321,6 +369,7 @@ class FluxBackbone(nn.Module):
         ControlNet residuals go to the blocks by ``controlnet_index``."""
         n_blocks = len(self.joint_blocks) + len(self.single_blocks)
         sp = self.sequence_parallel
+        check_moe_sp(self.moe_experts, sp)
         cn_joint = self._controlnet(controlnet_block_samples,
                                     len(self.joint_blocks),
                                     controlnet_blocks_repeat)
@@ -357,30 +406,43 @@ class FluxBackbone(nn.Module):
                                         packed.device))
         rope = rope_frequencies(torch.cat([txt_ids, img_ids], dim=0),
                                 self.axes_dims_rope)
-        for i, block in enumerate(self.joint_blocks):
-            img, txt = run_block(block, i, dropout_seed, self.checkpointing,
-                                 img, txt, rope, temb, mask, cn_joint[i],
-                                 streams=streams)
-        hidden = torch.cat([txt, img], dim=1)
         n_joint = len(self.joint_blocks)
-        for i, block in enumerate(self.single_blocks, n_joint):
-            hidden = run_block(block, i, dropout_seed, self.checkpointing,
-                               hidden, rope, temb, mask,
-                               cn_single[i - n_joint], streams=streams)
+        cn_joint_idx, cn_joint = cn_joint
+        cn_single_idx, cn_single = cn_single
+
+        def joint(i, block, carry, riders):
+            temb_, mask_, *cn = riders
+            return run_block(block, i, dropout_seed, self.checkpointing,
+                             *carry, rope, temb_, mask_,
+                             cn[cn_joint_idx[i]] if cn else None,
+                             streams=streams)
+
+        def single(i, block, carry, riders):
+            temb_, mask_, *cn = riders
+            return (run_block(block, n_joint + i, dropout_seed,
+                              self.checkpointing, carry[0], rope, temb_,
+                              mask_, cn[cn_single_idx[i]] if cn else None,
+                              streams=streams),)
+
+        img, txt = run_stack(self.joint_blocks, joint, (img, txt),
+                             (temb, mask, *cn_joint), self.pipe)
+        hidden, = run_stack(self.single_blocks, single,
+                            (torch.cat([txt, img], dim=1),),
+                            (temb, mask, *cn_single), self.pipe)
         img = hidden[:, txt.shape[1]:]
         if isinstance(sp, SequenceParallel):
             img = sp.gather(img)
         return img[:, :n_img], temb
 
-    def _controlnet(self, samples, n_layers: int, repeat: bool) -> list:
-        """Each block's ControlNet residual, or None for each."""
+    def _controlnet(self, samples, n_layers: int, repeat: bool):
+        """(the sample each block takes, the samples); ([], []) without
+        ControlNet."""
         if samples is None:
-            return [None] * n_layers
+            return [], []
         if self.sequence_parallel is not None:
             raise NotImplementedError('ControlNet residuals under sequence '
                                       'parallelism are not ported')
-        return [samples[j] for j in controlnet_index(len(samples), n_layers,
-                                                     repeat)]
+        return controlnet_index(len(samples), n_layers, repeat), list(samples)
 
     def _prepare_tokens(self, hidden_states, encoder_hidden_states,
                         mask=None, masked_image_latents=None):

@@ -25,8 +25,9 @@ after ``utils/quantize.py:quantize_weights_int8``) and the int4 path
 (weight-only or w4a8, after ``quantize_weights_int4``). The attention
 modules hold their sequence-parallel state (``sequence_parallel``: None, a
 ``parallel.SequenceParallel`` in ring or Ulysses mode, or a
-``parallel.LocalRing``), set by ``parallel.set_sequence_parallel``; MoE
-waits for its slice.
+``parallel.LocalRing``), set by ``parallel.set_sequence_parallel``; the
+MoE FFN (``MoEFeedForward``) holds its expert-parallel state
+(``expert_parallel``, ``parallel/expert.py``).
 """
 
 from __future__ import annotations
@@ -338,20 +339,133 @@ class AdaLayerNormContinuous(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """gelu(tanh) MLP, dim -> 4*dim -> dim (dense; MoE is not ported)."""
+    """gelu(tanh) MLP, dim -> mult*dim -> dim (diffusers FeedForward).
+    ``moe_experts`` > 0 swaps in the expert-choice ``MoEFeedForward``
+    under a ``moe`` child (JAX ``layers.py:303-333``), which takes no LoRA
+    and no dropout, as in JAX."""
 
     def __init__(self, dim: int, lora_rank: int = 0, lora_dropout: float = 0.0,
-                 device=None, dtype=None):
+                 moe_experts: int = 0, moe_capacity_factor: float = 1.0,
+                 mult: int = 4, device=None, dtype=None):
         super().__init__()
+        if moe_experts > 0:
+            self.moe = MoEFeedForward(dim, moe_experts, moe_capacity_factor,
+                                      mult=mult, device=device, dtype=dtype)
+            return
+        self.moe = None
         kw = dict(lora_rank=lora_rank, lora_dropout=lora_dropout,
                   device=device, dtype=dtype)
-        self.in_proj = LoRADense(dim, 4 * dim, **kw)
-        self.out_proj = LoRADense(4 * dim, dim, **kw)
+        self.in_proj = LoRADense(dim, mult * dim, **kw)
+        self.out_proj = LoRADense(mult * dim, dim, **kw)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.moe is not None:
+            return self.moe(x)
         h = F.gelu(self.in_proj(x, generator), approximate='tanh')
         return self.out_proj(h, generator)
+
+
+def _lecun_normal_fan_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's ``lecun_normal`` in place for a parameter whose fan-in is not
+    its first axis' complement: flax counts every axis but the last two as
+    receptive field, so a (E, D, F) expert stack has fan-in E x D."""
+    std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+
+
+class MoEFeedForward(nn.Module):
+    """Mixture-of-experts FFN with expert-choice routing (JAX
+    ``layers.py:336-402``).
+
+    Each of the E experts picks its top-C tokens of each sample, C =
+    ``max(1, int(S * capacity_factor) // E)`` (JAX's integer arithmetic);
+    a token may be picked by several experts, weighted by the router's
+    softmax score, or by none, and then gets 0 (the block's residual
+    carries it). Parameters keep JAX's names and layouts, all fp32 and
+    cast to the compute dtype ``dtype`` on use: ``router`` (D, E),
+    ``w_in`` (E, D, F), ``b_in`` (E, F), ``w_out`` (E, F, D), ``b_out``
+    (E, D). The router's math is fp32.
+
+    JAX dispatches with a (B, E, C, S) one-hot einsum (the MXU form);
+    here the picked tokens are gathered by index and the gate-weighted
+    expert outputs are scatter-added back, the same sums. The top-C is a
+    stable descending sort, so tied scores go to the lower token index,
+    as ``lax.top_k`` breaks them. JAX sums the experts' contributions in
+    the compute dtype (``einsum('becs,becd,bec->bsd')``); here they are
+    summed in fp32 and cast once, which in bf16 differs from JAX by the
+    rounding of that sum (``tests/test_torch_moe.py`` states the bound).
+
+    Expert parallelism: with ``expert_parallel`` (a
+    ``parallel.expert.ExpertParallel``, set by ``partition_experts``) the
+    module holds only its rank's experts (``expert_offset`` is the first)
+    and their outputs are summed over the group (``parallel/expert.py``
+    states the gradient convention).
+    """
+
+    def __init__(self, dim: int, num_experts: int,
+                 capacity_factor: float = 1.0, mult: int = 4, device=None,
+                 dtype=None):
+        super().__init__()
+        e, hidden = num_experts, dim * mult
+        self.dim, self.num_experts = dim, num_experts
+        self.capacity_factor = capacity_factor
+        self.dtype = dtype
+        self.expert_parallel = None
+        self.expert_offset = 0
+        f32 = dict(device=device, dtype=torch.float32)
+        self.router = nn.Parameter(torch.empty(dim, e, **f32))
+        self.w_in = nn.Parameter(torch.empty(e, dim, hidden, **f32))
+        self.b_in = nn.Parameter(torch.zeros(e, hidden, **f32))
+        self.w_out = nn.Parameter(torch.empty(e, hidden, dim, **f32))
+        self.b_out = nn.Parameter(torch.zeros(e, dim, **f32))
+        _lecun_normal_fan_(self.router, dim)
+        _lecun_normal_fan_(self.w_in, e * dim)
+        _lecun_normal_fan_(self.w_out, e * hidden)
+
+    def capacity(self, s: int) -> int:
+        return max(1, int(s * self.capacity_factor) // self.num_experts)
+
+    def partition_experts(self, ep) -> None:
+        """Keep only the experts ``ep`` (an ``ExpertParallel``) gives this
+        rank, and sum their outputs over its group from now on."""
+        lo, hi = ep.experts(self.num_experts)
+        with torch.no_grad():
+            for p in (self.w_in, self.b_in, self.w_out, self.b_out):
+                p.data = p.data[lo:hi].clone()
+        self.expert_parallel, self.expert_offset = ep, lo
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, s, d = x.shape
+        c = self.capacity(s)
+        if c > s:
+            raise ValueError(f'capacity {c} of {self.num_experts} experts at '
+                             f'factor {self.capacity_factor} exceeds the '
+                             f'{s} tokens (lax.top_k refuses it too)')
+        dt = self.dtype or x.dtype
+        ep = self.expert_parallel
+        scores = torch.softmax(x.float() @ self.router.float(), dim=-1)
+        xd = x.to(dt)
+        if ep is not None:
+            scores, xd = ep.replicate(scores), ep.replicate(xd)
+        n = self.w_in.shape[0]                          # experts held here
+        own = scores[..., self.expert_offset:self.expert_offset + n]
+        own = own.transpose(1, 2)                        # (B, E, S)
+        idx = torch.sort(own.detach(), dim=-1, descending=True,
+                         stable=True).indices[..., :c]   # (B, E, C)
+        gates = own.gather(-1, idx)
+        flat = idx.reshape(b, n * c, 1).expand(b, n * c, d)
+        xin = xd.gather(1, flat).reshape(b, n, c, d)
+        h = torch.einsum('becd,edf->becf', xin, self.w_in.to(dt))
+        h = F.gelu(h + self.b_in.to(dt)[None, :, None], approximate='tanh')
+        out = torch.einsum('becf,efd->becd', h, self.w_out.to(dt))
+        out = (out + self.b_out.to(dt)[None, :, None]) \
+            * gates.to(dt)[..., None]
+        y = torch.zeros(b, s, d, dtype=torch.float32, device=x.device)
+        y = y.scatter_add(1, flat, out.reshape(b, n * c, d).float())
+        if ep is not None:
+            y = ep.combine(y)
+        return y.to(dt)
 
 
 # ---- rotary embeddings ------------------------------------------------------

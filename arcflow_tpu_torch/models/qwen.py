@@ -15,8 +15,11 @@ each rank's key mask is [txt_mask_r, ones(img_r)]; a stream that ``sp``
 does not divide is padded with masked tokens, as in the FLUX trunk.
 Training, under ``sp`` too: activation checkpointing, the per-block LoRA
 dropout generators and their token streams are the FLUX trunk's
-(``flux.py:run_block``). MoE waits for its
-slice.
+(``flux.py:run_block``). ``moe_experts`` > 0 makes both stream MLPs of
+every block expert-choice MoE FFNs (JAX ``qwen.py:39-88, 120-165``); with
+a pipe state (``pipe``) the 60 blocks run as a pipeline where the pipe
+degree divides them (``flux.py:run_stack``), the text mask and the image
+validity riding the microbatches.
 """
 
 from __future__ import annotations
@@ -30,8 +33,8 @@ from ..parallel.mesh import (SequenceParallel, global_rows, pad_tokens,
                              stream_padding, token_streams, token_validity)
 from ..registry import MODULES
 from .flux import (ArcFlowHeads, FluxJointBlock, MLPEmbedder, check_fixed,
-                   dropout_generator, make_img_ids, patchify, run_block,
-                   unpatchify)
+                   check_moe_sp, dropout_generator, make_img_ids, patchify,
+                   run_block, run_stack, unpatchify)
 from .layers import (AdaLayerNormContinuous, LoRADense, RMSNorm,
                      rope_frequencies, timestep_sinusoidal)
 
@@ -75,7 +78,8 @@ class QwenBackbone(nn.Module):
                  joint_attention_dim: int = 3584,
                  axes_dims_rope: Sequence[int] = (16, 56, 56),
                  max_text_len: Optional[int] = None, lora_rank: int = 0,
-                 lora_dropout: float = 0.0, checkpointing: bool = True,
+                 lora_dropout: float = 0.0, moe_experts: int = 0,
+                 moe_capacity_factor: float = 1.0, checkpointing: bool = True,
                  patch_size: int = 2, pretrained=None,
                  pretrained_adapter=None, device=None, dtype=None):
         super().__init__()
@@ -88,7 +92,9 @@ class QwenBackbone(nn.Module):
         self.max_text_len = max_text_len
         self.lora_dropout = lora_dropout
         self.checkpointing = checkpointing
+        self.moe_experts = moe_experts
         self.sequence_parallel = None
+        self.pipe = None
         self.dtype = dtype if dtype is not None else torch.get_default_dtype()
         inner = num_attention_heads * attention_head_dim
         self.inner_dim = inner
@@ -100,7 +106,8 @@ class QwenBackbone(nn.Module):
         self.timestep_embedder = MLPEmbedder(256, inner, **lora, **kw)
         self.transformer_blocks = nn.ModuleList([
             QwenJointBlock(inner, num_attention_heads, attention_head_dim,
-                           **lora, **kw)
+                           **lora, moe_experts=moe_experts,
+                           moe_capacity_factor=moe_capacity_factor, **kw)
             for _ in range(num_layers)])
 
     def trunk(self, packed: torch.Tensor, t: torch.Tensor,
@@ -117,6 +124,7 @@ class QwenBackbone(nn.Module):
                 encoder_hidden_states_mask = \
                     encoder_hidden_states_mask[:, :self.max_text_len]
         sp = self.sequence_parallel
+        check_moe_sp(self.moe_experts, sp)
         n_img = packed.shape[1]
         pad_t, pad_i = stream_padding(sp, encoder_hidden_states.shape[1],
                                       n_img)
@@ -151,11 +159,13 @@ class QwenBackbone(nn.Module):
                                 self.axes_dims_rope)
         if encoder_hidden_states_mask is not None:
             encoder_hidden_states_mask = encoder_hidden_states_mask.bool()
-        for i, block in enumerate(self.transformer_blocks):
-            img, txt = run_block(block, i, dropout_seed, self.checkpointing,
-                                 img, txt, rope, temb,
-                                 encoder_hidden_states_mask, img_valid,
-                                 streams=streams)
+        def joint(i, block, carry, riders):
+            return run_block(block, i, dropout_seed, self.checkpointing,
+                             *carry, rope, *riders, streams=streams)
+
+        img, txt = run_stack(self.transformer_blocks, joint, (img, txt),
+                             (temb, encoder_hidden_states_mask, img_valid),
+                             self.pipe)
         if isinstance(sp, SequenceParallel):
             img = sp.gather(img)
         return img[:, :n_img], temb

@@ -3,7 +3,8 @@
 Counterpart of ``arcflow_tpu/models/toy.py``: ``timestep_embedding``,
 ``fourier_features``, ``ToyMLPDenoiser`` (a u predictor),
 ``ToyGMFlowDenoiser``, ``SpectrumMLP`` and ``ToyArcFlowDenoiser`` (the
-ArcFlux head contract), registered in ``MODULES`` under the JAX names.
+ArcFlux head contract, with its mid-trunk MoE), registered in ``MODULES``
+under the JAX names.
 Module and parameter names are the flax ones (``LoRADense_0``...,
 ``Dense_0``..., ``out_means``, ``proj_out_means``, ``logstd``), so
 ``pipelines/convert.py:jax_params_to_torch`` carries a flax tree over with
@@ -29,8 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import batch_ranks_count
 from ..registry import MODULES
-from .layers import LoRADense, lecun_normal_
+from .layers import LoRADense, MoEFeedForward, lecun_normal_
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
@@ -107,13 +109,18 @@ class _ToyMLPTrunk(nn.Module):
             width = w
         self.width = width
 
-    def trunk(self, x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x_t: torch.Tensor, t: torch.Tensor,
+              after=None) -> torch.Tensor:
+        """The hidden features; ``after(i, h)`` (when given) maps the output
+        of hidden layer i."""
         temb = timestep_embedding(t / self.num_timesteps * 1000.0,
                                   self.time_embed_dim)
         h = torch.cat([x_t, fourier_features(x_t, self.fourier_freqs),
                        temb.to(x_t.dtype)], dim=-1)
         for i in range(self.n_hidden):
             h = F.silu(getattr(self, f'LoRADense_{i}')(h))
+            if after is not None:
+                h = after(i, h)
         return h
 
 
@@ -139,8 +146,13 @@ class ToyMLPDenoiser(_ToyMLPTrunk):
 class ToyArcFlowDenoiser(_ToyMLPTrunk):
     """MLP emitting ArcFlow mixture parameters for (B, C) data, the ArcFlux
     head contract: means (B, K, C), logweights (B, K, 1) log-softmaxed over
-    K, loggammas (B, K - 1, 1). ``moe_experts`` > 0 (a mid-trunk MoE) is
-    not ported."""
+    K, loggammas (B, K - 1, 1). ``moe_experts`` > 0 puts an expert-choice
+    ``MoEFeedForward`` (mult 2, fp32, under ``moe``) after hidden layer
+    ``len(hidden) // 2`` as ``h + moe(h[None])[0]``: the batch's rows are
+    the routed tokens (JAX ``toy.py:162-179``). JAX's GSPMD routes over the
+    global batch under a ``data`` / ``fsdp`` mesh, where a rank of the port
+    holds only its rows; that composition is refused by name (ROADMAP.md
+    queue A item 5.9)."""
 
     def __init__(self, out_channels: int = 2, num_gaussians: int = 8,
                  hidden: Sequence[int] = (256, 256, 256),
@@ -148,13 +160,13 @@ class ToyArcFlowDenoiser(_ToyMLPTrunk):
                  fourier_freqs: int = 0, moe_experts: int = 0,
                  moe_capacity_factor: float = 2.0, data_shape=None,
                  device=None, dtype=torch.float32):
-        if moe_experts > 0:
-            raise NotImplementedError(
-                'ToyArcFlowDenoiser(moe_experts > 0) needs MoEFeedForward, '
-                'which the port does not have yet (ROADMAP.md queue A '
-                'item 5.5)')
         super().__init__(out_channels, hidden, time_embed_dim, num_timesteps,
                          fourier_freqs, data_shape, device, dtype)
+        self.moe_at = len(hidden) // 2 if moe_experts > 0 else None
+        if self.moe_at is not None:
+            self.moe = MoEFeedForward(hidden[self.moe_at], moe_experts,
+                                      moe_capacity_factor, mult=2,
+                                      device=device, dtype=torch.float32)
         k, c, w = num_gaussians, out_channels, self.width
         self.num_gaussians = k
         kw = dict(zero_kernel=True, device=device, dtype=dtype)
@@ -167,9 +179,20 @@ class ToyArcFlowDenoiser(_ToyMLPTrunk):
             self.proj_out_loggamma.bias.copy_(torch.from_numpy(
                 np.log(rates)).to(dtype))
 
+    def _moe(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        if i != self.moe_at:
+            return h
+        if batch_ranks_count() > 1:
+            raise NotImplementedError(
+                'ToyArcFlowDenoiser(moe_experts > 0) routes over the batch\'s '
+                'rows, which JAX routes over the global batch; under a '
+                'data / fsdp mesh a rank holds only its rows (ROADMAP.md '
+                'queue A item 5.9)')
+        return h + self.moe(h[None])[0]
+
     def forward(self, x_t: torch.Tensor, t: torch.Tensor, **kwargs) -> dict:
         k, c = self.num_gaussians, self.out_channels
-        h = self.trunk(x_t, t)
+        h = self.trunk(x_t, t, self._moe)
         means = self.proj_out_means(h).reshape(-1, k, c)
         logweights = torch.log_softmax(
             self.proj_out_logweights(h).reshape(-1, k, 1), dim=1)

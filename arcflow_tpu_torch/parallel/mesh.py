@@ -17,9 +17,13 @@ layout). Its helpers cut the tokens into this rank's shard and gather them
 back (JAX ``shard_activation('residual')``), and move attention between
 token shards and head shards for the Ulysses layout (JAX
 ``heads_partition``, 379-405); under autograd each one's backward is its
-inverse collective (the gather's a reduce-scatter). The ``tensor``,
-``pipe`` and ``expert`` axes wait for their slices (ROADMAP.md queue A
-items 5.2, 5.4, 5.5).
+inverse collective (the gather's a reduce-scatter). The ``pipe`` and
+``expert`` axes are dimensions of the training mesh beside ``data`` /
+``fsdp``; their placement rules (``param_spec_for_path`` 183-207,
+``stacked_param_spec`` 320-343, ``moe_param_spec`` 346-372) are ported
+here on JAX-layout shapes, and ``parallel/model_parallel.py`` places the
+port's modules by them. The ``tensor`` axis waits for its slice
+(ROADMAP.md queue A item 5.2).
 """
 
 from __future__ import annotations
@@ -39,11 +43,16 @@ SP_MODES = ('ring', 'ulysses')
 # the axes the batch is split over, in the DeviceMesh's dimension order:
 # replicated over data, sharded over fsdp (HSDP)
 TRAIN_AXES = ('data', 'fsdp')
-# a training mesh's dimensions: with sp the 3-D ('data', 'fsdp', 'sp')
-MESH_AXES = TRAIN_AXES + ('sp',)
+# the model-parallel axes: the ranks along them hold the same rows
+MODEL_AXES = ('pipe', 'expert')
+# a training mesh's dimensions, in this order; pipe, expert and sp are
+# dimensions of it only where their size is above 1
+MESH_AXES = TRAIN_AXES + MODEL_AXES + ('sp',)
 # axes of the JAX mesh that wait for their slice, with the ROADMAP.md
 # queue A item that ports each
-WAITING_AXES = {'tensor': '5.2', 'pipe': '5.4', 'expert': '5.5'}
+WAITING_AXES = {'tensor': '5.2'}
+# compositions of axes that wait, with their ROADMAP.md queue A item
+SP_WITH_MODEL_AXES = '5.8'
 
 
 def setup_distributed(device: Optional[str] = None, timeout: float = 600.0
@@ -128,15 +137,28 @@ def make_mesh(axes: Dict[str, int],
       as before: the axis must span every process (-1 takes them all); a
       one-process ``sp`` of 1 has no group.
 
-    The ``tensor``, ``pipe`` and ``expert`` axes raise
-    ``NotImplementedError``, naming the ROADMAP item that ports them."""
+    * ``'pipe'`` and ``'expert'`` beside ``data`` / ``fsdp`` -> a
+      ``DeviceMesh`` of up to 4 dimensions ('data', 'fsdp', 'pipe',
+      'expert'), the ranks in JAX's device order as above: the ranks along
+      ``pipe`` and ``expert`` hold the same rows (``batch_axes``); the
+      stages and experts they hold are ``parallel/model_parallel.py``'s.
+
+    The ``tensor`` axis raises ``NotImplementedError``, naming the ROADMAP
+    item that ports it, and so does ``sp`` beside ``pipe`` or ``expert``
+    (item 5.8)."""
     waiting = sorted(set(axes) & set(WAITING_AXES))
     if waiting:
         raise NotImplementedError(
             f'mesh axes {waiting} are not ported yet (ROADMAP A12, now '
             f'ROADMAP.md queue A item '
             f'{", ".join(WAITING_AXES[a] for a in waiting)}); the port takes '
-            f'data, fsdp and sp')
+            f'data, fsdp, pipe, expert and sp')
+    model_axes = sorted(set(axes) & set(MODEL_AXES))
+    if 'sp' in axes and model_axes:
+        raise NotImplementedError(
+            f'mesh axes {model_axes} beside \'sp\' are not ported yet '
+            f'(ROADMAP.md queue A item {SP_WITH_MODEL_AXES}): the port '
+            f'trains sp beside data and fsdp only')
     unknown = sorted(set(axes) - set(MESH_AXES))
     if unknown:
         raise ValueError(f'unknown mesh axes {unknown}')
@@ -149,8 +171,9 @@ def make_mesh(axes: Dict[str, int],
                              f'start them with setup_distributed')
         return {'sp': dist.group.WORLD if dist.is_initialized() else None}
     sizes = mesh_shape(axes, world, dcn_axes)
-    if sizes.get('sp', 1) == 1:
-        sizes.pop('sp', None)
+    for a in MODEL_AXES + ('sp',):
+        if sizes.get(a, 1) == 1:
+            sizes.pop(a, None)
     if not dist.is_initialized():
         raise RuntimeError('a data/fsdp mesh needs a process group: start '
                            'it with setup_distributed (one process too)')
@@ -161,15 +184,16 @@ def make_mesh(axes: Dict[str, int],
 
 def mesh_axes(sizes) -> Tuple[str, ...]:
     """The dimensions of the training mesh of ``sizes``: ('data', 'fsdp'),
-    and 'sp' last where it is an axis of them."""
-    return MESH_AXES if 'sp' in sizes else TRAIN_AXES
+    then those of 'pipe', 'expert' and 'sp' that are axes of them, in that
+    order."""
+    return TRAIN_AXES + tuple(a for a in MESH_AXES[2:] if a in sizes)
 
 
 def mesh_ranks(sizes: Dict[str, int]) -> torch.Tensor:
-    """The ranks on the ('data', 'fsdp'[, 'sp']) grid for ``mesh_shape``'s
-    ``sizes``: 0 .. n-1 reshaped to the sizes in their given order, as JAX
-    places its devices, then ordered as ``mesh_axes``; an axis left out
-    has size 1."""
+    """The ranks on the ``mesh_axes`` grid for ``mesh_shape``'s ``sizes``:
+    0 .. n-1 reshaped to the sizes in their given order, as JAX places its
+    devices, then ordered as ``mesh_axes``; an axis left out has size
+    1."""
     dims = mesh_axes(sizes)
     ranks = torch.arange(math.prod(sizes.values())).reshape(
         tuple(sizes.values()))
@@ -181,30 +205,29 @@ def mesh_ranks(sizes: Dict[str, int]) -> torch.Tensor:
 def batch_axes(mesh) -> Tuple[str, ...]:
     """The mesh axes the batch is split over: ``data`` and ``fsdp`` (JAX
     ``batch_axes``: FSDP ranks hold different parameter shards and see
-    different rows too)."""
+    different rows too); the ranks along ``pipe``, ``expert`` and ``sp``
+    hold the same rows."""
     return tuple(a for a in TRAIN_AXES if a in mesh.mesh_dim_names)
 
 
 def batch_order(mesh) -> Sequence[int]:
     """The ranks in the order of the rows they hold: the (data, fsdp)
     grid read row by row, as JAX lays out ``P(('data', 'fsdp'))``; of each
-    sp group (which holds the same rows) its first rank."""
+    group along ``pipe``, ``expert`` and ``sp`` (which holds the same rows)
+    its first rank."""
     grid = mesh.mesh
-    if 'sp' in mesh.mesh_dim_names:
-        grid = grid[..., 0]
-    return grid.flatten().tolist()
+    return grid.reshape(grid.shape[0], grid.shape[1], -1)[..., 0] \
+        .flatten().tolist()
 
 
 def batch_ranks(mesh) -> Tuple[int, int]:
     """(this rank's index among the batch ranks, their count): its rows
     of a global batch of n x b are [index x b, (index + 1) x b). Every
-    rank of an sp group has its group's index."""
+    rank of a group along ``pipe``, ``expert`` or ``sp`` has its group's
+    index."""
     order = batch_order(mesh)
-    me = dist.get_rank()
-    if 'sp' in mesh.mesh_dim_names:
-        d, f, _ = mesh.get_coordinate()
-        me = int(mesh.mesh[d, f, 0])
-    return order.index(me), len(order)
+    d, f = mesh.get_coordinate()[:2]
+    return order.index(int(mesh.mesh[d, f].flatten()[0])), len(order)
 
 
 # This process's (index, count) in the global batch while a sharded step
@@ -228,10 +251,39 @@ def batch_rows(index: int, count: int):
         _BATCH_ROWS = prev
 
 
+# While a pipeline stage runs a microbatch (``microbatch_rows``): its first
+# row among this rank's rows, and this rank's row count.
+_MICROBATCH = None
+
+
+@contextlib.contextmanager
+def microbatch_rows(offset: int, rows: int):
+    """Within the block the forward runs the microbatch whose first row is
+    row ``offset`` of this rank's ``rows``: ``global_rows`` numbers its
+    rows so (``parallel/pipeline.py``), and a pipelined step draws the
+    one-device step's dropout masks."""
+    global _MICROBATCH
+    prev, _MICROBATCH = _MICROBATCH, (offset, rows)
+    try:
+        yield
+    finally:
+        _MICROBATCH = prev
+
+
+def batch_ranks_count() -> int:
+    """The number of batch ranks of the sharded step running now (1
+    outside one)."""
+    return _BATCH_ROWS[1]
+
+
 def global_rows(b: int) -> range:
-    """The rows of the global batch that this rank's ``b`` rows are."""
+    """The rows of the global batch that this rank's ``b`` rows are (a
+    microbatch's within ``microbatch_rows``)."""
     index, _ = _BATCH_ROWS
-    return range(index * b, (index + 1) * b)
+    if _MICROBATCH is None:
+        return range(index * b, (index + 1) * b)
+    offset, rows = _MICROBATCH
+    return range(index * rows + offset, index * rows + offset + b)
 
 
 def batch_draw(fn, shape: Sequence[int], **kwargs) -> torch.Tensor:
@@ -427,3 +479,131 @@ def set_sequence_parallel(module, sp) -> None:
         for m in root.modules():
             if hasattr(m, 'sequence_parallel'):
                 m.sequence_parallel = sp
+
+
+# ---- placement specs --------------------------------------------------------
+# The port's copy of JAX's placement rules (``arcflow_tpu/parallel/mesh.py``:
+# ``param_spec_for`` 131-150, ``param_spec_for_path`` 183-207,
+# ``stacked_param_spec`` 320-343, ``moe_param_spec`` 346-372), on the shapes
+# of JAX's layout (a block stack's leaves carry the layer dimension L first,
+# an expert leaf (E, ...) or (L, E, ...)). A spec is a tuple of axis names or
+# None per dimension, as JAX's ``PartitionSpec``; an empty tuple replicates.
+# ``parallel/model_parallel.py`` places the port's modules by them.
+
+Spec = Tuple[Optional[str], ...]
+
+
+def _numel(shape) -> int:
+    return math.prod(shape)
+
+
+def param_spec_for(shape: Sequence[int], fsdp_axis: Optional[str],
+                   fsdp_size: int, tensor_axis: Optional[str] = None,
+                   tensor_size: int = 1, min_size: int = 2 ** 16) -> Spec:
+    """JAX ``param_spec_for``: the last dim over ``tensor`` when it
+    divides, the largest remaining dim over ``fsdp``."""
+    shape = tuple(shape)
+    if _numel(shape) < min_size or len(shape) == 0:
+        return ()
+    spec = [None] * len(shape)
+    if (tensor_axis and tensor_size > 1 and len(shape) >= 2
+            and shape[-1] % tensor_size == 0 and shape[-1] >= tensor_size):
+        spec[-1] = tensor_axis
+    if fsdp_axis and fsdp_size > 1:
+        for d in sorted(range(len(shape)), key=lambda d: -shape[d]):
+            if spec[d] is None and shape[d] % fsdp_size == 0 \
+                    and shape[d] >= fsdp_size:
+                spec[d] = fsdp_axis
+                break
+    return tuple(spec)
+
+
+def stacked_param_spec(shape: Sequence[int], pipe_axis: str, pipe_size: int,
+                       fsdp_axis: Optional[str] = None, fsdp_size: int = 1,
+                       tensor_axis: Optional[str] = None,
+                       tensor_size: int = 1, min_size: int = 2 ** 16) -> Spec:
+    """JAX ``stacked_param_spec``: a stacked block leaf (L, ...) puts its
+    layer dim on ``pipe`` when the pipe degree divides L (each stage holds
+    its own layers), the rest as ``param_spec_for`` would."""
+    shape = tuple(shape)
+    if len(shape) < 1 or shape[0] % pipe_size != 0:
+        return param_spec_for(shape, fsdp_axis, fsdp_size, tensor_axis,
+                              tensor_size, min_size)
+    spec = [None] * len(shape)
+    spec[0] = pipe_axis
+    if _numel(shape) >= min_size:
+        if (tensor_axis and tensor_size > 1 and len(shape) >= 2
+                and shape[-1] % tensor_size == 0):
+            spec[-1] = tensor_axis
+        if fsdp_axis and fsdp_size > 1:
+            for d in sorted(range(1, len(shape)), key=lambda d: -shape[d]):
+                if spec[d] is None and shape[d] % fsdp_size == 0 \
+                        and shape[d] >= fsdp_size:
+                    spec[d] = fsdp_axis
+                    break
+    return tuple(spec)
+
+
+def moe_param_spec(shape: Sequence[int], expert_axis: str, expert_size: int,
+                   stacked: bool = False, pipe_axis: Optional[str] = None,
+                   pipe_size: int = 1, fsdp_axis: Optional[str] = None,
+                   fsdp_size: int = 1, tensor_axis: Optional[str] = None,
+                   tensor_size: int = 1, min_size: int = 2 ** 16) -> Spec:
+    """JAX ``moe_param_spec``: an MoE leaf (E, ...), or (L, E, ...) when
+    ``stacked``, pins its expert dim to ``expert`` where it divides (each
+    rank owns its experts), the layer dim to ``pipe``, the rest to the
+    TP / FSDP rule."""
+    shape = tuple(shape)
+    if len(shape) < 1:
+        return ()
+    spec = [None] * len(shape)
+    ed = 0
+    if stacked:
+        ed = 1
+        if pipe_axis and pipe_size > 1 and shape[0] % pipe_size == 0:
+            spec[0] = pipe_axis
+    if expert_size > 1 and len(shape) > ed and shape[ed] % expert_size == 0:
+        spec[ed] = expert_axis
+    if _numel(shape) >= min_size:
+        if (tensor_axis and tensor_size > 1 and len(shape) >= ed + 2
+                and shape[-1] % tensor_size == 0):
+            spec[-1] = tensor_axis
+        if fsdp_axis and fsdp_size > 1:
+            for d in sorted(range(ed + 1, len(shape)),
+                            key=lambda d: -shape[d]):
+                if spec[d] is None and shape[d] % fsdp_size == 0 \
+                        and shape[d] >= fsdp_size:
+                    spec[d] = fsdp_axis
+                    break
+    return tuple(spec)
+
+
+def param_spec_for_path(path: str, shape: Sequence[int],
+                        sizes: Dict[str, int],
+                        fsdp_axis: Optional[str] = 'fsdp',
+                        tensor_axis: Optional[str] = 'tensor',
+                        pipe_axis: Optional[str] = 'pipe',
+                        expert_axis: Optional[str] = 'expert',
+                        stacked_markers: Sequence[str] = ('blocks',),
+                        moe_markers: Sequence[str] = ('moe',),
+                        min_size: int = 2 ** 16) -> Spec:
+    """JAX ``param_spec_for_path`` for the leaf at ``path`` (JAX's
+    '/'-joined param path) of JAX-layout ``shape`` on a mesh of axis
+    ``sizes``: MoE leaves by ``moe_param_spec``, stacked block leaves by
+    ``stacked_param_spec``, the rest by ``param_spec_for``."""
+    def size(axis):
+        return sizes.get(axis, 1) if axis else 1
+    fsdp, tensor = size(fsdp_axis), size(tensor_axis)
+    pipe, expert = size(pipe_axis), size(expert_axis)
+    stacked = any(m in path for m in stacked_markers)
+    if expert > 1 and any(m in path for m in moe_markers):
+        return moe_param_spec(shape, expert_axis, expert, stacked=stacked,
+                              pipe_axis=pipe_axis, pipe_size=pipe,
+                              fsdp_axis=fsdp_axis, fsdp_size=fsdp,
+                              tensor_axis=tensor_axis, tensor_size=tensor,
+                              min_size=min_size)
+    if pipe > 1 and stacked:
+        return stacked_param_spec(shape, pipe_axis, pipe, fsdp_axis, fsdp,
+                                  tensor_axis, tensor, min_size)
+    return param_spec_for(shape, fsdp_axis, fsdp, tensor_axis, tensor,
+                          min_size)

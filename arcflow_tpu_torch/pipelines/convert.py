@@ -16,9 +16,13 @@ which does the same unstacking for diffusers naming):
 * an RMSNorm or GroupNorm ``scale``, and a flax ``Embed``'s
   ``embedding`` (rows, features), become ``weight``;
 * ``bias``, the LoRA leaves ``lora_a`` (in, r) / ``lora_b`` (r, out), the
-  Wan RMSNorm ``gamma`` and the int4 leaves of the JAX ``quant``
+  Wan RMSNorm ``gamma``, the int4 leaves of the JAX ``quant``
   collection, ``kernel_packed4`` (in/2, out) and ``kernel_scale4``
-  (in/g, 1, out), are kept as they are.
+  (in/g, 1, out), and the MoE leaves under ``moe`` (raw parameters, not
+  Dense kernels: ``router`` (D, E), ``w_in`` (E, D, F), ``b_in`` (E, F),
+  ``w_out`` (E, F, D), ``b_out`` (E, D); a block stack's (L, E, ...)
+  leaf loses its L axis to the ``ModuleList`` index) are kept as they
+  are.
 
 ``load_jax_latent_diffusion`` carries a JAX ``LatentDiffusionTextImage``'s
 (trainable, frozen) pair into the port's composition.

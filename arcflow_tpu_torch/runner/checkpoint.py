@@ -38,7 +38,10 @@ a checkpoint does not depend on the layout it was written from: every rank
 joins the gather of each sharded tensor (a ``DTensor``, ``parallel/
 fsdp.py``) to one full tensor, one tensor at a time, which rank 0 copies
 to the host and writes; ``restore`` loads the full tensors on every rank
-and copies each rank's shard into its live tensor. Rank 0 alone makes,
+and copies each rank's shard into its live tensor. On a model placed on
+``pipe`` / ``expert`` axes (``parallel/model_parallel.py``) the holders of
+each stage's blocks and each rank's experts send them to rank 0, and a
+restore keeps each rank's part. Rank 0 alone makes,
 cleans and prunes the directory; the ranks meet at a barrier before each
 save, after the last and before a restore, so they see one directory.
 """
@@ -163,23 +166,56 @@ def _host(dtype: Optional[torch.dtype] = None):
     return leaf
 
 
-def _optimizer_to_host(sd: dict, dtype: Optional[torch.dtype]) -> dict:
+def _host_named(mp, dtype: Optional[torch.dtype] = None):
+    """(name, tensor) -> ``_host`` of the one-device tensor ``name`` on a
+    model placed on pipe / expert axes (``mp``, a ``ModelParallel``): its
+    holders' parts gathered on rank 0."""
+    def leaf(name, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if x.dim() == 0 or mp is None:
+            return _host(dtype)(x)
+        return _host(dtype)(mp.gather_full(name, x.detach()))
+    return leaf
+
+
+def _param_names(tx: torch.optim.Optimizer, named: Dict[str, torch.Tensor]
+                 ) -> list:
+    """The names of ``tx``'s parameters in its state dict's order."""
+    by_id = {id(p): n for n, p in named.items()}
+    return [by_id[id(p)] for g in tx.param_groups for p in g['params']]
+
+
+def _optimizer_to_host(sd: dict, dtype: Optional[torch.dtype],
+                       mp=None, names=None) -> dict:
     """An optimizer ``state_dict`` on the host, its slots in ``dtype`` when
-    one is given; the step counts keep their dtype."""
-    state = {i: {k: _host(None if k == 'step' else dtype)(v)
+    one is given; the step counts keep their dtype. On a model placed on
+    pipe / expert axes (``mp``) each slot is gathered as its parameter
+    (``names``: the parameters' names in order)."""
+    state = {i: {k: _host_named(mp if k != 'step' else None,
+                                None if k == 'step' else dtype)(
+                     names[int(i)] if names else None, v)
                  for k, v in s.items()}
              for i, s in sd['state'].items()}
     return dict(state=state,
                 param_groups=copy.deepcopy(sd['param_groups']))
 
 
-def _shard_optimizer_state(sd: dict, tx: torch.optim.Optimizer) -> dict:
+def _shard_optimizer_state(sd: dict, tx: torch.optim.Optimizer, mp=None,
+                           names=None) -> dict:
     """A saved optimizer ``state_dict`` (full tensors) with each slot of
     a sharded parameter's shape cut to this rank's shard of it, as a
-    ``DTensor`` laid out like the parameter."""
+    ``DTensor`` laid out like the parameter; on a model placed on pipe /
+    expert axes (``mp``) to this rank's part of it."""
     params = [p for g in tx.param_groups for p in g['params']]
     for i, st in sd['state'].items():
         p = params[int(i)]
+        if mp is not None:
+            name = names[int(i)]
+            for k, v in st.items():
+                if isinstance(v, torch.Tensor) and v.dim() > 0:
+                    st[k] = mp.local_part(name, v).to(p.device)
+            continue
         if not is_sharded(p):
             continue
         for k, v in st.items():
@@ -267,20 +303,26 @@ class CheckpointManager:
     # ---- save -----------------------------------------------------------
     def _to_host(self, state: TrainState) -> dict:
         f16 = torch.float16
+        mp = getattr(state, 'model_parallel', None)
+
+        def named(tree, dtype=None):
+            leaf = _host_named(mp, dtype)
+            return {k: {n: leaf(n, t) for n, t in sub.items()}
+                    for k, sub in tree.items()}
         tree = dict(
             step=int(state.step),
-            trainable=_map(_host(f16 if self.ckpt_fp16 else None),
-                           state.trainable),
-            ema=None if state.ema is None else _map(
-                _host(f16 if self.ckpt_fp16 or self.ckpt_fp16_ema else None),
-                state.ema),
+            trainable=named(state.trainable, f16 if self.ckpt_fp16 else None),
+            ema=None if state.ema is None else named(
+                state.ema,
+                f16 if self.ckpt_fp16 or self.ckpt_fp16_ema else None),
             optimizers={k: _optimizer_to_host(
                 tx.state_dict(),
-                torch.bfloat16 if self.ckpt_bf16_optim else None)
+                torch.bfloat16 if self.ckpt_bf16_optim else None, mp,
+                _param_names(tx, state.trainable[k]) if mp else None)
                 for k, tx in state.optimizers.items()},
             generator=state.generator.get_state())
         if not self.ckpt_trainable_only:
-            tree['frozen'] = _map(_host(), state.frozen)
+            tree['frozen'] = named(state.frozen)
         return tree
 
     def _write(self, tree: dict):
@@ -369,6 +411,7 @@ class CheckpointManager:
             raise FileNotFoundError(f'no checkpoint under {self.directory}')
         t0 = time.perf_counter()
         raw = load_raw_checkpoint(self.directory, step)
+        mp = getattr(state, 'model_parallel', None)
         pairs = [(state.trainable, raw['trainable'], 'trainable')]
         if state.ema is not None:
             pairs.append((state.ema, raw['ema'], 'ema'))
@@ -381,10 +424,13 @@ class CheckpointManager:
                         raise KeyError(f'{what}.{k}: the checkpoint holds '
                                        f'other tensors than the live state')
                     for n, t in sub.items():
-                        local(t).copy_(shard_of(saved[k][n], t))
+                        full = saved[k][n]
+                        local(t).copy_(shard_of(full, t) if mp is None
+                                       else mp.local_part(n, full))
         for k, tx in state.optimizers.items():
-            tx.load_state_dict(_shard_optimizer_state(raw['optimizers'][k],
-                                                      tx))
+            tx.load_state_dict(_shard_optimizer_state(
+                raw['optimizers'][k], tx, mp,
+                _param_names(tx, state.trainable[k]) if mp else None))
         state.generator.set_state(raw['generator'])
         state.step = int(raw['step'])
         self.last_restore_s = time.perf_counter() - t0

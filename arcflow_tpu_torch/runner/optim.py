@@ -76,11 +76,24 @@ class GradClipConfig:
             skip_ratio=train_cfg.get(f'{key}_grad_clip_skip_ratio', 0.0))
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: List[torch.Tensor], counted=None) -> torch.Tensor:
     """L2 norm over all elements of all tensors, in fp32. Over sharded
     tensors (one mesh, sharded on its ``fsdp`` dimension, replicated on
     ``data``): the squared norms of this rank's shards summed over the
-    ``fsdp`` group in one all-reduce, the same value on every rank."""
+    ``fsdp`` group in one all-reduce, the same value on every rank. With
+    ``counted`` (a mask over ``tensors`` and a process group: a model
+    placed on ``pipe`` / ``expert`` axes, ``parallel/model_parallel.py``):
+    the squared norms of the tensors this rank counts, summed over the
+    group."""
+    if counted is not None:
+        mask, group = counted
+        sq = torch.stack([torch.linalg.vector_norm(t.float()) ** 2
+                          for t, c in zip(tensors, mask) if c]
+                         or [tensors[0].new_zeros((), dtype=torch.float32)]
+                         ).sum()
+        if group is not None:
+            dist.all_reduce(sq, group=group)
+        return torch.sqrt(sq)
     if not any(is_sharded(t) for t in tensors):
         return torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(t.float()) for t in tensors]))
@@ -93,13 +106,14 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 @torch.no_grad()
 def clip_and_skip(grads: List[torch.Tensor], iteration: int,
-                  cfg: GradClipConfig
+                  cfg: GradClipConfig, counted=None
                   ) -> Tuple[List[torch.Tensor], torch.Tensor, bool]:
     """Clip ``grads`` in place to ``max_norm`` (from ``begin_iter`` on) and
     zero their non-finite entries, so an optimizer never ingests a NaN.
     Returns (grads, norm before clipping, skip); skip is True when the norm
-    is not finite or passes ``max_norm * skip_ratio``."""
-    gnorm = global_norm(grads)
+    is not finite or passes ``max_norm * skip_ratio``. ``counted`` as for
+    ``global_norm``."""
+    gnorm = global_norm(grads, counted)
     grads = [local(g) for g in grads]
     skip = not bool(torch.isfinite(gnorm))
     if cfg.max_norm > 0.0 and iteration >= cfg.begin_iter:

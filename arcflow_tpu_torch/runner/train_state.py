@@ -14,7 +14,9 @@ PyTorch optimizers update their tensors in place):
   {submodule: that optimizer's per-parameter state}, read from the
   optimizers on each access, so it stays the live state after an
   ``optimizer.load_state_dict`` (a checkpoint restore);
-* ``generator``: every random draw of the step.
+* ``generator``: every random draw of the step;
+* ``model_parallel``: on a mesh with ``pipe`` / ``expert`` axes, the
+  placement a checkpoint gathers the one-device layout by.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ class TrainState:
     ema: Optional[Dict[str, Dict[str, torch.Tensor]]]
     optimizers: Dict[str, torch.optim.Optimizer]
     generator: torch.Generator
+    # the placement on pipe / expert axes (parallel/model_parallel.py)
+    model_parallel: Optional[Any] = None
 
     @property
     def opt_states(self) -> Dict[str, Any]:

@@ -22,7 +22,11 @@ norm and with it the skip are the same on every rank
 gradient accumulation chunk i of every rank together is chunk i of the
 global batch, as JAX chunks it (the loaders deal its rows so,
 ``data.samplers.rank_rows``), and the gradients are reduced once, after
-the last chunk (``parallel.fsdp.gradient_sync``).
+the last chunk (``parallel.fsdp.gradient_sync``). On a mesh with ``pipe``
+or ``expert`` axes (the model placed by ``parallel.model_parallel.
+partition_model``, no FSDP2) the ranks along them hold the same rows; the
+gradients are averaged over ``data`` once, after the last chunk, and the
+norm counts every stage's and expert's tensors once.
 """
 
 from __future__ import annotations
@@ -111,6 +115,7 @@ def build_train_step(model, optimizers: Dict[str, torch.optim.Optimizer],
     clip_cfgs = {k: GradClipConfig.from_train_cfg(train_cfg, k)
                  for k in optimizers}
     rows = batch_ranks(mesh) if mesh is not None else (0, 1)
+    mp = getattr(model, 'model_parallel', None)
 
     def train_step(state: TrainState, batch: dict):
         iteration = state.step
@@ -125,7 +130,7 @@ def build_train_step(model, optimizers: Dict[str, torch.optim.Optimizer],
             for i in range(grad_accum_steps):
                 chunk = batch if grad_accum_steps == 1 \
                     else _chunk_batch(batch, grad_accum_steps, i)
-                if mesh is not None:
+                if mesh is not None and mp is None:
                     gradient_sync(model, i == grad_accum_steps - 1)
                 loss, log_vars = model.loss(chunk, state.generator,
                                             running_status=running_status)
@@ -134,6 +139,8 @@ def build_train_step(model, optimizers: Dict[str, torch.optim.Optimizer],
                 logs.append(log_vars if mesh is None
                             else global_logs(log_vars, mesh))
         log_vars = logs[0] if grad_accum_steps == 1 else _merge_logs(logs)
+        if mp is not None:
+            mp.reduce_gradients(p for ps in params.values() for p in ps)
 
         for k, tx in optimizers.items():
             grads = []
@@ -141,7 +148,11 @@ def build_train_step(model, optimizers: Dict[str, torch.optim.Optimizer],
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
                 grads.append(p.grad)
-            _, gnorm, skip = clip_and_skip(grads, iteration, clip_cfgs[k])
+            counted = None if mp is None else \
+                ([mp.counted(n) for n in state.trainable[k]],
+                 mp.model_group)
+            _, gnorm, skip = clip_and_skip(grads, iteration, clip_cfgs[k],
+                                           counted)
             if not skip:
                 tx.step()
             tx.zero_grad(set_to_none=True)

@@ -203,8 +203,8 @@ line each, and any failure exits non-zero:
     ``parallel.mesh`` data=1, fsdp=-1 (the per-slice half of
     ``_multihost_train.py``) on one card, so the 12B trunk and the adapter
     go through FSDP2, the sharded AdamW, EMA and checkpoint; cuts: frozen
-    trunk bf16, batch 1, 2 iterations, a checkpoint at the second, the
-    data ``SmokePromptEmbeds`` (the ImagePrompt cache needs zstandard),
+    trunk bf16, batch 1, 1 iteration, a checkpoint at it,
+    the data ``SmokePromptEmbeds`` (the ImagePrompt cache needs zstandard),
     random weights from a seed. The shipped data=2, fsdp=-1 must be
     refused with JAX's one-device message; against the same config
     through ``train_model`` without a mesh (the runner's unsharded path),
@@ -215,9 +215,9 @@ line each, and any failure exits non-zero:
     after a restore; s per iteration beside phases 11 and 11r, peak
     memory, the checkpoint's bytes and seconds.
 
-32. (last, in a child process with phase 33: ``python3 chip_smoke.py
-    --imagenet`` runs the two alone) the class-conditional ImageNet path
-    at full width,
+32. (last, in a child process with phase 33, beside phases 28r, 29 and
+    30: ``python3 chip_smoke.py --imagenet`` runs the two alone) the
+    class-conditional ImageNet path at full width,
     fp32 with TF32 off: ``configs/imagenet/imagenet256_flow.py`` and
     ``imagenet256_arcflow_2nfe.py`` as shipped through ``train_model``
     (DenoisingUnetMod 67,481,988 and ArcDenoisingUnetMod K=8 67,531,567
@@ -284,7 +284,7 @@ Around a training run (PR 15):
     training with every attention on ``LocalRing(4)``: from one state
     snapshot, the one-device step, the one-device step with every
     attention backward zeroed, the ring step with a planted fault (shard
-    0's dK / dV accumulators not sent home), then two counted ring steps
+    0's dK / dV accumulators not sent home), then one counted ring step
     of exactly 12 x 57 x 16 K4, 2 x 57 x 16 K3 and no K1 launches; the
     first against the one-device step (loss, adapter gradients, the
     adapter's update within TRAIN_SLICE_REL_L2; the ring's error over the
@@ -296,7 +296,25 @@ Around a training run (PR 15):
     without ``sp`` on the same draws (TRAIN_SLICE_REL_L2), the ring's error
     over the attention backward's share within SP_SHARE_REL_L2, which the
     planted fault must break (as phase 38), 192 K4 and 32 key-masked K3
-    launches, no K1.
+    launches, no K1;
+40. (right after phase 38, on phase 11's model and state) FLUX-12B
+    training with its block stacks on ``LocalPipe(2)`` at a batch of 2 in
+    2 microbatches (the 38 single blocks pipelined, the 19 joint blocks
+    plain): from one state snapshot, the one-device step at batch 2, the
+    step with a planted fault (stage 1 fed zeros for stage 0's handoff),
+    then one counted pipelined step of exactly 12 x (19 + 38 x 2) K1 and
+    2 x (19 + 38 x 2) K3 launches; the first against the one-device step
+    (loss, adapter gradients, the adapter's update within
+    TRAIN_SLICE_REL_L2, which the fault must break); s per step and peak;
+41. (after phase 22, phase 6's model freed, its VAE, embeds and latents
+    kept) the MoE FFN at FLUX-12B width: 2 + 2 blocks with
+    ``moe_experts=1`` at capacity 1 and the dense FFN's weights in the
+    expert against the dense blocks (MOE_DENSE_REL_L2), then FLUX-12B with
+    ``moe_experts=2`` (fp32 experts) for a 2-NFE 1024^2 image: 114 K1, s
+    per image, peak memory. Inside phase 23 the MoE toy
+    (``configs/toy/checkerboard_arcflow_2nfe_moe.py``) trains through the
+    CLI beside the dense student from the same teacher and must pass
+    ``tests/test_quantized_quality.py``'s bars.
 
 ``python3 chip_smoke.py --ranks 4`` (four cards) instead spawns 4 NCCL
 ranks and serves FLUX-12B through ``pipe.shard({'sp': 4})`` in ring and in
@@ -319,7 +337,13 @@ losses equal to rank 0's, the loss and the timestep embedder's gradients
 within TRAIN_SLICE_REL_L2 and the adapter's update nonzero and within
 SP_UPDATE_REL_L2, s per iteration and peak memory per rank. ``--ranks 4
 --train-only`` runs the training alone, ``--ranks 4 --sp-train-only`` the
-``sp`` training alone.
+``sp`` training alone. ``--ranks 4 --pipe-expert-only`` trains FLUX-12B
+through ``train_model`` with ``configs/flux/_pipeline_train.py``'s
+``parallel`` composed in at ``data=2 x pipe=2`` and the MoE FLUX-12B
+(``moe_experts=2``) at ``pipe=2 x expert=2`` (2 iterations each, phase
+31's cuts), each against one card's first iteration on the same rows in
+``check_sp_ranks``' form, with s per iteration, the peak per rank and the
+NCCL share of one profiled step's wall.
 
 Then one JSON line of per-kernel numbers (each with its bound on the card
 and the time of one PyTorch library call for the same function, where there
@@ -341,6 +365,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -369,9 +394,9 @@ from arcflow_tpu_torch.ops import ring_hop as hop
 from arcflow_tpu_torch.ops.gm import gm_ops
 from arcflow_tpu_torch.ops.gm import inverse_cdf as icdf
 from arcflow_tpu_torch.apis import train as t_train
-from arcflow_tpu_torch.parallel import (LocalRing, SequenceParallel,
-                                        ring_attention,
-                                        set_sequence_parallel,
+from arcflow_tpu_torch.parallel import (LocalPipe, LocalRing,
+                                        SequenceParallel, ring_attention,
+                                        set_pipe, set_sequence_parallel,
                                         setup_distributed, spawn)
 from arcflow_tpu_torch.parallel import mesh as mesh_mod
 from arcflow_tpu_torch.parallel.fsdp import is_sharded, local, shard_of
@@ -527,6 +552,13 @@ TOY_DISTILL = ('configs/toy/checkerboard_arcflow_2nfe.py', {
     'train_cfg.num_decay_iters': 300, 'checkpoint_config.interval': 800,
     'log_config.interval': 400})
 TOY_FLOW_SUPPORT, TOY_DISTILL_SUPPORT = 0.75, 0.5
+# the MoE toy (configs/toy/checkerboard_arcflow_2nfe_moe.py) with the dense
+# student's cuts, trained alongside it from the same teacher, and the bars
+# of tests/test_quantized_quality.py:191-232: its in-support share above
+# 0.6, within 0.10 of the dense student's, every router column's norm
+# above 1e-3
+TOY_MOE = ('configs/toy/checkerboard_arcflow_2nfe_moe.py', TOY_DISTILL[1])
+TOY_MOE_SUPPORT, TOY_MOE_MARGIN, TOY_MOE_ROUTER_NORM = 0.6, 0.10, 1e-3
 TOY_CLI_TIMEOUT = 300
 # phases 32-33: the class-conditional ImageNet path (configs/imagenet)
 IMAGENET_FLOW = 'configs/imagenet/imagenet256_flow.py'
@@ -1763,6 +1795,9 @@ SP_TRAIN_LAUNCHES = (TRAIN_FORWARDS * SP * SP, TRAIN_BACKWARDS * SP * SP, 0)
 # device read 4.3-6.4e-2 (NVIDIA H100 80GB HBM3, 700 W), above
 # QWEN_SHARE_REL_L2, which bounds one side.
 SP_SHARE_REL_L2 = 0.1
+# counted ring steps of phase 38 (one: the smoke's time goes to phases
+# 40-41)
+RING_STEPS = 1
 
 
 def state_snapshot(state):
@@ -1794,12 +1829,12 @@ def step_with_grads(step, state, batch, keep=None):
     names = list(state.trainable['diffusion'])
     clip, grads = ts.clip_and_skip, {}
 
-    def spy(gs, iteration, cfg):
+    def spy(gs, iteration, cfg, *rest):
         if not grads:
             grads.update({n: g.detach().float().clone()
                           for n, g in zip(names, gs)
                           if keep is None or n.startswith(keep)})
-        return clip(gs, iteration, cfg)
+        return clip(gs, iteration, cfg, *rest)
     with mock.patch.object(ts, 'clip_and_skip', spy):
         state, logs = step(state, batch)
     torch.cuda.synchronize()
@@ -1842,7 +1877,7 @@ def lost_home_block():
 
 def phase_train_local_ring(run):
     """Phase 38: phase 11's FLUX-12B model and state with every attention on
-    ``LocalRing(SP)``, two train steps against the one-device step of the
+    ``LocalRing(SP)``, a train step against the one-device step of the
     same state, batch and draws."""
     model, state, step, batch = (run[k] for k in ('model', 'state', 'step',
                                                   'batch'))
@@ -1865,7 +1900,7 @@ def phase_train_local_ring(run):
         state_restore(state, snap)
         torch.cuda.reset_peak_memory_stats()
         steps = []
-        for i in range(2):
+        for i in range(RING_STEPS):
             # the main path's counted run
             hop.LAUNCHES = attn.LAUNCHES = attn.BWD_LAUNCHES = 0
             torch.cuda.synchronize()
@@ -1918,6 +1953,259 @@ def phase_train_local_ring(run):
         f'{min(fault.values()):.3e} to {max(fault.values()):.3e}, refused | '
         f'peak memory {peak_gib:.2f} GiB')
     return dict(k4=launches[0], k3=launches[1], s=[st['s'] for st in steps],
+                peak_gib=peak_gib)
+
+
+# phase 40: phase 11's FLUX-12B model and state with its stacks on
+# LocalPipe(PIPE) at a batch of PIPE_BATCH rows in as many microbatches:
+# the 38 single blocks pipeline (38 % 2 == 0), the 19 joint blocks run
+# plain, as in JAX at pipe 2. Every forward (the student's, the teacher's
+# and the recomputes) goes through both stacks: per step 12 x (19 + 38 M)
+# K1 and 2 x (19 + 38 M) K3 launches (phase 11's 684 / 114 at M = 1).
+PIPE, PIPE_BATCH = 2, 2
+PIPE_STEPS = 1          # counted pipelined steps
+
+
+def own_rng():
+    """The block draws from the host's and the card's global generators
+    and puts them back after: a phase added among the others leaves the
+    weights the later phases build from those generators as they were
+    (phase 27's model draws its means-head bias from them, and phase 39's
+    reading over its 0.1 bound moves with it: 6.4e-2 to 1.03e-1)."""
+    return torch.random.fork_rng(devices=[torch.cuda.current_device()])
+
+
+def pipe_step_launches(n_joint, n_single, m):
+    per_forward = n_joint + n_single * m
+    return TRAIN_FORWARDS * per_forward, TRAIN_BACKWARDS * per_forward
+
+
+class DroppedHandoff(LocalPipe):
+    """Planted fault: stage 1 receives zeros in place of what stage 0
+    handed it (a stage handoff dropped)."""
+
+    def forward_shift(self, outs, like):
+        got = super().forward_shift(outs, like)
+        if got.get(1) is not None:
+            got[1] = tuple(torch.zeros_like(t) for t in got[1])
+        return got
+
+
+def flux_pipe_batch(generator, cfg, rows):
+    """``rows`` rows of phase 11's batch: random latents and prompt
+    embeds."""
+    embeds = [flux_inputs(generator) for _ in range(rows)]
+    return dict(latents=torch.randn(rows, *cfg.model.latent_shape,
+                                    generator=generator, device='cuda'),
+                prompt_embed_kwargs={k: torch.cat([e[k] for e in embeds])
+                                     for k in embeds[0]})
+
+
+def phase_train_local_pipe(run):
+    """Phase 40: phase 11's FLUX-12B model and state with its stacks on
+    ``LocalPipe(PIPE)`` at PIPE_BATCH rows (PIPE_BATCH microbatches),
+    PIPE_STEPS train steps against the one-device step of the same state,
+    batch and draws, with phase 38's bounds; a dropped stage handoff must
+    break them. Its draws from the global generators are put back after,
+    as are phase 41's: the later phases build their weights from them."""
+    model, state, step, cfg = (run[k] for k in ('model', 'state', 'step',
+                                                'cfg'))
+    net = cfg.model.diffusion.denoising
+    g = torch.Generator(device='cuda').manual_seed(SEED + 41)
+    rows, note = PIPE_BATCH, ''
+    snap = state_snapshot(state)
+    before = {n: p.detach().to('cpu', copy=True)
+              for n, p in state.trainable['diffusion'].items()}
+    while True:
+        batch = flux_pipe_batch(g, cfg, rows)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            ref_loss, ref_grads, ref_after = step_with_grads(step, state,
+                                                             batch)
+            ref_s = time.perf_counter() - t
+            ref_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            break
+        except torch.cuda.OutOfMemoryError:
+            if rows == 1:
+                raise
+            state_restore(state, snap)
+            gc.collect()
+            torch.cuda.empty_cache()
+            note = f' (batch {rows} did not fit: batch 1)'
+            rows -= 1
+    state_restore(state, snap)
+    micro = rows
+    # the planted fault: a step with stage 1 fed zeros for its handoff (the
+    # teacher's targets go through the same faulty trunk, so the loss moves
+    # less than the gradients)
+    set_pipe(model, DroppedHandoff(PIPE, micro))
+    try:
+        fault_loss, fault_grads, _ = step_with_grads(step, state, batch)
+    finally:
+        set_pipe(model, None)
+    state_restore(state, snap)
+    want = pipe_step_launches(net.num_layers, net.num_single_layers, micro)
+    set_pipe(model, LocalPipe(PIPE, micro))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for i in range(PIPE_STEPS):
+            attn.LAUNCHES = attn.BWD_LAUNCHES = 0   # the main path's run
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, grads, after = step_with_grads(step, state, batch)
+            dt = time.perf_counter() - t
+            launches = (attn.LAUNCHES, attn.BWD_LAUNCHES)
+            if launches != want:
+                raise AssertionError(f'pipe step {i + 1}: launches (K1, K3) '
+                                     f'{launches}, want {want}')
+            if not math.isfinite(loss):
+                raise AssertionError(f'pipe step {i + 1}: loss {loss}')
+            steps.append(dict(s=dt, loss=loss))
+            if i == 0:
+                first = grads, after
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        set_pipe(model, None)
+    grads, after = first
+    rel_loss = abs(steps[0]['loss'] - ref_loss) / abs(ref_loss)
+    flat = lambda d: torch.cat([t.flatten() for t in d.values()])  # noqa
+    rel_grad = rel_l2(flat(grads), flat(ref_grads))
+    rel_update = rel_l2(flat({n: after[n] - before[n] for n in after}),
+                        flat({n: ref_after[n] - before[n] for n in after}))
+    fault_rel = (abs(fault_loss - ref_loss) / abs(ref_loss),
+                 rel_l2(flat(fault_grads), flat(ref_grads)))
+    if max(rel_loss, rel_grad, rel_update) > TRAIN_SLICE_REL_L2:
+        raise AssertionError(f'LocalPipe against one device: loss rel '
+                             f'{rel_loss:.3e}, gradients {rel_grad:.3e}, '
+                             f'update {rel_update:.3e} > '
+                             f'{TRAIN_SLICE_REL_L2}')
+    if max(fault_rel) <= TRAIN_SLICE_REL_L2:
+        raise AssertionError(f'a dropped stage handoff kept the loss and the '
+                             f'gradients within {TRAIN_SLICE_REL_L2}: '
+                             f'{fault_rel}')
+    state_restore(state, snap)
+    del snap
+    log(f'phase 40 FLUX-12B training on LocalPipe({PIPE}) (phase 11\'s model '
+        f'and state; batch {rows} in {micro} microbatches{note}; the '
+        f'{net.num_single_layers} single blocks pipelined, the '
+        f'{net.num_layers} joint blocks plain; LoRA dropout on): ok | '
+        f'launches per step K1 {launches[0]}, K3 {launches[1]} (12 x (19 + '
+        f'38 x {micro}), 2 x (19 + 38 x {micro})) | steps ' + ', '.join(
+            f'{st["s"]:.4f} s (loss {st["loss"]:.5e})' for st in steps)
+        + f' against the one-device step at batch {rows}: {ref_s:.4f} s, '
+        f'loss {ref_loss:.5e}, peak {ref_peak:.2f} GiB | first step against '
+        f'one device: loss rel {rel_loss:.3e}, adapter gradients rel L2 '
+        f'{rel_grad:.3e}, the adapter\'s update rel L2 {rel_update:.3e} '
+        f'(bound {TRAIN_SLICE_REL_L2}) | planted fault, stage 1 fed zeros '
+        f'for stage 0\'s handoff: loss rel {fault_rel[0]:.3e}, adapter '
+        f'gradients rel L2 {fault_rel[1]:.3e}, refused | peak '
+        f'memory {peak_gib:.2f} GiB (the state snapshot on the card)')
+    return dict(k1=launches[0], k3=launches[1], s=[st['s'] for st in steps],
+                ref_s=ref_s, peak_gib=peak_gib, rows=rows)
+
+
+# phase 41: the MoE FFN at FLUX-12B width. (a) moe_experts=1 at capacity 1
+# with the dense FFN's weights in its one expert, on 2 + 2 blocks: every
+# token through the expert at gate 1, the dense blocks' ``means`` within
+# MOE_DENSE_REL_L2. The MoE adds the expert's bias after its bf16 product
+# where the dense layer adds it in the GEMM's fp32 epilogue, so the two
+# differ by one bf16 rounding (2^-8) per MLP; a wrong gate, a token
+# dropped or a weight transposed moves ``means`` by O(1). (b) moe_experts=2
+# at capacity 1 at full depth: a 2-NFE 1024^2 image from phase 6's embeds
+# and latents, 114 K1 launches.
+MOE_DENSE_REL_L2 = 1e-2
+
+
+def moe_from_dense(moe, dense):
+    """``moe`` (E = 1) takes ``dense``'s FFN weights (a FeedForward's
+    in_proj / out_proj) in its one expert."""
+    with torch.no_grad():
+        moe.w_in.copy_(dense.in_proj.weight.T.float()[None])
+        moe.b_in.copy_(dense.in_proj.bias.float()[None])
+        moe.w_out.copy_(dense.out_proj.weight.T.float()[None])
+        moe.b_out.copy_(dense.out_proj.bias.float()[None])
+
+
+def phase_flux_moe(vae, embeds, latents):
+    g = torch.Generator(device='cuda').manual_seed(SEED + 42)
+    cfg = dict(FLUX_12B, num_layers=2, num_single_layers=2)
+    with torch.device('cuda'):
+        dense = ArcFluxTransformer2DModel(dtype=torch.bfloat16, **cfg)
+        single = ArcFluxTransformer2DModel(dtype=torch.bfloat16,
+                                           moe_experts=1,
+                                           moe_capacity_factor=1.0, **cfg)
+    randomize_(dense, g)
+    state = {k: v for k, v in dense.state_dict().items()
+             if '.ff_img.' not in k and '.ff_txt.' not in k}
+    missing, _ = single.load_state_dict(state, strict=False)
+    if not missing or any('.moe.' not in k for k in missing):
+        raise AssertionError(f'MoE blocks miss {missing[:4]}')
+    for db, mb in zip(dense.joint_blocks, single.joint_blocks):
+        for stream in ('ff_img', 'ff_txt'):
+            moe_from_dense(getattr(mb, stream).moe, getattr(db, stream))
+            getattr(mb, stream).moe.router.data.normal_(0.0, 0.02,
+                                                        generator=g)
+    x = torch.randn(1, 128, 128, 16, generator=g, device='cuda')
+    kw = dict(flux_inputs(g), t=torch.full((1,), 0.7, device='cuda'),
+              guidance=torch.full((1,), 3.5, device='cuda'))
+    with torch.inference_mode():
+        before = attn.LAUNCHES
+        want = dense(x, **kw)['means'].float()
+        got = single(x, **kw)['means'].float()
+        torch.cuda.synchronize()
+    if attn.LAUNCHES - before != 8:
+        raise AssertionError(f'{attn.LAUNCHES - before} K1 launches, want 8')
+    rel_single = ((got - want).norm() / want.norm()).item()
+    if not torch.isfinite(got).all() or rel_single > MOE_DENSE_REL_L2:
+        raise AssertionError(f'single expert against dense: rel L2 '
+                             f'{rel_single:.3e} > {MOE_DENSE_REL_L2}')
+    del dense, single, x, kw, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with torch.device('cuda'):
+        model = ArcFluxTransformer2DModel(dtype=torch.bfloat16, moe_experts=2,
+                                          moe_capacity_factor=1.0,
+                                          **FLUX_12B)
+    randomize_(model, g)
+    n_params = sum(p.numel() for p in model.parameters())
+    expert_bytes = sum(p.numel() * p.element_size()
+                       for n, p in model.named_parameters() if '.moe.' in n)
+    pipe = ArcFluxPipeline(model, vae=vae)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_blocks = FLUX_12B['num_layers'] + FLUX_12B['num_single_layers']
+    first, t_cold = timed_call(pipe, embeds, latents, output_type='pt')
+    torch.cuda.reset_peak_memory_stats()
+    attn.LAUNCHES = 0                       # the main path's counted run
+    out, t_warm = timed_call(pipe, embeds, latents, output_type='pt')
+    launches = attn.LAUNCHES
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches != 2 * n_blocks:
+        raise AssertionError(f'{launches} K1 launches, want {2 * n_blocks}')
+    img = out['images']
+    check_image(img)
+    rerun = (first['images'] - img).abs().max().item()
+    del pipe, model, out, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'phase 41 MoE at FLUX-12B width: (a) 2 + 2 blocks, moe_experts=1 at '
+        f'capacity 1.0 with the dense FFN weights in the expert against the '
+        f'dense blocks: means rel L2 {rel_single:.3e} (bound '
+        f'{MOE_DENSE_REL_L2}), 8 K1 | (b) FLUX-12B ArcFlux with '
+        f'moe_experts=2 at capacity 1.0 in every joint block '
+        f'({n_params / 1e9:.2f}B parameters, the experts fp32: '
+        f'{expert_bytes / 2 ** 30:.2f} GiB), 2-NFE 1024x1024 + decode from '
+        f'phase 6\'s embeds and latents: '
+        f'ok | image {tuple(img.shape)} finite, max|run1 - run2| '
+        f'{rerun:.3e} | K1 launches {launches} | build {t_build:.1f} s, '
+        f'cold {t_cold:.3f} s | warm per image {t_warm:.4f} s | peak memory '
+        f'{peak_gib:.2f} GiB')
+    return dict(launches=launches, rel_single=rel_single, s=t_warm,
                 peak_gib=peak_gib)
 
 
@@ -2255,7 +2543,7 @@ def phase_train_runner(run):
 
 # phase 31: iterations of the FLUX-12B config through train_model over a
 # mesh of one device, a checkpoint at the last
-MESH_ITERS = 2
+MESH_ITERS = 1          # one: the smoke's time goes to phases 40-41
 # --ranks: (name, config, iterations, rows a rank or None as shipped) of
 # each shipped config over its shipped mesh, a checkpoint at the last:
 # FLUX-12B at phase 11r's batch 1, Qwen-Image 20B at its shipped 4 rows a
@@ -2396,7 +2684,7 @@ class IterLogs(Hook):
         from arcflow_tpu_torch.runner import train_step as ts
         clip = ts.clip_and_skip
 
-        def spy(grads, iteration, cfg):
+        def spy(grads, iteration, cfg, *rest):
             if self.keep_first and not self.grads:
                 names = list(self.adapters[0])
                 self.grads = {
@@ -2404,7 +2692,7 @@ class IterLogs(Hook):
                                ).detach().to('cpu', copy=True)
                     for i, g in enumerate(grads)
                     if names[i].startswith(TEMB_UPSTREAM)}
-            return clip(grads, iteration, cfg)
+            return clip(grads, iteration, cfg, *rest)
         with mock.patch.object(ts, 'clip_and_skip', spy):
             yield
 
@@ -3082,6 +3370,220 @@ def check_sp_ranks(ranks, n, refs):
                 for r in ranks))
 
 
+# --ranks N --pipe-expert-only: FLUX-12B trained through ``train_model`` with
+# configs/flux/_pipeline_train.py's ``parallel`` composed in (phase 31's
+# cuts, PE_RANK_ITERS iterations, no checkpoint), the mesh over n ranks:
+# (name, the mesh, moe_experts). At 1 row a data rank a stage runs M = 1
+# microbatch: per rank and iteration 12 x (19 + 38 / 2) K1 and 2 x (19 +
+# 38 / 2) K3, each rank running its stage's 19 single blocks and all 19
+# joint blocks (19 does not divide by 2: they run replicated, as in JAX).
+PE_RANK_ITERS = 2
+PIPELINE_FRAGMENT = 'configs/flux/_pipeline_train.py'
+
+
+def pe_rank_cases(n):
+    return (('data_pipe', dict(data=-1, pipe=2), 0),
+            ('pipe_expert_moe', dict(data=-1, pipe=2, expert=n // 2), 2))
+
+
+def pe_train_config(mesh, moe_experts, iters, samples=1):
+    """The FLUX config with phase 31's cuts, ``_pipeline_train.py``'s
+    ``parallel`` composed in and its mesh updated by ``mesh`` (None: no
+    ``parallel``, one card), ``moe_experts`` (capacity 1.0) on both
+    denoisers."""
+    cfg = mesh_train_config(FLUX_TRAIN_CONFIG, iters, 0,
+                            unsharded=mesh is None, samples=samples)
+    if mesh is not None:
+        fragment = Config.fromfile(PIPELINE_FRAGMENT)
+        cfg.merge_from_dict({'parallel': dict(fragment.parallel,
+                                              _delete_=True)})
+        cfg.merge_from_dict({'parallel.mesh': mesh})
+    if moe_experts:
+        cfg.merge_from_dict({f'model.{k}.denoising.{f}': v
+                             for k in ('diffusion', 'teacher')
+                             for f, v in (('moe_experts', moe_experts),
+                                          ('moe_capacity_factor', 1.0))})
+    return cfg
+
+
+def pe_train_references(out_dir, n):
+    """The one-card references of ``--pipe-expert-only``: each case's model
+    on the global batch of its data ranks' rows (one row each), its first
+    iteration's loss, timestep-embedder gradients and adapter before and
+    after, saved for the ranks."""
+    out = {}
+    for name, mesh, moe in pe_rank_cases(n):
+        rows = n // (mesh['pipe'] * mesh.get('expert', 1))
+        cfg = pe_train_config(None, moe, 1, samples=rows)
+        with joined_rows(rows), no_final_checkpoint():
+            run = mesh_train_run(cfg, os.path.join(out_dir, f'ref_{name}'),
+                                 SEED + 40, keep_first=True)
+        before, after = run['adapters']
+        torch.save(dict(loss=run['rows'][0]['loss'], grads=run['grads'],
+                        before=before, after=after),
+                   os.path.join(out_dir, f'pe_ref_{name}.pt'))
+        out[name] = dict(loss=run['rows'][0]['loss'], rows=rows,
+                         s=run['s_per_step'][0], peak_gib=run['peak_gib'])
+        del run, before, after
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def pe_rank_main(out_dir):
+    """One rank of ``--ranks N --pipe-expert-only``: FLUX-12B through
+    ``train_model`` on each of ``pe_rank_cases`` from phase 31's random
+    weights, against the one-card references; writes ``pe{r}.json``."""
+    setup_distributed(timeout=600.0)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = dict(rank=rank)
+    for name, mesh, moe in pe_rank_cases(n):
+        cfg = pe_train_config(mesh, moe, PE_RANK_ITERS)
+        with no_final_checkpoint():
+            run = mesh_train_run(cfg, os.path.join(out_dir, 'pe', name),
+                                 SEED + 40, keep_first=True)
+        state, model = run['state'], run['model']
+        mp = state.model_parallel
+        ref = torch.load(os.path.join(out_dir, f'pe_ref_{name}.pt'))
+        before, after = run['adapters']
+        held = [k for k in ref['before']
+                if before[k].shape == ref['before'][k].shape]
+        upd = torch.cat([(after[k] - before[k]).flatten() for k in held])
+        ref_upd = torch.cat([(ref['after'][k] - ref['before'][k]).flatten()
+                             for k in held])
+        den = model.diffusion.denoising
+        n_blocks = (len(den.joint_blocks) + len(den.single_blocks) // 2)
+        res[name] = dict(
+            mesh=dict(zip(mp.mesh.mesh_dim_names, mp.mesh.shape)),
+            iters=PE_RANK_ITERS, launches=run['launches'],
+            want_launches=[TRAIN_FORWARDS * n_blocks,
+                           TRAIN_BACKWARDS * n_blocks, 0],
+            rows=run['rows'], s_per_iter=run['s_per_iter'],
+            s_per_step=run['s_per_step'], peak_gib=run['peak_gib'],
+            build_peak_gib=run['build_peak_gib'], ref_loss=ref['loss'],
+            loss_rel=abs(run['rows'][0]['loss'] - ref['loss'])
+            / abs(ref['loss']),
+            before_equal=all(torch.equal(before[k], ref['before'][k])
+                             for k in held),
+            held=len(held), adapter_tensors=len(ref['before']),
+            grad_rel={k: rel_l2(g, ref['grads'][k])
+                      for k, g in run['grads'].items()},
+            update_norm=upd.norm().item(), update_rel=rel_l2(upd, ref_upd),
+            resident_gib=torch.cuda.memory_allocated() / 2 ** 30)
+        del ref, before, after, upd, ref_upd
+        step = build_train_step(model, state.optimizers, model.train_cfg,
+                                ema_config_from_cfg(cfg), mesh=mp.mesh)
+        index, _ = batch_ranks(mp.mesh)
+        batch = to_device(t_train.build_dataset(cfg.data.train).batch(
+            np.random.default_rng([SEED, index]), 1),
+            torch.device('cuda', torch.cuda.current_device()))
+        wall, busy, by_name = profile_split(lambda: step(state, batch))
+        families = split_families(by_name)
+        res[name].update(
+            profiled_wall_s=wall, device_busy_s=busy,
+            families={f: ms for f, (ms, _, _) in families.items()},
+            nccl=nccl_split(by_name, wall, busy, ('SendRecv', 'AllReduce',
+                                                  'Broadcast')))
+        del run, model, state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f'pe{rank}.json'), 'w') as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def check_pe_ranks(ranks, n, refs):
+    """--pipe-expert-only read across the ranks, in ``check_sp_ranks``'
+    form: the launches per iteration, every rank's losses equal to rank
+    0's, and each rank's first iteration against one card's (loss and the
+    timestep embedder's gradients within TRAIN_SLICE_REL_L2, the update of
+    the adapter tensors it holds nonzero and within SP_UPDATE_REL_L2, the
+    same start)."""
+    bad = []
+    for name, _, _ in pe_rank_cases(n):
+        for r in ranks:
+            got = r[name]
+            if got['launches'] != [got['want_launches']] * got['iters']:
+                bad.append((r['rank'], name, 'launches', got['launches']))
+            if [x['loss'] for x in got['rows']] != [
+                    x['loss'] for x in ranks[0][name]['rows']]:
+                bad.append((r['rank'], name, 'loss', got['rows']))
+            if not all(math.isfinite(x['loss']) for x in got['rows']):
+                bad.append((r['rank'], name, 'finite', got['rows']))
+            if not got['before_equal'] or not got['held']:
+                bad.append((r['rank'], name, 'start', got['held']))
+            if got['loss_rel'] > TRAIN_SLICE_REL_L2 or not got['grad_rel'] \
+                    or max(got['grad_rel'].values()) > TRAIN_SLICE_REL_L2:
+                bad.append((r['rank'], name, 'one card', got['loss_rel'],
+                            got['grad_rel']))
+            if not got['update_norm'] > 0 \
+                    or got['update_rel'] > SP_UPDATE_REL_L2:
+                bad.append((r['rank'], name, 'update', got['update_norm'],
+                            got['update_rel']))
+    if bad:
+        raise AssertionError(f'--ranks {n} --pipe-expert-only failed: {bad}')
+    for name, _, moe in pe_rank_cases(n):
+        x, ref = ranks[0][name], refs[name]
+        what = f' MoE (moe_experts={moe})' if moe else ''
+        log(f'phase RP FLUX-12B{what} '
+            f'training through train_model with {PIPELINE_FRAGMENT} on {n} '
+            f'NCCL ranks ({name}: mesh {x["mesh"]}; phase 31\'s cuts, 1 row '
+            f'a data rank, M = 1, {x["iters"]} iterations): ok | launches per '
+            f'rank and iteration (K1, K3, K4) {x["launches"][0]} on every '
+            f'rank | losses '
+            + ', '.join(f'{row["loss"]:.5e}' for row in x['rows'])
+            + f' on every rank | first iteration against one card '
+            f'({ref["rows"]} rows, loss {ref["loss"]:.5e}, s per step '
+            f'{ref["s"]:.4f}, peak {ref["peak_gib"]:.2f} GiB): loss rel '
+            f'{x["loss_rel"]:.3e}, '
+            f'timestep embedder gradients rel L2 '
+            + ', '.join(f'{v:.3e}' for v in x['grad_rel'].values())
+            + f' (bound {TRAIN_SLICE_REL_L2}), the update of the '
+            f'{x["held"]} of {x["adapter_tensors"]} adapter tensors rank 0 '
+            f'holds (norm {x["update_norm"]:.4e}) rel L2 '
+            f'{x["update_rel"]:.3e} (bound {SP_UPDATE_REL_L2}) | rank 0 '
+            f'profiled step: wall {x["profiled_wall_s"]:.4f} s, device busy '
+            f'{x["device_busy_s"]:.4f} s, idle share '
+            f'{1 - x["device_busy_s"] / x["profiled_wall_s"]:.4f}; by family '
+            + ', '.join(f'{f} {ms:.1f} ms' for f, ms in sorted(
+                x['families'].items(), key=lambda kv: -kv[1]))
+            + '; NCCL ' + ', '.join(
+                f'{k} {v["ms"]:.1f} ms ({100 * v["share_of_wall"]:.1f}% of '
+                f'wall)' for k, v in x['nccl'].items()) + ' | '
+            + ' ; '.join(
+                f'rank {r["rank"]}: s per iteration '
+                + ', '.join(f'{v:.4f}' for v in r[name]['s_per_iter'])
+                + f', peak {r[name]["peak_gib"]:.2f} GiB training '
+                f'({r[name]["build_peak_gib"]:.2f} building), resident '
+                f'{r[name]["resident_gib"]:.2f} GiB'
+                for r in ranks))
+
+
+def main_pipe_expert(n, smi, out_dir):
+    """``--ranks n --pipe-expert-only``: the one-card references, then the
+    n ranks."""
+    t = time.perf_counter()
+    refs = pe_train_references(out_dir, n)
+    spawn(pe_rank_main, n, (out_dir,), timeout=1500.0)
+    wall = time.perf_counter() - t
+    ranks = [json.load(open(os.path.join(out_dir, f'pe{r}.json')))
+             for r in range(n)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    check_pe_ranks(ranks, n, refs)
+    log(f'phase RP pipe and expert training on {n} NCCL ranks: ok in '
+        f'{wall:.1f} s (the one-card references, builds and iterations '
+        f'included)')
+    print(json.dumps({'pipe_expert_train': ranks, 'references': refs}))
+    print(smi)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
 def k7_bound(b, s, h, valid_keys=None):
     """Roofline of K7 at (B, S, H, 128) over ``valid_keys`` keys (all by
     default): QK^T, 2 S Sk D H operations at the int8 peak, plus P.V as
@@ -3402,15 +3904,46 @@ def phase_toy_cli():
         flow_step, flow_share = toy_support(
             flow_cfg, wd_flow, 2048, SEED + 23,
             test_cfg_override=dict(num_timesteps=32))
+        teacher = {'model.teacher_ckpt': os.path.join(
+            wd_flow, 'checkpoints', flow_cfg.name)}
+        # the MoE student through the CLI in a thread of its own, beside
+        # the dense one (both launch-bound)
+        wd_moe, moe_run = os.path.join(work, 'moe'), {}
+
+        def moe_cli():
+            try:
+                moe_run['out'] = toy_cli(TOY_MOE[0], dict(TOY_MOE[1],
+                                                          **teacher), wd_moe)
+            except BaseException as e:       # re-raised below
+                moe_run['error'] = e
+        moe_thread = threading.Thread(target=moe_cli)
+        moe_thread.start()
         path, opts = TOY_DISTILL
-        opts = dict(opts, **{'model.teacher_ckpt': os.path.join(
-            wd_flow, 'checkpoints', flow_cfg.name)})
-        distill_cfg, _, distill_wall, distill_s = toy_cli(path, opts,
-                                                          wd_distill)
+        distill_cfg, _, distill_wall, distill_s = toy_cli(
+            path, dict(opts, **teacher), wd_distill)
         distill_step, distill_share = toy_support(distill_cfg, wd_distill,
                                                   1024, SEED + 24)
+        moe_thread.join()
+        if 'error' in moe_run:
+            raise moe_run['error']
+        moe_cfg, _, moe_wall, moe_s = moe_run['out']
+        with own_rng():     # its model's init: the later phases' weights
+            moe_step, moe_share = toy_support(moe_cfg, wd_moe, 1024,
+                                              SEED + 24)
+        router = load_raw_checkpoint(os.path.join(
+            wd_moe, 'checkpoints', moe_cfg.name))['ema']['diffusion'][
+                'moe.router'].norm(dim=0)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    if moe_step != moe_cfg.total_iters or not (
+            moe_share > TOY_MOE_SUPPORT
+            and abs(moe_share - distill_share) < TOY_MOE_MARGIN
+            and bool((router > TOY_MOE_ROUTER_NORM).all())):
+        raise AssertionError(f'MoE toy: last checkpoint at {moe_step}, '
+                             f'in-support {moe_share:.4f} (want > '
+                             f'{TOY_MOE_SUPPORT}, within {TOY_MOE_MARGIN} '
+                             f'of the dense {distill_share:.4f}), router '
+                             f'column norms {router.tolist()}')
     if flow_step != flow_cfg.total_iters or \
             distill_step != distill_cfg.total_iters:
         raise AssertionError(f'last checkpoints at {flow_step}, '
@@ -3430,9 +3963,16 @@ def phase_toy_cli():
         f'teacher: {distill_cfg.total_iters} iterations at batch 256, '
         f'{distill_s:.5f} s per iteration, {distill_wall:.1f} s of command, '
         f'2-NFE in-support share {distill_share:.4f} of 1024 samples (gate > '
-        f'{TOY_DISTILL_SUPPORT})')
+        f'{TOY_DISTILL_SUPPORT}) | {TOY_MOE[0]} from the same teacher, '
+        f'beside it: {moe_cfg.total_iters} iterations, {moe_s:.5f} s per '
+        f'iteration, {moe_wall:.1f} s of command, in-support share '
+        f'{moe_share:.4f} (gate > {TOY_MOE_SUPPORT} and within '
+        f'{TOY_MOE_MARGIN} of the dense student), router column norms '
+        + ', '.join(f'{v:.4f}' for v in router.tolist())
+        + f' (gate > {TOY_MOE_ROUTER_NORM})')
     return dict(flow_s_per_iter=flow_s, flow_support=flow_share,
-                distill_s_per_iter=distill_s, distill_support=distill_share)
+                distill_s_per_iter=distill_s, distill_support=distill_share,
+                moe_s_per_iter=moe_s, moe_support=moe_share)
 
 
 KERNEL_COUNTERS = ((attn, 'LAUNCHES'), (attn, 'BWD_LAUNCHES'),
@@ -3726,20 +4266,53 @@ def main_imagenet():
     return 0
 
 
-def phase_imagenet():
-    """Phases 32-33 in a process of their own, run last: run before phase
-    15, in this process or in a child, they left phase 15's profiler
-    windows with no kernel record of flash SDPA (0 of 50 in each of six),
-    as large traces thin them (``profiler_drop_probe.py``)."""
-    res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          '--imagenet'], capture_output=True, text=True,
-                         timeout=IMAGENET_TIMEOUT)
-    for line in res.stdout.splitlines():
+def start_imagenet():
+    """Phases 32-33 in a process of their own, started after every phase of
+    this process that reads the profiler and run beside phases 28r, 29 and
+    30 (their times are taken beside it): run before phase 15, in this
+    process or in a child, they left
+    phase 15's profiler windows with no kernel record of flash SDPA (0 of
+    50 in each of six), as large traces thin them
+    (``profiler_drop_probe.py``). Their output goes to files, which a pipe
+    left unread would block on. ``finish_imagenet`` collects them."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix='imagenet-', dir=_build.BUILD_DIR)
+    out = open(os.path.join(work, 'out.log'), 'w')
+    err = open(os.path.join(work, 'err.log'), 'w')
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             '--imagenet'], stdout=out, stderr=err, text=True)
+    return dict(proc=proc, work=work, files=(out, err))
+
+
+def stop_imagenet(child):
+    """End the child if it still runs; remove its files."""
+    if child['proc'].poll() is None:
+        child['proc'].kill()
+        child['proc'].wait()
+    for f in child['files']:
+        f.close()
+    shutil.rmtree(child['work'], ignore_errors=True)
+
+
+def finish_imagenet(child):
+    """Wait for phases 32-33 and print their lines; fails unless the child
+    exits 0."""
+    try:
+        rc = child['proc'].wait(timeout=IMAGENET_TIMEOUT)
+        for f in child['files']:
+            f.flush()
+        with open(os.path.join(child['work'], 'out.log')) as f:
+            stdout = f.read()
+        with open(os.path.join(child['work'], 'err.log')) as f:
+            stderr = f.read()
+    finally:
+        stop_imagenet(child)
+    for line in stdout.splitlines():
         if line.startswith('phase 3'):
             print(line, flush=True)
-    if res.returncode != 0:
-        raise AssertionError(f'phases 32-33 exited {res.returncode}:\n'
-                             f'{res.stdout[-3000:]}\n{res.stderr[-3000:]}')
+    if rc != 0:
+        raise AssertionError(f'phases 32-33 exited {rc}:\n'
+                             f'{stdout[-3000:]}\n{stderr[-3000:]}')
 
 
 def rounded(values, digits=4):
@@ -4745,17 +5318,21 @@ def serve_ranks(n, out_dir):
     return ranks
 
 
-def main_ranks(n, serve=True, mesh_train=True):
+def main_ranks(n, serve=True, mesh_train=True, pipe_expert=False):
     """``--ranks n``: serving over sp = n (unless ``serve`` is off:
     ``--train-only``), mesh training over data=2, fsdp=n/2 (unless
     ``mesh_train`` is off: ``--sp-train-only``, which serves nothing
-    either), then FLUX-12B training under sp (``sp_rank_cases``)."""
+    either), then FLUX-12B training under sp (``sp_rank_cases``);
+    ``--pipe-expert-only`` trains on the pipe and expert axes alone
+    (``pe_rank_cases``)."""
     smi = phase_facts()
     if torch.cuda.device_count() < n:
         raise SystemExit(f'FAIL ranks: --ranks {n} needs {n} cards, '
                          f'{torch.cuda.device_count()} visible')
     phase_build()
     out_dir = tempfile.mkdtemp(prefix='ranks-', dir=_build.BUILD_DIR)
+    if pipe_expert:
+        return main_pipe_expert(n, smi, out_dir)
     ranks = serve_ranks(n, out_dir) if serve else None
     train = None
     if mesh_train:
@@ -6227,7 +6804,8 @@ def main():
         return main_ranks(int(sys.argv[2]),
                           serve=not sp_only
                           and '--train-only' not in sys.argv[3:],
-                          mesh_train=not sp_only)
+                          mesh_train=not sp_only,
+                          pipe_expert='--pipe-expert-only' in sys.argv[3:])
     smi = phase_facts()
     torch.manual_seed(SEED)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6256,8 +6834,14 @@ def main():
     ring_launches, ring_host = phase_full_local_ring(*flux_run)
     cn_fill = phase_controlnet_fill(flux_run)
     captured = phase_w8a8_full(*flux_run)
+    vae, embeds, latents = flux_run[0].vae, flux_run[1], flux_run[2]
     del flux_run
     gc.collect()                            # the FLUX model goes first
+    torch.cuda.empty_cache()
+    with own_rng():
+        flux_moe = phase_flux_moe(vae, embeds, latents)
+    del vae, embeds, latents
+    gc.collect()
     torch.cuda.empty_cache()
     k7_err, k7_launches, k7_timed = phase_k7_vs_plain(captured)
     del captured
@@ -6278,6 +6862,8 @@ def main():
     train_launches, train_run = phase_train_full()
     runner_launches = phase_train_runner(train_run)
     flux_ring_train = phase_train_local_ring(train_run)
+    with own_rng():
+        flux_pipe_train = phase_train_local_pipe(train_run)
     bare_step_s = train_run['warm']
     del train_run
     gc.collect()
@@ -6311,17 +6897,22 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     qwen_train, qwen_run = phase_qwen_train_full()
-    qwen_runner = phase_qwen_train_runner(qwen_run)
-    del qwen_run
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_vae_encoders()
-    phase_qwen_train_cli()
-    # last: after phases 32-33 (a child process) this process's profiler
-    # windows kept no kernel records (phase 15, 0 of 50 in six windows)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_imagenet()
+    # phases 32-33 in a child beside the last phases (28r, 29, 30): after
+    # them this process's profiler windows kept no kernel records (phase
+    # 15, 0 of 50 in six windows), and phase 28 reads the last of them
+    imagenet = start_imagenet()
+    try:
+        qwen_runner = phase_qwen_train_runner(qwen_run)
+        del qwen_run
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_vae_encoders()
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_qwen_train_cli()
+        finish_imagenet(imagenet)
+    finally:
+        stop_imagenet(imagenet)
     fwd = attn_timed['unmasked']
     ff_in = w4a8_timed[0]
     fwd_by_path = {'flux': flux_launches, 'qwen': qwen_launches['attention'],
@@ -6337,14 +6928,17 @@ def main():
                    'flux_controlnet': cn_fill['controlnet_interval']
                    + cn_fill['controlnet_repeat'],
                    'flux_fill': cn_fill['fill'],
-                   'flux_ui_callback': flux_prompt['ui']['launches']}
+                   'flux_ui_callback': flux_prompt['ui']['launches'],
+                   'flux_train_local_pipe': flux_pipe_train['k1'],
+                   'flux_moe': flux_moe['launches']}
     bwd_by_path = {'flux_train': train_launches['backward'],
                    'flux_train_runner': runner_launches['backward'],
                    'flux_mesh_train': mesh_launches['backward'],
                    'qwen_train': qwen_train['backward'],
                    'qwen_train_runner': qwen_runner['backward'],
                    'flux_train_local_ring': flux_ring_train['k3'],
-                   'qwen_train_local_ring': qwen_ring['k3']}
+                   'qwen_train_local_ring': qwen_ring['k3'],
+                   'flux_train_local_pipe': flux_pipe_train['k3']}
     hop_by_path = {'flux_local_ring': ring_launches,
                    'flux_train_local_ring': flux_ring_train['k4'],
                    'qwen_train_local_ring': qwen_ring['k4']}

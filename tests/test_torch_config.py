@@ -10,6 +10,7 @@ sides are the same pure-Python logic.
 
 import ast
 import copy
+import functools
 import glob
 import os
 import subprocess
@@ -137,10 +138,21 @@ def test_registry_builds_and_refuses():
                            denoising=dict(type='NoSuchDenoiser')))
 
 
+def _toy_moe_under_a_data_mesh():
+    from arcflow_tpu_torch.parallel.mesh import batch_rows
+    toy = MODULES.build(dict(type='ToyArcFlowDenoiser', moe_experts=4,
+                             hidden=(8, 8)), default_args=dict(device='cpu'))
+    assert toy.moe.num_experts == 4
+    with batch_rows(0, 2):
+        toy(torch.zeros(4, 2), torch.zeros(4))
+
+
 @pytest.mark.parametrize('cfg, match', [
     (dict(type='GaussianFlow', denoising_mean_mode='X0'), 'only u-pred'),
     (dict(type='ArcFlowImitation', policy_type='GMFlow'), 'only ArcFlow'),
-    (dict(type='ToyArcFlowDenoiser', moe_experts=4), 'ROADMAP'),
+    # the MoE toy builds now (tests/test_torch_moe.py); what stays refused
+    # is its routing under a data mesh of 2 batch ranks
+    (functools.partial(_toy_moe_under_a_data_mesh), 'ROADMAP'),
     (dict(type='ArcFluxTransformer2DModel', patch_size=1, num_layers=0,
           num_single_layers=0, device='meta'), 'patch_size must be 2'),
     (dict(type='FluxTransformer2DModel', pretrained='x', num_layers=0,
@@ -148,7 +160,8 @@ def test_registry_builds_and_refuses():
 ])
 def test_refusals_stay_explicit(cfg, match):
     with pytest.raises((ValueError, NotImplementedError), match=match):
-        MODULES.build(cfg)
+        cfg() if callable(cfg) else MODULES.build(cfg)
+
 
 
 def test_flux_config_builds_through_the_registry():

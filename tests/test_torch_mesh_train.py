@@ -7,7 +7,8 @@ port in one process.
   simulated devices: sizes with -1 and ``dcn_axes``, the device order, and
   the refusals with JAX's message (a product off the device count, and
   ``data=2, fsdp=-1`` on one device, where JAX's 1 // 2 = 0 gives a mesh
-  of 0); ``tensor``, ``pipe`` and ``expert`` are refused by name.
+  of 0); ``tensor`` is refused by name, and ``pipe`` and ``expert`` meet
+  the same size arithmetic.
 * ``tests/test_parallel.py::test_sharded_matches_single_device``'s model
   and SGD step on 4 ranks at ``data=2, fsdp=2`` and on 2 ranks at
   ``fsdp=2``, against the JAX step on one device, at JAX's tolerance (loss
@@ -547,8 +548,19 @@ def test_one_process_refuses_the_shipped_mesh():
 
 @pytest.mark.parametrize('axis', ['tensor', 'pipe', 'expert'])
 def test_waiting_axes_are_refused_by_name(axis):
-    with pytest.raises(NotImplementedError, match=f"'{axis}'.*queue A item"):
+    """``tensor`` still waits for its slice and is refused by name;
+    ``pipe`` and ``expert`` are axes of the mesh now (``tests/test_torch_
+    pipeline_parallel.py``): in one process they meet JAX's device count
+    (fsdp = 1 // 2 = 0), as a ``data`` / ``fsdp`` mesh does."""
+    if axis == 'tensor':
+        with pytest.raises(NotImplementedError,
+                           match=f"'{axis}'.*queue A item"):
+            make_mesh({'data': 1, 'fsdp': -1, axis: 2})
+        return
+    with pytest.raises(ValueError, match=rf"mesh \{{'data': 1, 'fsdp': 0, "
+                       rf"'{axis}': 2\}} != 1 devices"):
         make_mesh({'data': 1, 'fsdp': -1, axis: 2})
+    assert mesh_shape({'data': -1, axis: 2}, 4) == {'data': 2, axis: 2}
 
 
 def test_train_model_refuses_a_tensor_axis():

@@ -217,11 +217,16 @@ def test_ring_partition_guards():
 def test_waiting_axes_beside_sp_are_refused_by_name(axis):
     """The ring trains now (``tests/test_torch_sp_train.py``); the mesh
     axes that wait for their slices are still refused by name, beside
-    ``sp`` as beside ``data`` / ``fsdp``."""
+    ``sp`` as beside ``data`` / ``fsdp``: ``tensor`` (item 5.2), and
+    ``pipe`` and ``expert``, which train beside ``data`` now, in their
+    composition with ``sp`` (item 5.8)."""
     from arcflow_tpu_torch.parallel import make_mesh
-    with pytest.raises(NotImplementedError, match=f"'{axis}'.*queue A item"):
+    item = '5.2' if axis == 'tensor' else '5.8'
+    with pytest.raises(NotImplementedError,
+                       match=f"'{axis}'.*queue A item {item}"):
         make_mesh({'sp': 1, axis: 2})
-    with pytest.raises(NotImplementedError, match=f"'{axis}'.*queue A item"):
+    with pytest.raises(NotImplementedError,
+                       match=f"'{axis}'.*queue A item {item}"):
         make_mesh({'data': 1, 'fsdp': 1, 'sp': 2, axis: 2})
 
 

@@ -243,12 +243,14 @@ def test_mesh_takes_only_the_sp_axis():
 @pytest.mark.parametrize('axis', ['tensor', 'pipe', 'expert'])
 def test_training_mesh_with_sp_refuses_waiting_axes(axis):
     """``sp`` beside ``data`` / ``fsdp`` trains (a 3-D mesh,
-    ``tests/test_torch_sp_train.py``); ``tensor``, ``pipe`` and ``expert``
-    beside them are refused by name, with the queue item that ports
-    each."""
-    from arcflow_tpu_torch.parallel.mesh import WAITING_AXES
-    with pytest.raises(NotImplementedError,
-                       match=rf"'{axis}'.*item {WAITING_AXES[axis]}"):
+    ``tests/test_torch_sp_train.py``); ``tensor`` beside them is refused
+    by name with the queue item that ports it, and ``pipe`` and
+    ``expert`` (which train beside ``data`` / ``fsdp``) with the item of
+    their composition with ``sp``."""
+    from arcflow_tpu_torch.parallel.mesh import (SP_WITH_MODEL_AXES,
+                                                 WAITING_AXES)
+    item = WAITING_AXES.get(axis, SP_WITH_MODEL_AXES)
+    with pytest.raises(NotImplementedError, match=rf"'{axis}'.*item {item}"):
         make_mesh({'data': 1, 'fsdp': -1, 'sp': 1, axis: 2})
 
 
