@@ -26,10 +26,16 @@ and ``pipe_interleave`` chunks a stage, and the MoE layers' experts split
 over ``expert``; the ranks along both axes hold the same rows. A mesh of
 one device runs the same code (in a process group of one, started here and
 ended on return). ``fsdp_axis`` is 'fsdp' or None (``_pipeline_train.py``:
-nothing sharded over fsdp, whose size must then be 1); ``min_shard_size``
-does not apply (FSDP2 shards every parameter). A ``tensor_axis`` and the
-``tensor`` axis are refused by name, as is the host offload of the cold
-state (the H100 holds it).
+nothing sharded over fsdp, whose size must then be 1). ``tensor`` beside
+``data`` / ``fsdp`` (``tensor_axis='tensor'``, JAX ``apis/train.py:58-82``)
+splits the blocks Megatron-style over each tensor group
+(``parallel/tensor.py:partition_tensor``; a unit whose layers hold fewer
+than ``min_shard_size`` weight elements stays whole, as JAX's rule keeps
+such a leaf replicated), then FSDP2 shards each rank's parts over
+``fsdp``; the ranks of a tensor group hold the same rows. ``tensor``
+beside ``sp``, ``pipe`` or ``expert`` is refused by name (ROADMAP.md
+queue A items 5.11, 5.12), as is the host offload of the cold state (the
+H100 holds it).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from ..data import (Prefetcher, build_bucketized_loader, build_dataloader,
                     build_dataset, collate, load_datalist)
 from ..parallel.fsdp import shard_model
 from ..parallel.model_parallel import model_axes, partition_model
+from ..parallel.tensor import partition_tensor
 from ..parallel.mesh import (SequenceParallel, batch_ranks, make_mesh,
                              set_sequence_parallel, setup_distributed)
 from ..registry import MODELS
@@ -80,10 +87,9 @@ def parallel_from_cfg(cfg: Config) -> Optional[dict]:
     parallel = dict(cfg.get('parallel') or {})
     if not parallel.get('mesh'):
         return None
-    if parallel.get('tensor_axis'):
-        raise NotImplementedError(
-            f'parallel.tensor_axis {parallel["tensor_axis"]!r}: the tensor '
-            f'axis waits for ROADMAP.md queue A item 5.2')
+    if parallel.get('tensor_axis') not in ('tensor', None):
+        raise ValueError(f'parallel.tensor_axis must be "tensor" or None, '
+                         f'got {parallel["tensor_axis"]!r}')
     axes = dict(parallel['mesh'])
     fsdp_axis = parallel.get('fsdp_axis', 'fsdp')
     if fsdp_axis not in ('fsdp', None):
@@ -101,6 +107,7 @@ def parallel_from_cfg(cfg: Config) -> Optional[dict]:
     return dict(axes=axes,
                 dcn_axes=dict(parallel.get('dcn_mesh') or {}) or None,
                 sp_mode=parallel.get('sp_mode', 'ulysses'),
+                min_shard_size=parallel.get('min_shard_size', 2 ** 16),
                 pipe_microbatches=parallel.get('pipe_microbatches'),
                 pipe_interleave=parallel.get('pipe_interleave', 1) or 1)
 
@@ -186,18 +193,20 @@ def train_model(cfg: Config, work_dir: Optional[str] = None,
             pipe = dict(microbatches=mesh_args.pop('pipe_microbatches'),
                         interleave=mesh_args.pop('pipe_interleave'))
         sp_mode = None if mesh_args is None else mesh_args.pop('sp_mode')
+        min_size = None if mesh_args is None \
+            else mesh_args.pop('min_shard_size')
         mesh = None if mesh_args is None else make_mesh(**mesh_args)
         if device.type == 'cuda' and dist.is_initialized():
             device = torch.device('cuda', torch.cuda.current_device())
         return _train(cfg, work_dir, resume, seed, max_iters, device, mesh,
-                      sp_mode, pipe)
+                      sp_mode, pipe, min_size)
     finally:
         if started:
             dist.destroy_process_group()
 
 
 def _train(cfg, work_dir, resume, seed, max_iters, device, mesh,
-           sp_mode=None, pipe=None):
+           sp_mode=None, pipe=None, min_size=None):
     work_dir = work_dir or cfg.get('work_dir', 'work_dirs/default')
     os.makedirs(work_dir, exist_ok=True)
     logger = build_logger(work_dir)
@@ -218,13 +227,17 @@ def _train(cfg, work_dir, resume, seed, max_iters, device, mesh,
     if model_axes(mesh):
         partition_model(model, mesh, **(pipe or {}))
     elif mesh is not None:
+        if 'tensor' in mesh.mesh_dim_names:
+            partition_tensor(model, mesh, min_size)
         shard_model(model, mesh)
     if mesh is not None:
         logger.info(f'mesh parallelism: '
                     f'{dict(zip(mesh.mesh_dim_names, mesh.shape))}'
                     + (f', sp_mode {sp_mode}' if 'sp' in mesh.mesh_dim_names
                        else '') + (f', pipe {pipe}' if 'pipe' in
-                                   mesh.mesh_dim_names else ''))
+                                   mesh.mesh_dim_names else '')
+                    + (f', tensor min_shard_size {min_size}' if 'tensor' in
+                       mesh.mesh_dim_names else ''))
     trainable, frozen = model.init_params()
     logger.info(f'trainable params: {count_params(trainable):,}; '
                 f'frozen params: {count_params(frozen):,}')

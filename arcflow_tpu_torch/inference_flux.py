@@ -3,7 +3,8 @@
     python -m arcflow_tpu_torch.inference_flux --model-dir DIR
         [--adapter FILE] [--vae-dir DIR] [--prompt TEXT | --prompt-embeds NPZ]
         [--height H --width W --nfe N --temperature T --guidance G --seed S]
-        [--int8 | --w8a8 | --int4 | --w4a8] [--mesh sp=N --sp-mode MODE]
+        [--int8 | --w8a8 | --int4 | --w4a8]
+        [--mesh sp=S,tensor=T --sp-mode MODE]
         [--out FILE] [--device cuda|cpu]
 
 The root ``inference_flux.py`` with ``--device``. ``--model-dir`` is a
@@ -64,8 +65,9 @@ def parse_args(argv=None, family: str = 'flux'):
                    help='int4 weights and per-token int8 activations')
     p.add_argument('--mesh', default=None,
                    help="serving mesh over the processes of a "
-                        "torch.distributed group, e.g. 'sp=4'; only the sp "
-                        "axis is ported")
+                        "torch.distributed group, e.g. 'sp=4', 'tensor=2' or "
+                        "'sp=2,tensor=2'; serving takes the sp and tensor "
+                        "axes")
     p.add_argument('--sp-mode', choices=('ulysses', 'ring'),
                    default='ulysses')
     p.add_argument('--out', default='output.png')
@@ -124,8 +126,8 @@ def build_pipeline(args, family: str):
         axes = {k: int(v) for k, v in
                 (kv.split('=') for kv in args.mesh.split(','))}
         mesh = pipe.shard(axes, sp_mode=args.sp_mode)
-        print(f'serving mesh: {axes} ({args.sp_mode}), process group '
-              f'{mesh["sp"]}')
+        print(f'serving mesh: {axes} ({args.sp_mode}), process groups '
+              f'{mesh}')
     return pipe, device
 
 

@@ -76,8 +76,8 @@ from ..registry import MODULES
 from .layers import (AdaLayerNormContinuous, AdaLayerNormZero,
                      AdaLayerNormZeroSingle, DropoutRows, FeedForward,
                      JointAttention, LoRADense, SingleStreamAttention,
-                     layer_norm_no_affine, rope_frequencies, stream_rows,
-                     timestep_sinusoidal)
+                     layer_norm_no_affine, rope_frequencies, row_call,
+                     shard_outputs, stream_rows, timestep_sinusoidal)
 
 
 # the student's trainable surface (reference freeze_exclude,
@@ -242,7 +242,11 @@ class FluxJointBlock(nn.Module):
 
 
 class FluxSingleBlock(nn.Module):
-    """Single-stream block: parallel attention + MLP, fused output proj."""
+    """Single-stream block: parallel attention + MLP, fused output proj.
+    Over the ``tensor`` axis q / k / v and ``proj_mlp`` are column-split
+    and ``proj_out`` row-split over ``cat([attn_out, mlp_h])``: shard i
+    reads its heads' rows and its hidden units' rows of it, two segments
+    (``tensor_plan``; ``parallel/tensor.py``)."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
                  lora_rank: int = 0, lora_dropout: float = 0.0, device=None,
@@ -255,14 +259,24 @@ class FluxSingleBlock(nn.Module):
         self.attn = SingleStreamAttention(dim, num_heads, head_dim, **kw)
         self.proj_mlp = LoRADense(dim, mlp_dim, **lora)
         self.proj_out = LoRADense(num_heads * head_dim + mlp_dim, dim, **lora)
+        self.tensor_parallel = None
+
+    def tensor_plan(self):
+        inner = (self.attn.num_heads * self.attn.head_dim,)
+        mlp = (self.proj_mlp.out_features,)
+        plan = {f'attn.{p}': ('column', inner) for p in ('q', 'k', 'v')}
+        plan.update(proj_mlp=('column', mlp),
+                    proj_out=('row', inner + mlp))
+        return plan, self.attn.num_heads
 
     def forward(self, x, rope, temb, mask=None, cn=None, generator=None):
         h, gate = self.norm(x, temb)
         generator = stream_rows(generator, 'joint')
-        attn_out = self.attn(h, rope, mask=mask)
-        mlp_h = F.gelu(self.proj_mlp(h, generator), approximate='tanh')
-        fused = torch.cat([attn_out, mlp_h], dim=-1)
-        x = x + gate * self.proj_out(fused, generator)
+        attn_out = shard_outputs(self.attn(h, rope, mask=mask))
+        mlp_h = [F.gelu(p, approximate='tanh')
+                 for p in shard_outputs(self.proj_mlp(h, generator))]
+        fused = [torch.cat([a, m], dim=-1) for a, m in zip(attn_out, mlp_h)]
+        x = x + gate * row_call(self.proj_out, fused, generator)
         if cn is not None:
             # a ControlNet residual on the image tokens: the sequence is
             # [txt, img], the text part gets zeros

@@ -43,6 +43,7 @@ from torch import nn
 from ..ops import attention as attn_ops
 from ..ops import int8_matmul as i8_ops
 from ..ops import quant_matmul as qmm_ops
+from ..parallel import tensor as tensor_par
 from ..parallel.ring_attention import LocalRing, ring_attention
 from ..utils.quantize import unpack_nibbles
 
@@ -66,30 +67,46 @@ def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
     return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
 
 
+def _act_int8(x: torch.Tensor, absmax: Optional[torch.Tensor] = None):
+    """Per-token symmetric int8 activations of ``x`` (..., K), as the JAX
+    package forms them (absmax / 127 with a 1e-8 floor, round half to even,
+    in fp32): (xq (M, K) int8, x_scale (..., 1) fp32). ``absmax`` (..., 1)
+    replaces the row's own absmax (a row-parallel layer's, taken over the
+    whole row, ``parallel/tensor.py``)."""
+    x32 = x.float()
+    if absmax is None:
+        absmax = x32.abs().amax(dim=-1, keepdim=True)
+    xs = absmax.clamp_min(1e-8) / 127.0
+    xq = torch.round(x32 / xs).clamp_(-127, 127).to(torch.int8)
+    return xq.reshape(-1, x.shape[-1]), xs
+
+
 def _int8_matmul(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor,
-                 dtype: torch.dtype, act_quant: bool) -> torch.Tensor:
+                 dtype: torch.dtype, act_quant: bool, act=None,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x @ dequant(kernel int8 (in, out)) with ``scale`` (1, out) fp32, in
     the JAX package's two modes (``arcflow_tpu/models/layers.py:171-195``):
 
     * weight-only: ``kernel.to(dtype) * scale.to(dtype)`` (the scale cast
       before the product), then the dot in ``dtype``;
-    * w8a8: per-token symmetric int8 activations (absmax / 127 with a 1e-8
-      floor, round half to even, in fp32), the int8 x int8 -> int32 product
-      (``ops/int8_matmul.py``), then ``y * (x_scale * scale)`` in fp32 with
-      the product of the two scales formed first, cast to ``dtype``.
+    * w8a8: per-token symmetric int8 activations (``_act_int8``, or
+      ``act``, its result for this ``x``), the int8 x int8 -> int32
+      product (``ops/int8_matmul.py``), then ``y * (x_scale * scale)`` in
+      fp32 with the product of the two scales formed first, cast to
+      ``out_dtype`` (``dtype`` by default).
     """
     if not act_quant:
         return x.to(dtype) @ (kernel.to(dtype) * scale.to(dtype))
     lead = x.shape[:-1]
-    x32 = x.float()
-    xs = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
-    xq = torch.round(x32 / xs).clamp_(-127, 127).to(torch.int8)
-    y = i8_ops.int8_matmul(xq.reshape(-1, x.shape[-1]), kernel)
-    return (y.reshape(*lead, -1).float() * (xs * scale.float())).to(dtype)
+    xq, xs = act if act is not None else _act_int8(x)
+    y = i8_ops.int8_matmul(xq, kernel)
+    return (y.reshape(*lead, -1).float() * (xs * scale.float())).to(
+        out_dtype or dtype)
 
 
 def _int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
-                 dtype: torch.dtype, act_quant: bool) -> torch.Tensor:
+                 dtype: torch.dtype, act_quant: bool, act=None,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x @ dequant(packed int4) for the group-local half-split layout
     (``utils/quantize.py:pack_int4``), ``packed`` (in/2, out) int8 and
     ``scale`` (G, 1, out) fp32. Two modes, as in the JAX package:
@@ -99,20 +116,19 @@ def _int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     * w4a8: per-token symmetric int8 activations (absmax / 127, round half
       to even), the grouped matmul (``ops/quant_matmul.py:w4a8_matmul``:
       the Hopper kernel on a CUDA tensor, whatever the token count), then
-      ``(y * x_scale)`` cast to ``dtype``, which the kernel does in its
-      epilogue (``row_scale``, ``out_dtype``).
+      ``(y * x_scale)`` cast to ``out_dtype`` (``dtype`` by default),
+      which the kernel does in its epilogue (``row_scale``,
+      ``out_dtype``); ``act`` as for ``_int8_matmul``.
     """
     g = scale.shape[-3]
     ph = packed.shape[-2] // g                 # packed rows per group
     out = packed.shape[-1]
     lead = x.shape[:-1]
     if act_quant:
-        x32 = x.float()
-        xs = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
-        xq = torch.round(x32 / xs).clamp_(-127, 127).to(torch.int8)
-        y = qmm_ops.w4a8_matmul(xq.reshape(-1, x.shape[-1]).contiguous(),
-                                packed, scale[:, 0, :],
-                                row_scale=xs.reshape(-1, 1), out_dtype=dtype)
+        xq, xs = act if act is not None else _act_int8(x)
+        y = qmm_ops.w4a8_matmul(xq.contiguous(), packed, scale[:, 0, :],
+                                row_scale=xs.reshape(-1, 1),
+                                out_dtype=out_dtype or dtype)
         return y.reshape(*lead, out)
     lo, hi = unpack_nibbles(packed)
     sc = scale.to(dtype).expand(g, ph, out).reshape(g * ph, out)
@@ -141,6 +157,13 @@ class LoRADense(nn.Linear):
     weight-only mode. The bias and the LoRA branch are added after the
     quantized product. Under ``lora_disabled`` the layer is its base alone
     (the tied teacher runs the student's sharded modules so).
+
+    Tensor parallelism (``split_tensor``, by ``parallel/tensor.py:
+    set_tensor_parallel``): a 'column' layer takes the whole input and
+    returns the list of its shards' outputs; a 'row' layer takes the list
+    of its shards' inputs and returns the whole output, summed over the
+    shards (``parallel/tensor.py`` states the split of every tensor and
+    the gradient convention).
     """
 
     def __init__(self, in_features: int, out_features: int,
@@ -153,6 +176,9 @@ class LoRADense(nn.Linear):
         self.lora_enabled = True
         self.lora_rank = lora_rank
         self.lora_dropout = lora_dropout
+        self.tensor_parallel = None
+        self.tensor_split = None                 # (kind, segments)
+        self._tensor_parts = {}                  # a LocalTensor's kernels
         if lora_rank > 0:
             self.lora_a = nn.Parameter(torch.empty(
                 in_features, lora_rank, device=device, dtype=torch.float32))
@@ -177,30 +203,179 @@ class LoRADense(nn.Linear):
     def is_quantized(self) -> bool:
         return self.is_int8 or self.is_int4
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        dt = self.dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        if self.is_quantized:
-            if self.is_int8:
-                y = _int8_matmul(x, self.kernel, self.kernel_scale, dt,
-                                 self.act_quant)
-            else:
-                y = _int4_matmul(x, self.kernel_packed4, self.kernel_scale4,
-                                 dt, self.act_quant)
-            if bias is not None:
-                y = y + bias
-            x = x.to(dt)
+    @property
+    def group_size(self) -> Optional[int]:
+        """The int4 scale group (None for another layer)."""
+        if not self.is_int4:
+            return None
+        return self.kernel_packed4.shape[-2] * 2 // \
+            self.kernel_scale4.shape[-3]
+
+    def split_names(self):
+        """The tensors a split of this layer cuts."""
+        kind = self.tensor_split[0]
+        return [n for n in tensor_par.SPLIT_DIMS[kind]
+                if getattr(self, n, None) is not None]
+
+    def split_tensor(self, tp, kind: str, segments) -> None:
+        """Split this layer over ``tp`` (``parallel/tensor.py``): ``kind``
+        'column' (over the output features) or 'row' (over the input
+        features), each of ``segments`` cut in ``tp.size``. A
+        ``TensorGroup`` keeps its rank's part of each tensor; a
+        ``LocalTensor`` keeps the whole tensors and, for the quantized
+        kernels, each shard's contiguous part beside them."""
+        if self.tensor_split is not None:
+            raise ValueError('the layer is split already')
+        self.tensor_split = (kind, tuple(segments))
+        self.tensor_parallel = tp
+        gs = self.group_size
+        with torch.no_grad():
+            for name in self.split_names():
+                t = getattr(self, name)
+                if tp.holds_parts:
+                    part = tensor_par.split_part(t.data, name, kind, segments,
+                                                 tp.size, tp.rank, gs)
+                    if name in self._parameters:
+                        self._parameters[name].data = part
+                    else:
+                        self._buffers[name] = part
+                elif name in self._buffers:
+                    self._tensor_parts[name] = [
+                        tensor_par.split_part(t, name, kind, segments,
+                                              tp.size, i, gs)
+                        for i in range(tp.size)]
+
+    def _part(self, name: str, i: int) -> torch.Tensor:
+        """Shard ``i``'s part of tensor ``name`` (a view of a float
+        parameter under a ``LocalTensor``, so autograd reaches it)."""
+        tp = self.tensor_parallel
+        if tp.holds_parts:
+            return getattr(self, name)
+        if name in self._tensor_parts:
+            return self._tensor_parts[name][i]
+        kind, segments = self.tensor_split
+        return tensor_par.split_part(getattr(self, name), name, kind,
+                                     segments, tp.size, i, self.group_size,
+                                     view=True)
+
+    def _product(self, x, i, dt, act, bias: bool, out_dtype=None):
+        """Shard ``i``'s base product (the whole layer's when unsplit),
+        with its bias part when ``bias``."""
+        part = self._part if self.tensor_split else \
+            (lambda n, _: getattr(self, n))
+        b = part('bias', i).to(dt) if bias and self.bias is not None \
+            else None
+        if self.is_int8:
+            y = _int8_matmul(x, part('kernel', i), part('kernel_scale', i),
+                             dt, self.act_quant, act, out_dtype)
+        elif self.is_int4:
+            y = _int4_matmul(x, part('kernel_packed4', i),
+                             part('kernel_scale4', i), dt, self.act_quant,
+                             act, out_dtype)
         else:
-            x = x.to(dt)
-            y = F.linear(x, self.weight.to(dt), bias)
+            return F.linear(x.to(dt), part('weight', i).to(dt), b)
+        return y if b is None else y + b
+
+    def _dropped(self, x, generator, keep=None):
+        """The LoRA branch's input: ``x`` with its dropout (``keep``, or a
+        mask drawn from ``generator``) when one applies."""
+        if self.lora_dropout <= 0.0 or generator is None:
+            return x
+        keep_prob = 1.0 - self.lora_dropout
+        if keep is None:
+            keep = uniform_rows(x, generator) < keep_prob
+        return torch.where(keep, x / keep_prob, 0.0)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        tp = self.tensor_parallel
+        if tp is not None:
+            if self.tensor_split[0] == 'column':
+                return self._column(x, generator, tp)
+            return self._row(x, generator, tp)
+        dt = self.dtype
+        y = self._product(x, 0, dt, None, bias=True)
+        x = x.to(dt)
         if self.lora_rank > 0 and self.lora_enabled:
-            if self.lora_dropout > 0.0 and generator is not None:
-                keep_prob = 1.0 - self.lora_dropout
-                keep = uniform_rows(x, generator) < keep_prob
-                x = torch.where(keep, x / keep_prob, 0.0)
+            x = self._dropped(x, generator)
             y = y + (x @ self.lora_a.to(dt)) @ self.lora_b.to(dt)
         return y
+
+    def _column(self, x, generator, tp):
+        dt = self.dtype
+        x_in = tp.enter(x)
+        act = _act_int8(x) if self.is_quantized and self.act_quant else None
+        z = None
+        if self.lora_rank > 0 and self.lora_enabled:
+            z = tp.enter(self._dropped(x.to(dt), generator)
+                         @ self.lora_a.to(dt))
+        outs = []
+        for i in tp.parts:
+            y = self._product(x_in, i, dt, act, bias=True)
+            if z is not None:
+                y = y + z @ self._part('lora_b', i).to(dt)
+            outs.append(y)
+        return outs
+
+    def _row(self, xs, generator, tp):
+        dt = self.dtype
+        segments = self.tensor_split[1]
+        acts = [None] * len(xs)
+        out_dt = dt
+        if self.is_quantized and self.act_quant:
+            # the per-token scale of the whole row: the max of the shards'
+            # absmax, as the one-device layer takes it
+            amax = tp.all_max([x.float().abs().amax(dim=-1, keepdim=True)
+                               for x in xs])
+            acts = [_act_int8(x, a) for x, a in zip(xs, amax)]
+            out_dt = torch.float32
+        partials = [self._product(x, i, dt, a, bias=False, out_dtype=out_dt)
+                    for x, i, a in zip(xs, tp.parts, acts)]
+        lora = self.lora_rank > 0 and self.lora_enabled
+        if lora:
+            keep = None
+            if self.lora_dropout > 0.0 and generator is not None:
+                # drawn at the full input width, as on one device, then cut
+                shape = (*xs[0].shape[:-1], self.in_features)
+                keep = uniform_rows(xs[0], generator, shape) \
+                    < 1.0 - self.lora_dropout
+            for j, (x, i) in enumerate(zip(xs, tp.parts)):
+                k = None if keep is None else tensor_par.take(
+                    keep, -1, tensor_par.part_ranges(segments, tp.size, i))
+                z = self._dropped(x.to(dt), generator, k) \
+                    @ self._part('lora_a', i).to(dt)
+                partials[j] = torch.cat([partials[j],
+                                         z.to(partials[j].dtype)], dim=-1)
+        y = tp.reduce(partials)
+        if lora:
+            y, z = y.split([self.out_features, self.lora_rank], dim=-1)
+        y = y.to(dt)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        if lora:
+            y = y + z.to(dt) @ self.lora_b.to(dt)
+        return y
+
+
+def shard_outputs(y) -> list:
+    """A layer's output as the list of its shards' outputs (one, the whole
+    output, for a layer that is not column-split)."""
+    return y if isinstance(y, list) else [y]
+
+
+def row_call(layer: LoRADense, parts: list, generator=None) -> torch.Tensor:
+    """``layer`` on the list of its shards' inputs: a row-split layer sums
+    them, an unsplit one takes the one whole input."""
+    if layer.tensor_parallel is not None:
+        return layer(parts, generator)
+    (x,) = parts
+    return layer(x, generator)
+
+
+def whole_output(layer: LoRADense, x: torch.Tensor, generator=None
+                 ) -> torch.Tensor:
+    """``layer(x)`` whole: a column-split layer's shards gathered."""
+    y = layer(x, generator)
+    return layer.tensor_parallel.gather(y) if isinstance(y, list) else y
 
 
 class DropoutRows(list):
@@ -229,24 +404,26 @@ def stream_rows(generator, stream: str):
     return DropoutRows(generator, tokens=streams[stream])
 
 
-def uniform_rows(x: torch.Tensor, generator) -> torch.Tensor:
-    """Uniform draws of ``x``'s shape on its device: from ``generator``, or,
-    given a sequence of generators (one per row, ``flux.dropout_generator``),
-    row i of them from generator i. Where the generators say which tokens
-    of the single-device sequence ``x`` holds (``DropoutRows.tokens``),
-    each row draws the whole sequence, as on one device, and keeps those
-    tokens, so a sequence-parallel rank draws the masks of its tokens."""
+def uniform_rows(x: torch.Tensor, generator, shape=None) -> torch.Tensor:
+    """Uniform draws of ``shape`` (``x``'s by default) on ``x``'s device:
+    from ``generator``, or, given a sequence of generators (one per row,
+    ``flux.dropout_generator``), row i of them from generator i. Where the
+    generators say which tokens of the single-device sequence ``x`` holds
+    (``DropoutRows.tokens``), each row draws the whole sequence, as on one
+    device, and keeps those tokens, so a sequence-parallel rank draws the
+    masks of its tokens."""
+    shape = tuple(x.shape if shape is None else shape)
     if isinstance(generator, torch.Generator):
-        return torch.rand(x.shape, generator=generator, device=x.device)
-    if len(generator) != x.shape[0]:
+        return torch.rand(shape, generator=generator, device=x.device)
+    if len(generator) != shape[0]:
         raise ValueError(f'{len(generator)} dropout generators for '
-                         f'{x.shape[0]} rows')
+                         f'{shape[0]} rows')
     tokens = getattr(generator, 'tokens', None)
     if tokens is None:
-        return torch.stack([torch.rand(x.shape[1:], generator=g,
+        return torch.stack([torch.rand(shape[1:], generator=g,
                                        device=x.device) for g in generator])
     index, total = tokens
-    return torch.stack([torch.rand((total, *x.shape[2:]), generator=g,
+    return torch.stack([torch.rand((total, *shape[2:]), generator=g,
                                    device=x.device).index_select(0, index)
                         for g in generator])
 
@@ -297,31 +474,44 @@ def layer_norm_no_affine(x: torch.Tensor) -> torch.Tensor:
     return F.layer_norm(x.float(), (x.shape[-1],), eps=1e-6).to(x.dtype)
 
 
-class AdaLayerNormZero(nn.Module):
+class _SplitModulation(nn.Module):
+    """An AdaLN whose modulation may be column-split over the ``tensor``
+    axis, its (B, n D) output gathered (JAX ``layers.py:255-286``)."""
+
+    def tensor_plan(self):
+        return {'modulation': ('column',
+                               (self.modulation.out_features,))}, 0
+
+    def _modulation(self, temb: torch.Tensor) -> torch.Tensor:
+        return whole_output(self.modulation, F.silu(temb))
+
+
+class AdaLayerNormZero(_SplitModulation):
     """LN (no affine) + 6-way modulation from temb (shift/scale/gate x2)."""
 
     def __init__(self, dim: int, device=None, dtype=None):
         super().__init__()
         self.modulation = _zero_dense(dim, 6 * dim, device, dtype)
+        self.tensor_parallel = None
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor):
-        mod = self.modulation(F.silu(temb))[:, None]
+        mod = self._modulation(temb)[:, None]
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
             mod.chunk(6, dim=-1)
         h = layer_norm_no_affine(x) * (1 + scale_msa) + shift_msa
         return h, gate_msa, shift_mlp, scale_mlp, gate_mlp
 
 
-class AdaLayerNormZeroSingle(nn.Module):
+class AdaLayerNormZeroSingle(_SplitModulation):
     """LN (no affine) + 3-way modulation (shift/scale/gate)."""
 
     def __init__(self, dim: int, device=None, dtype=None):
         super().__init__()
         self.modulation = _zero_dense(dim, 3 * dim, device, dtype)
+        self.tensor_parallel = None
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor):
-        shift, scale, gate = self.modulation(F.silu(temb))[:, None].chunk(
-            3, dim=-1)
+        shift, scale, gate = self._modulation(temb)[:, None].chunk(3, dim=-1)
         return layer_norm_no_affine(x) * (1 + scale) + shift, gate
 
 
@@ -342,7 +532,9 @@ class FeedForward(nn.Module):
     """gelu(tanh) MLP, dim -> mult*dim -> dim (diffusers FeedForward).
     ``moe_experts`` > 0 swaps in the expert-choice ``MoEFeedForward``
     under a ``moe`` child (JAX ``layers.py:303-333``), which takes no LoRA
-    and no dropout, as in JAX."""
+    and no dropout, as in JAX. Over the ``tensor`` axis ``in_proj`` is
+    column- and ``out_proj`` row-split (F / t hidden units a shard); MoE
+    blocks there are refused (``parallel/tensor.py``)."""
 
     def __init__(self, dim: int, lora_rank: int = 0, lora_dropout: float = 0.0,
                  moe_experts: int = 0, moe_capacity_factor: float = 1.0,
@@ -353,17 +545,29 @@ class FeedForward(nn.Module):
                                       mult=mult, device=device, dtype=dtype)
             return
         self.moe = None
+        self.tensor_parallel = None
         kw = dict(lora_rank=lora_rank, lora_dropout=lora_dropout,
                   device=device, dtype=dtype)
         self.in_proj = LoRADense(dim, mult * dim, **kw)
         self.out_proj = LoRADense(mult * dim, dim, **kw)
 
+    def tensor_plan(self):
+        if self.moe is not None:
+            raise NotImplementedError(
+                f'MoE blocks under the tensor axis (JAX\'s experts_hidden '
+                f'split) are not ported yet (ROADMAP.md queue A item '
+                f'{tensor_par.MOE_UNDER_TENSOR})')
+        hidden = (self.in_proj.out_features,)
+        return {'in_proj': ('column', hidden),
+                'out_proj': ('row', hidden)}, 0
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.moe is not None:
             return self.moe(x)
-        h = F.gelu(self.in_proj(x, generator), approximate='tanh')
-        return self.out_proj(h, generator)
+        h = [F.gelu(p, approximate='tanh')
+             for p in shard_outputs(self.in_proj(x, generator))]
+        return row_call(self.out_proj, h, generator)
 
 
 def _lecun_normal_fan_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
@@ -561,13 +765,16 @@ def _attention_one_device(q, k, v, kv_valid):
 
 class JointAttention(nn.Module):
     """FLUX dual-stream joint attention: separate qkv per stream, per-head
-    q/k RMSNorm per stream before the [txt, img] concat, RoPE after it."""
+    q/k RMSNorm per stream before the [txt, img] concat, RoPE after it.
+    Over the ``tensor`` axis (``tensor_parallel``) each shard runs H / t
+    heads: q / k / v column-split, the out projections row-split."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
                  lora_rank: int = 0, device=None, dtype=None):
         super().__init__()
         self.num_heads, self.head_dim = num_heads, head_dim
         self.sequence_parallel = None
+        self.tensor_parallel = None
         inner = num_heads * head_dim
         kw = dict(lora_rank=lora_rank, device=device, dtype=dtype)
         for s in ('img', 'txt'):
@@ -578,36 +785,52 @@ class JointAttention(nn.Module):
                                 RMSNorm(head_dim, device=device, dtype=dtype))
             self.add_module(f'{s}_out', LoRADense(inner, dim, **kw))
 
+    def tensor_plan(self):
+        inner = (self.num_heads * self.head_dim,)
+        plan = {f'{s}_{p}': ('column', inner)
+                for s in ('img', 'txt') for p in ('q', 'k', 'v')}
+        plan.update({f'{s}_out': ('row', inner) for s in ('img', 'txt')})
+        return plan, self.num_heads
+
     def forward(self, img: torch.Tensor, txt: torch.Tensor,
                 rope: Tuple[torch.Tensor, torch.Tensor],
                 mask: Optional[torch.Tensor] = None):
         b, s_img, _ = img.shape
         s_txt = txt.shape[1]
 
-        def heads(x, name):
-            return getattr(self, name)(x).reshape(
-                b, x.shape[1], self.num_heads, self.head_dim)
+        def heads(x, name, norm=None):
+            parts = shard_outputs(getattr(self, name)(x))
+            parts = [p.reshape(b, x.shape[1], -1, self.head_dim)
+                     for p in parts]
+            return parts if norm is None else \
+                [getattr(self, norm)(p) for p in parts]
 
-        q_i = self.img_q_norm(heads(img, 'img_q'))
-        k_i = self.img_k_norm(heads(img, 'img_k'))
+        q_i = heads(img, 'img_q', 'img_q_norm')
+        k_i = heads(img, 'img_k', 'img_k_norm')
         v_i = heads(img, 'img_v')
-        q_t = self.txt_q_norm(heads(txt, 'txt_q'))
-        k_t = self.txt_k_norm(heads(txt, 'txt_k'))
+        q_t = heads(txt, 'txt_q', 'txt_q_norm')
+        k_t = heads(txt, 'txt_k', 'txt_k_norm')
         v_t = heads(txt, 'txt_v')
 
-        # joint sequence: [txt, img]
+        # joint sequence: [txt, img]; one attention per head shard
         cos, sin = (r[None, :, None, :] for r in rope)
-        q = apply_rope(torch.cat([q_t, q_i], dim=1), cos, sin)
-        k = apply_rope(torch.cat([k_t, k_i], dim=1), cos, sin)
-        v = torch.cat([v_t, v_i], dim=1)
-        out = attention(q, k, v, mask=mask, sp=self.sequence_parallel
-                        ).reshape(b, s_txt + s_img, -1)
-        return self.img_out(out[:, s_txt:]), self.txt_out(out[:, :s_txt])
+        outs = []
+        for j in range(len(q_i)):
+            q = apply_rope(torch.cat([q_t[j], q_i[j]], dim=1), cos, sin)
+            k = apply_rope(torch.cat([k_t[j], k_i[j]], dim=1), cos, sin)
+            v = torch.cat([v_t[j], v_i[j]], dim=1)
+            outs.append(attention(q, k, v, mask=mask,
+                                  sp=self.sequence_parallel
+                                  ).reshape(b, s_txt + s_img, -1))
+        return (row_call(self.img_out, [o[:, s_txt:] for o in outs]),
+                row_call(self.txt_out, [o[:, :s_txt] for o in outs]))
 
 
 class SingleStreamAttention(nn.Module):
     """Attention half of the FLUX single block (no output projection: the
-    block fuses attn + mlp through one proj_out)."""
+    block fuses attn + mlp through one proj_out). Split over the
+    ``tensor`` axis by its block (``FluxSingleBlock.tensor_plan``), it
+    returns the list of its head shards' outputs."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
                  lora_rank: int = 0, device=None, dtype=None):
@@ -624,12 +847,17 @@ class SingleStreamAttention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 rope: Tuple[torch.Tensor, torch.Tensor],
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None):
         b, s, _ = x.shape
-        shape = (b, s, self.num_heads, self.head_dim)
         cos, sin = (r[None, :, None, :] for r in rope)
-        q = apply_rope(self.q_norm(self.q(x).reshape(shape)), cos, sin)
-        k = apply_rope(self.k_norm(self.k(x).reshape(shape)), cos, sin)
-        v = self.v(x).reshape(shape)
-        return attention(q, k, v, mask=mask, sp=self.sequence_parallel
-                         ).reshape(b, s, -1)
+
+        def heads(y):
+            return [p.reshape(b, s, -1, self.head_dim)
+                    for p in shard_outputs(y)]
+
+        qs, ks, vs = heads(self.q(x)), heads(self.k(x)), heads(self.v(x))
+        outs = [attention(apply_rope(self.q_norm(q), cos, sin),
+                          apply_rope(self.k_norm(k), cos, sin), v, mask=mask,
+                          sp=self.sequence_parallel).reshape(b, s, -1)
+                for q, k, v in zip(qs, ks, vs)]
+        return outs if self.q.tensor_parallel is not None else outs[0]

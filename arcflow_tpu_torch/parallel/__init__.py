@@ -9,7 +9,9 @@ axis serves in its ring and Ulysses layouts
 (``arcflow_tpu/parallel/ring_attention.py``). The ``pipe`` axis runs the
 block stacks as pipelines (``pipeline.py``, JAX ``parallel/pipeline.py``)
 and the ``expert`` axis splits the MoE experts (``expert.py``);
-``model_parallel.py`` places a model on both."""
+``model_parallel.py`` places a model on both. The ``tensor`` axis splits
+the blocks Megatron-style (``tensor.py``: ``LocalTensor`` in one process,
+``TensorGroup`` over the mesh's tensor group)."""
 from .fsdp import shard_model
 from .expert import ExpertParallel
 from .launch import spawn
@@ -18,9 +20,12 @@ from .mesh import (SequenceParallel, batch_axes, make_mesh,
 from .model_parallel import partition_model
 from .pipeline import LocalPipe, PipeGroup, pipeline_run, set_pipe
 from .ring_attention import LocalRing, ring_attention, ring_partition
+from .tensor import (LocalTensor, TensorGroup, partition_tensor,
+                     set_tensor_parallel)
 
-__all__ = ['ExpertParallel', 'LocalPipe', 'LocalRing', 'PipeGroup',
-           'SequenceParallel', 'batch_axes', 'make_mesh', 'partition_model',
+__all__ = ['ExpertParallel', 'LocalPipe', 'LocalRing', 'LocalTensor',
+           'PipeGroup', 'SequenceParallel', 'TensorGroup', 'batch_axes',
+           'make_mesh', 'partition_model', 'partition_tensor',
            'pipeline_run', 'ring_attention', 'ring_partition', 'set_pipe',
-           'set_sequence_parallel', 'setup_distributed', 'shard_model',
-           'spawn']
+           'set_sequence_parallel', 'set_tensor_parallel',
+           'setup_distributed', 'shard_model', 'spawn']

@@ -118,8 +118,15 @@ class _LossRoot(nn.Module):
 
 def fsdp_mesh(mesh):
     """FSDP2's 2-D (replicate, shard) mesh for ``make_mesh``'s mesh: the
-    ('data', 'fsdp') mesh itself, or for a ('data', 'fsdp', 'sp') mesh one
-    whose replicated dimension ('data_sp') runs over data x sp."""
+    ('data', 'fsdp') mesh itself; for a ('data', 'fsdp', 'sp') mesh one
+    whose replicated dimension ('data_sp') runs over data x sp; for a
+    ('data', 'fsdp', 'tensor') mesh the ('data', 'fsdp') mesh of this
+    rank's tensor coordinate, since the ranks at different tensor
+    coordinates hold different parts (``parallel/tensor.py``): an fsdp
+    shard is a shard of this rank's tensor part, as JAX's combined TP +
+    ZeRO-3 spec has it."""
+    if 'tensor' in mesh.mesh_dim_names:
+        return mesh['data', 'fsdp']
     if 'sp' not in mesh.mesh_dim_names:
         return mesh
     d, f, n = mesh.mesh.shape

@@ -22,8 +22,9 @@ inverse collective (the gather's a reduce-scatter). The ``pipe`` and
 ``fsdp``; their placement rules (``param_spec_for_path`` 183-207,
 ``stacked_param_spec`` 320-343, ``moe_param_spec`` 346-372) are ported
 here on JAX-layout shapes, and ``parallel/model_parallel.py`` places the
-port's modules by them. The ``tensor`` axis waits for its slice
-(ROADMAP.md queue A item 5.2).
+port's modules by them. The ``tensor`` axis is a dimension of the training
+mesh beside ``data`` / ``fsdp``, or in serving an axis alone or beside
+``sp``; ``parallel/tensor.py`` splits the blocks over it.
 """
 
 from __future__ import annotations
@@ -45,14 +46,15 @@ SP_MODES = ('ring', 'ulysses')
 TRAIN_AXES = ('data', 'fsdp')
 # the model-parallel axes: the ranks along them hold the same rows
 MODEL_AXES = ('pipe', 'expert')
-# a training mesh's dimensions, in this order; pipe, expert and sp are
-# dimensions of it only where their size is above 1
-MESH_AXES = TRAIN_AXES + MODEL_AXES + ('sp',)
-# axes of the JAX mesh that wait for their slice, with the ROADMAP.md
-# queue A item that ports each
-WAITING_AXES = {'tensor': '5.2'}
+# a training mesh's dimensions, in this order; pipe, expert, sp and tensor
+# are dimensions of it only where their size is above 1
+MESH_AXES = TRAIN_AXES + MODEL_AXES + ('sp', 'tensor')
+# the axes a serving mesh takes
+SERVING_AXES = ('sp', 'tensor')
 # compositions of axes that wait, with their ROADMAP.md queue A item
 SP_WITH_MODEL_AXES = '5.8'
+TENSOR_WITH_SP_TRAINING = '5.11'
+TENSOR_WITH_MODEL_AXES = '5.12'
 
 
 def setup_distributed(device: Optional[str] = None, timeout: float = 600.0
@@ -142,27 +144,40 @@ def make_mesh(axes: Dict[str, int],
       'expert'), the ranks in JAX's device order as above: the ranks along
       ``pipe`` and ``expert`` hold the same rows (``batch_axes``); the
       stages and experts they hold are ``parallel/model_parallel.py``'s.
+    * ``'tensor': t`` beside ``data`` / ``fsdp`` -> a 3-D ``DeviceMesh``
+      ('data', 'fsdp', 'tensor') in JAX's device order: the ranks of one
+      tensor group hold the same rows and split the blocks
+      (``parallel/tensor.py``).
+    * ``{'tensor': t}`` or ``{'sp': s, 'tensor': t}`` (serving) -> {axis:
+      this rank's process group along it (None for size 1)}, the ranks in
+      JAX's device order over the sizes in the order given.
 
-    The ``tensor`` axis raises ``NotImplementedError``, naming the ROADMAP
-    item that ports it, and so does ``sp`` beside ``pipe`` or ``expert``
-    (item 5.8)."""
-    waiting = sorted(set(axes) & set(WAITING_AXES))
-    if waiting:
-        raise NotImplementedError(
-            f'mesh axes {waiting} are not ported yet (ROADMAP A12, now '
-            f'ROADMAP.md queue A item '
-            f'{", ".join(WAITING_AXES[a] for a in waiting)}); the port takes '
-            f'data, fsdp, pipe, expert and sp')
+    ``sp`` beside ``pipe`` or ``expert`` raises ``NotImplementedError``
+    naming its ROADMAP.md item (5.8), as do ``tensor`` beside ``sp`` in a
+    training mesh (5.11) and ``tensor`` beside ``pipe`` or ``expert``
+    (5.12)."""
     model_axes = sorted(set(axes) & set(MODEL_AXES))
     if 'sp' in axes and model_axes:
         raise NotImplementedError(
             f'mesh axes {model_axes} beside \'sp\' are not ported yet '
             f'(ROADMAP.md queue A item {SP_WITH_MODEL_AXES}): the port '
             f'trains sp beside data and fsdp only')
+    if 'tensor' in axes and model_axes:
+        raise NotImplementedError(
+            f'mesh axes {model_axes} beside \'tensor\' are not ported yet '
+            f'(ROADMAP.md queue A item {TENSOR_WITH_MODEL_AXES})')
+    if {'sp', 'tensor'} <= set(axes) and set(axes) - set(SERVING_AXES):
+        raise NotImplementedError(
+            f'mesh axes [\'sp\', \'tensor\'] together in a training mesh '
+            f'are not ported yet (ROADMAP.md queue A item '
+            f'{TENSOR_WITH_SP_TRAINING}): training takes tensor beside data '
+            f'and fsdp, serving takes sp x tensor')
     unknown = sorted(set(axes) - set(MESH_AXES))
     if unknown:
         raise ValueError(f'unknown mesh axes {unknown}')
     world = dist.get_world_size() if dist.is_initialized() else 1
+    if 'tensor' in axes and set(axes) <= set(SERVING_AXES):
+        return serving_mesh(axes, world)
     if set(axes) <= {'sp'}:
         n = axes.get('sp', 1)
         n = world if n == -1 else n
@@ -171,7 +186,7 @@ def make_mesh(axes: Dict[str, int],
                              f'start them with setup_distributed')
         return {'sp': dist.group.WORLD if dist.is_initialized() else None}
     sizes = mesh_shape(axes, world, dcn_axes)
-    for a in MODEL_AXES + ('sp',):
+    for a in MESH_AXES[2:]:
         if sizes.get(a, 1) == 1:
             sizes.pop(a, None)
     if not dist.is_initialized():
@@ -182,10 +197,26 @@ def make_mesh(axes: Dict[str, int],
                       mesh_dim_names=mesh_axes(sizes))
 
 
+def serving_mesh(axes: Dict[str, int], world: int) -> Dict[str, object]:
+    """``make_mesh``'s serving form with ``tensor``: {axis: this rank's
+    group along it, None for an axis of size 1}. Rank r sits where JAX
+    puts device r: the ranks reshaped to the sizes in the order ``axes``
+    names them, so at ``{'sp': s, 'tensor': t}`` a tensor group is t
+    consecutive ranks."""
+    sizes = mesh_shape(axes, world)
+    if world == 1:
+        return {a: None for a in sizes}
+    device_type = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+    dm = DeviceMesh(device_type,
+                    torch.arange(world).reshape(tuple(sizes.values())),
+                    mesh_dim_names=tuple(sizes))
+    return {a: dm.get_group(a) if n > 1 else None for a, n in sizes.items()}
+
+
 def mesh_axes(sizes) -> Tuple[str, ...]:
     """The dimensions of the training mesh of ``sizes``: ('data', 'fsdp'),
-    then those of 'pipe', 'expert' and 'sp' that are axes of them, in that
-    order."""
+    then those of 'pipe', 'expert', 'sp' and 'tensor' that are axes of
+    them, in that order."""
     return TRAIN_AXES + tuple(a for a in MESH_AXES[2:] if a in sizes)
 
 
@@ -205,16 +236,16 @@ def mesh_ranks(sizes: Dict[str, int]) -> torch.Tensor:
 def batch_axes(mesh) -> Tuple[str, ...]:
     """The mesh axes the batch is split over: ``data`` and ``fsdp`` (JAX
     ``batch_axes``: FSDP ranks hold different parameter shards and see
-    different rows too); the ranks along ``pipe``, ``expert`` and ``sp``
-    hold the same rows."""
+    different rows too); the ranks along ``pipe``, ``expert``, ``sp`` and
+    ``tensor`` hold the same rows."""
     return tuple(a for a in TRAIN_AXES if a in mesh.mesh_dim_names)
 
 
 def batch_order(mesh) -> Sequence[int]:
     """The ranks in the order of the rows they hold: the (data, fsdp)
     grid read row by row, as JAX lays out ``P(('data', 'fsdp'))``; of each
-    group along ``pipe``, ``expert`` and ``sp`` (which holds the same rows)
-    its first rank."""
+    group along ``pipe``, ``expert``, ``sp`` and ``tensor`` (which holds
+    the same rows) its first rank."""
     grid = mesh.mesh
     return grid.reshape(grid.shape[0], grid.shape[1], -1)[..., 0] \
         .flatten().tolist()
@@ -223,8 +254,8 @@ def batch_order(mesh) -> Sequence[int]:
 def batch_ranks(mesh) -> Tuple[int, int]:
     """(this rank's index among the batch ranks, their count): its rows
     of a global batch of n x b are [index x b, (index + 1) x b). Every
-    rank of a group along ``pipe``, ``expert`` or ``sp`` has its group's
-    index."""
+    rank of a group along ``pipe``, ``expert``, ``sp`` or ``tensor`` has
+    its group's index."""
     order = batch_order(mesh)
     d, f = mesh.get_coordinate()[:2]
     return order.index(int(mesh.mesh[d, f].flatten()[0])), len(order)

@@ -12,8 +12,8 @@ layout (``shard``) state of its trunk and attention modules; there is no
 process-wide serving, quantization or mesh flag. ``from_pretrained`` reads
 diffusers folders (a transformer folder, local or behind a remote URI of
 ``utils/io_utils``, or a whole local pipeline folder with
-``model_index.json``); the mesh axes other than ``sp`` wait for their
-slice.
+``model_index.json``); ``shard`` serves over ``sp`` and ``tensor``, the
+other mesh axes wait for their slice.
 """
 
 from __future__ import annotations
@@ -314,34 +314,55 @@ class ArcFluxPipeline:
 
     def shard(self, mesh_axes: Dict[str, int], sp_mode: str = 'ulysses',
               min_size: Optional[int] = None):
-        """Serve one image across the ranks of a sequence-parallel group:
-        ``mesh_axes={'sp': n}`` over the n processes started with
-        ``parallel.setup_distributed`` (JAX ``shard``, lines 349-391, same
-        default mode). Each rank keeps its shard of the image and text
-        tokens; attention runs in ``sp_mode`` 'ulysses' (all-to-all to head
-        shards, heads % n == 0) or 'ring' (K/V blocks rotate, one K4 hop per
-        block). The weights stay replicated and the VAE decodes on every
-        rank. Call it after quantizing; then every rank calls
-        ``__call__`` with the same ``latents`` or generator seed and gets
-        the same images. Other axes raise, and so does ``min_size`` (JAX's
-        smallest array the weight-sharding axes cut: ``sp`` cuts none).
-        Returns the mesh ({'sp': process group})."""
-        if min_size is not None:
-            raise NotImplementedError(
-                'min_size sizes weight sharding, which in serving waits for '
-                'its slice (ROADMAP A12, now ROADMAP.md queue A item 5.6): '
-                'with sp alone the weights stay replicated')
-        other = sorted(set(mesh_axes) - {'sp'})
+        """Serve one image across the ranks of a mesh of ``sp`` and / or
+        ``tensor`` (JAX ``shard``, lines 349-391: ``pipe.shard({'sp': 4,
+        'tensor': 2})``), over the processes started with
+        ``parallel.setup_distributed``, the ranks in JAX's device order
+        (``parallel.mesh.make_mesh``).
+
+        * ``sp``: each rank keeps its shard of the image and text tokens;
+          attention runs in ``sp_mode`` 'ulysses' (all-to-all to head
+          shards; the heads a rank holds must divide by sp) or 'ring' (K/V
+          blocks rotate, one K4 hop per block);
+        * ``tensor``: the blocks are split Megatron-style over each tensor
+          group (``parallel/tensor.py``): each rank holds H / t heads and
+          F / t hidden units of every split layer, and 1 / t of its
+          weights. A unit whose layers hold fewer than ``min_size`` weight
+          elements (JAX's default 2^16) stays whole, as JAX's rule keeps
+          such a leaf replicated. The embedders, heads and VAE stay whole.
+
+        Call it after quantizing (a quantized layer is split, never
+        re-quantized), once. Then every rank calls ``__call__`` with the
+        same ``latents`` or generator seed and gets the same images. The
+        axes that shard weights over ranks by another rule (``fsdp``,
+        ``pipe``, ``expert``, ``data``) wait for ROADMAP.md queue A item
+        5.6. Returns the mesh ({axis: process group}).
+        """
+        from ..models.layers import JointAttention
+        from ..parallel.tensor import (TensorGroup, check_ulysses_heads,
+                                       set_tensor_parallel)
+        other = sorted(set(mesh_axes) - {'sp', 'tensor'})
         if other:
             raise NotImplementedError(
-                f'mesh axes {other}: serving takes only sp; weight sharding '
-                f'in serving waits for ROADMAP.md queue A item 5.6 (training '
-                f'takes data and fsdp)')
+                f'mesh axes {other}: serving takes only sp and tensor; '
+                f'weight sharding over fsdp, pipe or expert in serving '
+                f'waits for ROADMAP.md queue A item 5.6 (training takes '
+                f'them)')
+        if any(getattr(m, 'tensor_split', None) is not None
+               for m in self.transformer.modules()):
+            raise ValueError('the transformer is split over tensor already')
         mesh = make_mesh(dict(mesh_axes))
-        group = mesh['sp']
-        sp = None
-        if group is not None and group.size() > 1:
-            sp = SequenceParallel(group, sp_mode)
+        group, tgroup = mesh.get('sp'), mesh.get('tensor')
+        sp = SequenceParallel(group, sp_mode) \
+            if group is not None and group.size() > 1 else None
+        tp = TensorGroup(tgroup) if tgroup is not None else None
+        if sp is not None and tp is not None and sp_mode == 'ulysses':
+            heads = next(m.num_heads for m in self.transformer.modules()
+                         if isinstance(m, JointAttention))
+            check_ulysses_heads(heads, tp.size, sp.size)
+        if tp is not None:
+            set_tensor_parallel(self.transformer, tp,
+                                2 ** 16 if min_size is None else min_size)
         set_sequence_parallel(self.transformer, sp)
         return mesh
 

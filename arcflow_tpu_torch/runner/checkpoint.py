@@ -41,7 +41,11 @@ to the host and writes; ``restore`` loads the full tensors on every rank
 and copies each rank's shard into its live tensor. On a model placed on
 ``pipe`` / ``expert`` axes (``parallel/model_parallel.py``) the holders of
 each stage's blocks and each rank's experts send them to rank 0, and a
-restore keeps each rank's part. Rank 0 alone makes,
+restore keeps each rank's part; on a model split over ``tensor``
+(``parallel/tensor.py:TensorPlacement``) a split tensor's parts are
+gathered over its tensor group (each an FSDP2 gather first) and put back
+in the one-device layout, and a restore cuts each rank's part, then its
+fsdp shard. Rank 0 alone makes,
 cleans and prunes the directory; the ranks meet at a barrier before each
 save, after the last and before a restore, so they see one directory.
 """
@@ -210,16 +214,13 @@ def _shard_optimizer_state(sd: dict, tx: torch.optim.Optimizer, mp=None,
     params = [p for g in tx.param_groups for p in g['params']]
     for i, st in sd['state'].items():
         p = params[int(i)]
-        if mp is not None:
-            name = names[int(i)]
-            for k, v in st.items():
-                if isinstance(v, torch.Tensor) and v.dim() > 0:
-                    st[k] = mp.local_part(name, v).to(p.device)
-            continue
-        if not is_sharded(p):
-            continue
         for k, v in st.items():
-            if isinstance(v, torch.Tensor) and v.shape == p.shape:
+            if not isinstance(v, torch.Tensor) or v.dim() == 0:
+                continue
+            if mp is not None:
+                v = st[k] = mp.local_part(names[int(i)], v).to(
+                    local(p).device)
+            if is_sharded(p) and v.shape == p.shape:
                 st[k] = DTensor.from_local(
                     shard_of(v, p).to(local(p).device), p.device_mesh,
                     p.placements, run_check=False, shape=p.shape,
@@ -425,8 +426,9 @@ class CheckpointManager:
                                        f'other tensors than the live state')
                     for n, t in sub.items():
                         full = saved[k][n]
-                        local(t).copy_(shard_of(full, t) if mp is None
-                                       else mp.local_part(n, full))
+                        if mp is not None:
+                            full = mp.local_part(n, full)
+                        local(t).copy_(shard_of(full, t))
         for k, tx in state.optimizers.items():
             tx.load_state_dict(_shard_optimizer_state(
                 raw['optimizers'][k], tx, mp,

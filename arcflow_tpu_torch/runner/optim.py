@@ -82,12 +82,13 @@ def global_norm(tensors: List[torch.Tensor], counted=None) -> torch.Tensor:
     ``data``): the squared norms of this rank's shards summed over the
     ``fsdp`` group in one all-reduce, the same value on every rank. With
     ``counted`` (a mask over ``tensors`` and a process group: a model
-    placed on ``pipe`` / ``expert`` axes, ``parallel/model_parallel.py``):
-    the squared norms of the tensors this rank counts, summed over the
-    group."""
+    placed on ``pipe`` / ``expert`` axes, ``parallel/model_parallel.py``,
+    or split over ``tensor``, ``parallel/tensor.py``): the squared norms
+    of the tensors this rank counts (of its shards of them, under FSDP2),
+    summed over the group."""
     if counted is not None:
         mask, group = counted
-        sq = torch.stack([torch.linalg.vector_norm(t.float()) ** 2
+        sq = torch.stack([torch.linalg.vector_norm(local(t).float()) ** 2
                           for t, c in zip(tensors, mask) if c]
                          or [tensors[0].new_zeros((), dtype=torch.float32)]
                          ).sum()

@@ -26,7 +26,12 @@ the last chunk (``parallel.fsdp.gradient_sync``). On a mesh with ``pipe``
 or ``expert`` axes (the model placed by ``parallel.model_parallel.
 partition_model``, no FSDP2) the ranks along them hold the same rows; the
 gradients are averaged over ``data`` once, after the last chunk, and the
-norm counts every stage's and expert's tensors once.
+norm counts every stage's and expert's tensors once. On a mesh with a
+``tensor`` axis (``parallel/tensor.py:partition_tensor``, then FSDP2 over
+each tensor coordinate's data x fsdp mesh) the ranks of a tensor group hold
+the same rows, FSDP2 averages the gradients over data x fsdp only, and the
+norm sums a split tensor's squares over the group and counts a replicated
+one once.
 """
 
 from __future__ import annotations
@@ -130,7 +135,8 @@ def build_train_step(model, optimizers: Dict[str, torch.optim.Optimizer],
             for i in range(grad_accum_steps):
                 chunk = batch if grad_accum_steps == 1 \
                     else _chunk_batch(batch, grad_accum_steps, i)
-                if mesh is not None and mp is None:
+                if mesh is not None and (mp is None
+                                         or getattr(mp, 'fsdp', False)):
                     gradient_sync(model, i == grad_accum_steps - 1)
                 loss, log_vars = model.loss(chunk, state.generator,
                                             running_status=running_status)

@@ -124,7 +124,9 @@ line each, and any failure exits non-zero:
     the call with its quantization, its plain version, K1 and bf16 SDPA
     timed at the FLUX shape, and the quantization alone, beside both
     kernels' registers and spills;
-23. (after phase 14) the toy stack through the training CLI on the card:
+23. (last, after phase 26, beside phases 32-33's child and the toy
+    validation's process) the toy stack through the training CLI on the
+    card:
     ``python -m arcflow_tpu_torch.train`` in a subprocess on
     ``configs/toy/checkerboard_flow.py``, then on
     ``configs/toy/checkerboard_arcflow_2nfe.py`` with that run's
@@ -149,7 +151,9 @@ line each, and any failure exits non-zero:
     through ``PretrainedQwenImageTextEncoder``; the same checks and split,
     the valid text tokens of the encoder's mask, exactly 120 masked
     attention and 1686 w4a8 launches;
-26. (after phase 23) ``from_pretrained``: diffusers pipeline folders
+26. (after phase 30, beside phases 32-33's child, before 23 and 37)
+    ``from_pretrained``:
+    diffusers pipeline folders
     (``model_index.json``, ``transformer/``, ``vae/``, ``text_encoder*/``,
     ``tokenizer*/``, ``scheduler/``) written at FLUX's and Qwen-Image's
     widths with depth cut (2 joint + 2 single FLUX blocks with LoRA rank
@@ -162,7 +166,7 @@ line each, and any failure exits non-zero:
     arcflow_tpu_torch.inference_flux`` on the FLUX folder in a subprocess,
     which must exit 0 and write a PNG.
 
-27. (after phase 26, last with 28-30) Qwen training at reduced depth (1
+27. (after phase 14, last with 28-30) Qwen training at reduced depth (1
     joint block) and full width:
     ``configs/qwen/arcqwen_2nfe_k16_int8trunk.py`` through
     ``Config`` and ``MODELS`` (int8 frozen trunk, LoRA 256, the teacher's
@@ -275,7 +279,7 @@ Around a training run (PR 15):
     1024x1024 image, bitwise the pipeline's image for the generator it
     seeds; ``python -m arcflow_tpu_torch.tools.validate_toy_e2e`` with its
     own flags, 3000 + 800 iterations, above its 2-NFE bar of 0.5, in a
-    process of its own alongside phase 23; (after phase 23)
+    process of its own alongside phases 28r-30, 26 and 23; (after phase 23)
     ``tools.cache_imagenet_data_sdvae`` on seeded 256^2 images, its
     records read back by ``ImageNet`` as the encoder's latents.
     ``tools.cache_image_prompt_data`` writes zstd records, and the card's
@@ -315,6 +319,40 @@ Around a training run (PR 15):
     (``configs/toy/checkerboard_arcflow_2nfe_moe.py``) trains through the
     CLI beside the dense student from the same teacher and must pass
     ``tests/test_quantized_quality.py``'s bars.
+42. the ``tensor`` split on one card (``parallel/tensor.py``,
+    ``LocalTensor(2)``): 42a (after phase 19) K1, K2 (4480 of 4608 keys)
+    and K3 on one shard's heads at t = 2 and 4 (B1 S4608 H12 and H6) and
+    K5 at Qwen-Image's column and row shard shapes at t = 2, each against
+    its plain version, timed beside its bound and the library call; 42
+    (after phase 18, on phase 6's model) FLUX-12B bf16 with every block
+    split at JAX's default ``min_size`` (171 units): a 2-NFE 1024^2 image
+    with exactly 2 x 57 x 2 K1 launches at H12, its latents against phase
+    6's within TP_IMAGE_REL_L2, s per image and one profiled image; single
+    block 0's row-split ``proj_out`` against the whole layer on the same
+    fused input, and with the planted fault of its rows taken as one
+    contiguous half (not its heads' and hidden units' two segments), which
+    must break TP_PROJ_OUT_REL_L2; 42b (after phase 21) the same model
+    w8a8, its image against the one-device w8a8 image, single block 0's
+    row-parallel w8a8 ``proj_out`` against the whole layer, and with the
+    planted per-shard activation absmax, which must break
+    TP_W8A8_LAYER_REL_L2; 42c (after phase 25, on phase 8's model)
+    Qwen-Image 20B w4a8 (300 units): 2 x 60 x 2 K2 and 2 x (3 + 2 x 840)
+    K5 launches, counted by shape, the image against one device's on the
+    same embeds.
+
+``python3 chip_smoke.py --ranks 4 --tensor-only`` (four cards) serves
+FLUX-12B at ``tensor=4`` and at ``sp=2 x tensor=2`` (Ulysses and ring)
+and Qwen-Image 20B w4a8 at ``tensor=4`` through ``pipe.shard``, each
+rank first making the one-card image of the same weights: the launches
+per rank, every rank's latents bitwise rank 0's and within
+TP_IMAGE_REL_L2 / TP_QUANT_IMAGE_REL_L2 of one card's, the weights a rank
+holds (at most 1.1 / t of the blocks'), s per image, resident and peak
+memory and one profiled image's NCCL share; then trains FLUX-12B through
+``train_model`` with ``tensor_axis='tensor'`` at ``fsdp=2 x tensor=2`` and
+``data=2 x tensor=2`` (phase 31's cuts, 2 iterations) against the
+parent's one-card first iteration on the same 2 rows, in
+``check_pe_ranks``' form, with s per iteration, peaks and the NCCL share
+of one profiled step.
 
 ``python3 chip_smoke.py --ranks 4`` (four cards) instead spawns 4 NCCL
 ranks and serves FLUX-12B through ``pipe.shard({'sp': 4})`` in ring and in
@@ -399,6 +437,7 @@ from arcflow_tpu_torch.parallel import (LocalPipe, LocalRing,
                                         set_pipe, set_sequence_parallel,
                                         setup_distributed, spawn)
 from arcflow_tpu_torch.parallel import mesh as mesh_mod
+from arcflow_tpu_torch.parallel import tensor as tensor_mod
 from arcflow_tpu_torch.parallel.fsdp import is_sharded, local, shard_of
 from arcflow_tpu_torch.parallel.mesh import batch_ranks
 from arcflow_tpu_torch.registry import DATASETS
@@ -2649,7 +2688,15 @@ def mesh_train_config(path, iters, interval, mesh=None, unsharded=False,
 
 
 def host_adapter(state):
-    """The adapter gathered whole to the host."""
+    """The adapter gathered whole to the host; of a model split over
+    ``tensor`` (every rank joining the gathers) on rank 0 alone, in the
+    one-device layout (``TensorPlacement.gather_full``)."""
+    mp = getattr(state, 'model_parallel', None)
+    if isinstance(mp, tensor_mod.TensorPlacement):
+        whole = {n: mp.gather_full(n, p.detach())
+                 for n, p in state.trainable['diffusion'].items()}
+        return {n: t.to('cpu', copy=True) for n, t in whole.items()
+                if t is not None}
     return {n: (p.full_tensor() if is_sharded(p) else p).detach().to(
         'cpu', copy=True) for n, p in state.trainable['diffusion'].items()}
 
@@ -2673,6 +2720,7 @@ class IterLogs(Hook):
         # from here on the peak of training
         self.build_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         torch.cuda.reset_peak_memory_stats()
+        self.names = list(runner.state.trainable['diffusion'])
         if self.keep_first:
             self.adapters.append(host_adapter(runner.state))
 
@@ -2686,7 +2734,7 @@ class IterLogs(Hook):
 
         def spy(grads, iteration, cfg, *rest):
             if self.keep_first and not self.grads:
-                names = list(self.adapters[0])
+                names = self.names
                 self.grads = {
                     names[i]: (g.full_tensor() if is_sharded(g) else g
                                ).detach().to('cpu', copy=True)
@@ -3577,6 +3625,664 @@ def main_pipe_expert(n, smi, out_dir):
         f'{wall:.1f} s (the one-card references, builds and iterations '
         f'included)')
     print(json.dumps({'pipe_expert_train': ranks, 'references': refs}))
+    print(smi)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# the tensor axis: LocalTensor(2) on one card (phases 42-42c), and
+# --ranks 4 --tensor-only
+# ---------------------------------------------------------------------------
+
+TP = 2                     # the LocalTensor shards on one card
+# K1 / K2 / K3 on a shard's heads: the FLUX shape at H24 / t, t = 2 and 4
+TP_HEAD_SHAPES = ((1, 4608, 12, 128), (1, 4608, 6, 128))
+# K5 at Qwen-Image's shard shapes at t = 2 (M 4096 image tokens): the
+# column layers' N / 2 (q / k / v, MLP in) and the row layers' K / 2
+# (attention out, MLP out)
+TP_W4A8_SHAPES = [(4096, 3072, 1536), (4096, 3072, 6144),
+                  (4096, 1536, 3072), (4096, 6144, 3072)]
+# a split's images against one device's: the partial sums round in another
+# place, what the ring's merges do (SP_IMAGE_REL_L2), and w8a8 / w4a8 carry
+# that through their per-token re-rounding (W8A8_SLICE_REL_L2)
+TP_IMAGE_REL_L2 = SP_IMAGE_REL_L2
+TP_QUANT_IMAGE_REL_L2 = W8A8_SLICE_REL_L2
+# a single block's row-split proj_out inside the block against the whole
+# layer on the same input: its bf16 partial sums round twice (a few 1e-3);
+# proj_out rows taken as one contiguous 1/t (the planted fault) are other
+# weights, an error of order 1
+TP_PROJ_OUT_REL_L2 = 1e-2
+# a row-parallel w8a8 layer: the sound split sums fp32 partials of the same
+# int8 products (a few bf16 ties apart); per-shard absmax (the planted
+# fault) re-quantizes half the row, about 1.6e-2 at this input's halves
+TP_W8A8_LAYER_REL_L2 = 2e-3
+
+
+def tensor_kernel_case(g, shape, backward=False, valid_keys=None):
+    """K1 (K2 with ``valid_keys``) or K3 on a shard's heads against its
+    plain version, timed beside its bound and SDPA's."""
+    q, k, v, do = (torch.randn(shape, generator=g, device='cuda',
+                               dtype=torch.bfloat16) for _ in range(4))
+    kv_valid = None if valid_keys is None else \
+        torch.arange(shape[1], device='cuda')[None, :] < valid_keys
+    if not backward:
+        out = attn.flash_attention_fwd(q, k, v, kv_valid)
+        torch.cuda.synchronize()
+        ref = attn.attention_ref(q, k, v, kv_valid)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=O_TOL,
+                                   atol=O_TOL)
+        err = (out.float() - ref.float()).abs().max().item()
+        ms = cuda_ms(lambda: attn.flash_attention_fwd(q, k, v, kv_valid), 20)
+        plain_ms = cuda_ms(lambda: attn.attention_ref(q, k, v, kv_valid), 5)
+        with torch.inference_mode():
+            library_ms = cuda_ms(lambda: sdpa(q, k, v, kv_valid), 20)
+    else:
+        o, lse = attn.flash_attention_fwd(q, k, v, kv_valid, return_lse=True)
+        got = attn.flash_attention_bwd(q, k, v, o, do, lse, kv_valid)
+        torch.cuda.synchronize()
+        want = attn.attention_bwd_ref(q, k, v, o, do, lse, kv_valid)
+        rels = [rel_l2(x, y) for x, y in zip(got, want)]
+        if max(rels) > BWD_REL_L2:
+            raise AssertionError(f'K3 at {shape}: rel L2 dq/dk/dv {rels} > '
+                                 f'{BWD_REL_L2}')
+        err = max((x.float() - y.float()).abs().max().item()
+                  for x, y in zip(got, want))
+        ms = cuda_ms(lambda: attn.flash_attention_bwd(q, k, v, o, do, lse,
+                                                      kv_valid), 10)
+        plain_ms = cuda_ms(lambda: attn.attention_bwd_ref(
+            q, k, v, o, do, lse, kv_valid), 3)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = sdpa(*leaves, kv_valid)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), 10)
+    bound_ms, bound_by = attention_bound(shape, valid_keys, backward)
+    return dict(shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                valid_keys=valid_keys)
+
+
+def phase_tensor_kernels():
+    """Phase 42a: K1, K2 and K3 on the heads of one shard at t = 2 and 4,
+    and K5 at Qwen-Image's column and row shard shapes at t = 2, each
+    against its plain version, timed beside its bound (and the library
+    call where there is one)."""
+    g = torch.Generator(device='cuda').manual_seed(SEED + 42)
+    out = dict(attention_fwd=[], attention_masked=[], attention_bwd=[],
+               w4a8_matmul=[])
+    for shape in TP_HEAD_SHAPES:
+        out['attention_fwd'].append(tensor_kernel_case(g, shape))
+        out['attention_masked'].append(tensor_kernel_case(
+            g, shape, valid_keys=QWEN_VALID_KEYS))
+        out['attention_bwd'].append(tensor_kernel_case(g, shape,
+                                                       backward=True))
+        gc.collect()
+        torch.cuda.empty_cache()
+    for m, k, n in TP_W4A8_SHAPES:
+        xq, q, packed, scale = w4a8_case(g, m, k, n)
+        err, _ = w4a8_check(xq, q, packed, scale)
+        xs = 0.001 + 0.01 * torch.rand(m, 1, generator=g, device='cuda')
+
+        def fused():     # the form the Qwen path launches (_int4_matmul)
+            return qmm.w4a8_matmul(xq, packed, scale, row_scale=xs,
+                                   out_dtype=torch.bfloat16)
+        bound_ms, bound_by = roofline(
+            2 * m * k * n,
+            m * k + k * n // 2 + scale.numel() * 4 + m * 4 + m * n * 2,
+            H100_INT8)
+        out['w4a8_matmul'].append(dict(
+            shape=[m, k, n], max_abs_err=err,
+            ms=kernel_ms(fused, 'w4a8_matmul', 10),
+            plain_ms=cuda_ms(lambda: qmm.w4a8_matmul_ref(
+                xq, packed, scale, xs, torch.bfloat16), 3),
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+    log('phase 42a kernels on tensor shards vs plain: ok | ' + ' ; '.join(
+        f'{name} {"x".join(map(str, c["shape"]))}'
+        f'{"" if not c.get("valid_keys") else f" ({c["valid_keys"]} keys)"}:'
+        f' max|d| {c["max_abs_err"]:.3e}, kernel {c["ms"]:.4f} ms, plain '
+        f'{c["plain_ms"]:.4f} ms, '
+        + (f'library {c["library_ms"]:.4f} ms, ' if c['library_ms'] else '')
+        + f'bound {c["bound_ms"]:.4f} ms ({c["bound_by"]}, '
+        f'{100 * c["bound_ms"] / c["ms"]:.1f}% of it)'
+        for name, cases in out.items() for c in cases))
+    return out
+
+
+def proj_out_reading(block, x, rope, temb):
+    """rel L2 of a ``LocalTensor``-split single block's ``proj_out`` output
+    inside one call of the block against the whole layer on the same
+    fused input (its shards' parts put back in the one-device order)."""
+    layer, seen = block.proj_out, {}
+    split = layer.forward
+
+    def spy(parts, generator=None):
+        seen['parts'], seen['out'] = parts, split(parts, generator)
+        return seen['out']
+    with torch.inference_mode(), mock.patch.object(layer, 'forward', spy):
+        block(x, rope, temb)
+        whole = F.linear(tensor_mod.put(seen['parts'], -1,
+                                        layer.tensor_split[1]),
+                         layer.weight, layer.bias)
+    return rel_l2(seen['out'], whole)
+
+
+def contiguous_rows(segments, size, i):
+    """The planted fault: shard i's rows as one contiguous 1/size of all
+    rows, not its part of each segment."""
+    n = sum(segments) // size
+    return [(i * n, n)]
+
+
+def phase_flux_local_tensor(pipe, embeds, latents, lat_single, t_single):
+    """Phase 42: FLUX-12B (phase 6's model) on ``LocalTensor(TP)``: every
+    block's heads, MLP and modulations split (JAX's min_size), each shard's
+    attention on H / t heads through K1; the image against phase 6's, and
+    the planted contiguous-rows fault in a single block's proj_out."""
+    model = pipe.transformer
+    block = model.single_blocks[0]
+    g = torch.Generator(device='cuda').manual_seed(SEED + 43)
+    x = torch.randn(1, FLUX_SHAPE[1], model.inner_dim, generator=g,
+                    device='cuda', dtype=torch.bfloat16)
+    temb = torch.randn(1, model.inner_dim, generator=g, device='cuda',
+                       dtype=torch.bfloat16)
+    ids = torch.randint(0, 64, (FLUX_SHAPE[1], 3), generator=g,
+                        device='cuda')
+    rope = layers.rope_frequencies(ids, model.axes_dims_rope)
+    units = tensor_mod.set_tensor_parallel(model, tensor_mod.LocalTensor(TP))
+    try:
+        _, t_cold = timed_call(pipe, embeds, latents, output_type='pt')
+        torch.cuda.reset_peak_memory_stats()
+        attn.LAUNCHES = 0                   # the main path's counted run
+        out, t_e2e = timed_call(pipe, embeds, latents, output_type='pt')
+        launches = attn.LAUNCHES
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        lat = timed_call(pipe, embeds, latents,
+                         output_type='latent')[0]['latents']
+        wall, busy, _ = profile_split(
+            lambda: pipe(prompt_embeds=embeds, latents=latents,
+                         output_type='pt'))
+        sound = proj_out_reading(block, x, rope, temb)
+        with mock.patch.object(tensor_mod, 'part_ranges', contiguous_rows):
+            planted = proj_out_reading(block, x, rope, temb)
+    finally:
+        tensor_mod.set_tensor_parallel(model, None)
+    n_blocks = FLUX_12B['num_layers'] + FLUX_12B['num_single_layers']
+    want = 2 * n_blocks * TP
+    if launches != want:
+        raise AssertionError(f'{launches} K1 launches, want {want}')
+    want_units = 5 * FLUX_12B['num_layers'] + 2 * FLUX_12B[
+        'num_single_layers']
+    if units != want_units:
+        raise AssertionError(f'{units} split units, want {want_units}')
+    check_image(out['images'])
+    rel = rel_l2(lat, lat_single)
+    if not rel <= TP_IMAGE_REL_L2:
+        raise AssertionError(f'latents rel L2 {rel:.3e} against one device '
+                             f'> {TP_IMAGE_REL_L2}')
+    if not sound <= TP_PROJ_OUT_REL_L2 < planted:
+        raise AssertionError(f'single block proj_out rel L2: sound '
+                             f'{sound:.3e}, planted contiguous rows '
+                             f'{planted:.3e}, bound {TP_PROJ_OUT_REL_L2}')
+    log(f'phase 42 FLUX-12B under LocalTensor({TP}) (phase 6 model, {units} '
+        f'units split): ok | image finite | K1 launches {launches} at H'
+        f'{FLUX_12B["num_attention_heads"] // TP} | latents rel L2 against '
+        f'phase 6 {rel:.3e} (bound {TP_IMAGE_REL_L2}) | single block 0 '
+        f'proj_out (row split over its heads\' and hidden units\' rows) '
+        f'against the whole layer rel L2 {sound:.3e}, planted contiguous '
+        f'rows {planted:.3e} (bound {TP_PROJ_OUT_REL_L2}, refused) | cold run '
+        f'{t_cold:.3f} s, warm per image {t_e2e:.4f} s (phase 6: '
+        f'{t_single:.4f} s) | peak memory {peak_gib:.2f} GiB | profile (one '
+        f'image): wall {wall:.4f} s, device busy {busy:.4f} s, idle share '
+        f'{1 - busy / wall:.4f}')
+    return dict(launches=launches, image_s=t_e2e, rel_l2=rel,
+                proj_out_rel_l2=sound, planted_rel_l2=planted,
+                idle_share=1 - busy / wall, peak_gib=peak_gib)
+
+
+def phase_w8a8_local_tensor(pipe, embeds, latents):
+    """Phase 42b: phase 21's w8a8 FLUX-12B on ``LocalTensor(TP)`` (the int8
+    kernels split after quantizing, each shard's parts contiguous beside
+    them); the image against the one-device w8a8 image, and the planted
+    per-shard activation absmax in a row-parallel w8a8 layer."""
+    model = pipe.transformer
+    layer = model.single_blocks[0].proj_out
+    segments = (model.inner_dim, model.single_blocks[0].proj_mlp.out_features)
+    g = torch.Generator(device='cuda').manual_seed(SEED + 44)
+    x = torch.randn(1, FLUX_SHAPE[1], sum(segments), generator=g,
+                    device='cuda', dtype=torch.bfloat16)
+    x[..., :segments[0]] *= 4.0          # the heads' rows louder
+    int8_layers(model, act_quant=True)   # phase 21 ends weight-only
+    one, t_one = timed_call(pipe, embeds, latents, output_type='latent')
+    one = one['latents']
+    with torch.inference_mode():
+        whole = layer(x)
+    units = tensor_mod.set_tensor_parallel(model, tensor_mod.LocalTensor(TP))
+    try:
+        parts = [tensor_mod.take(x, -1, tensor_mod.part_ranges(
+            segments, TP, i)).contiguous() for i in range(TP)]
+        with torch.inference_mode():
+            sound = rel_l2(layer(parts), whole)
+            with mock.patch.object(tensor_mod.LocalTensor, 'all_max',
+                                   lambda self, xs: xs):
+                planted = rel_l2(layer(parts), whole)
+        timed_call(pipe, embeds, latents, output_type='pt')
+        attn.LAUNCHES = i8.LAUNCHES = 0     # the main path's counted run
+        out, t_e2e = timed_call(pipe, embeds, latents, output_type='pt')
+        launches = dict(attention=attn.LAUNCHES, int8=i8.LAUNCHES)
+        lat = timed_call(pipe, embeds, latents,
+                         output_type='latent')[0]['latents']
+    finally:
+        tensor_mod.set_tensor_parallel(model, None)
+        int8_layers(model, act_quant=False)
+    n_joint, n_single = FLUX_12B['num_layers'], FLUX_12B['num_single_layers']
+    want = dict(attention=2 * (n_joint + n_single) * TP, int8=2 * (
+        INT8_OUTSIDE_BLOCKS + TP * (INT8_PER_JOINT * n_joint
+                                    + INT8_PER_SINGLE * n_single)))
+    if launches != want:
+        raise AssertionError(f'launches {launches}, want {want}')
+    check_image(out['images'])
+    rel = rel_l2(lat, one)
+    if not rel <= TP_QUANT_IMAGE_REL_L2:
+        raise AssertionError(f'w8a8 latents rel L2 {rel:.3e} against one '
+                             f'device > {TP_QUANT_IMAGE_REL_L2}')
+    if not sound <= TP_W8A8_LAYER_REL_L2 < planted:
+        raise AssertionError(f'row-parallel w8a8 proj_out rel L2: sound '
+                             f'{sound:.3e}, planted per-shard absmax '
+                             f'{planted:.3e}, bound {TP_W8A8_LAYER_REL_L2}')
+    log(f'phase 42b FLUX-12B w8a8 under LocalTensor({TP}) (phase 21 model, '
+        f'{units} units split): ok | image finite | launches {launches} | '
+        f'latents rel L2 against the one-device w8a8 image {rel:.3e} (bound '
+        f'{TP_QUANT_IMAGE_REL_L2}) | single block 0 proj_out (row, w8a8) '
+        f'rel L2 {sound:.3e}, planted per-shard absmax {planted:.3e} (bound '
+        f'{TP_W8A8_LAYER_REL_L2}, refused) | warm per image {t_e2e:.4f} s '
+        f'(one device {t_one:.4f} s, latents only)')
+    return dict(launches=launches, image_s=t_e2e, rel_l2=rel,
+                layer_rel_l2=sound, planted_rel_l2=planted)
+
+
+def phase_qwen_local_tensor(qwen_run):
+    """Phase 42c: Qwen-Image 20B w4a8 (phase 8's model) on
+    ``LocalTensor(TP)``: K2 key-padded on H / t heads and K5 on the column
+    and row shards of every block's int4 layers; the image against the
+    one-device image on the same embeds."""
+    pipe, latents, n_int4 = qwen_run
+    model = pipe.transformer
+    g = torch.Generator(device='cuda').manual_seed(SEED + 45)
+    embeds = qwen_inputs(g)
+    one, t_one = timed_call(pipe, embeds, latents, output_type='latent')
+    one = one['latents']
+    units = tensor_mod.set_tensor_parallel(model, tensor_mod.LocalTensor(TP))
+    try:
+        timed_call(pipe, embeds, latents, output_type='pt')
+        torch.cuda.reset_peak_memory_stats()
+        attn.LAUNCHES = qmm.LAUNCHES = 0    # the main path's counted run
+        with w4a8_shape_tally() as by_shape:
+            out, t_e2e = timed_call(pipe, embeds, latents, output_type='pt')
+        launches = dict(attention=attn.LAUNCHES, w4a8=qmm.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        lat = timed_call(pipe, embeds, latents,
+                         output_type='latent')[0]['latents']
+    finally:
+        tensor_mod.set_tensor_parallel(model, None)
+    n = QWEN_20B['num_layers']
+    want = dict(attention=2 * n * TP,
+                w4a8=2 * (INT4_OUTSIDE_BLOCKS + TP * INT4_PER_BLOCK * n))
+    if launches != want or units != 5 * n:
+        raise AssertionError(f'launches {launches}, units {units}, want '
+                             f'{want}, {5 * n} units')
+    check_image(out['images'])
+    rel = rel_l2(lat, one)
+    if not rel <= TP_QUANT_IMAGE_REL_L2:
+        raise AssertionError(f'latents rel L2 {rel:.3e} against one device '
+                             f'> {TP_QUANT_IMAGE_REL_L2}')
+    shard_shapes = {s: c for s, c in by_shape.items() if s[0] == 4096}
+    log(f'phase 42c Qwen-Image 20B w4a8 under LocalTensor({TP}) (phase 8 '
+        f'model, {units} units split): ok | image finite | launches '
+        f'{launches} (K2 at H{QWEN_20B["num_attention_heads"] // TP}) | w4a8 '
+        f'launches by (M, K, N): ' + ', '.join(
+            f'{s}: {c}' for s, c in sorted(by_shape.items()))
+        + f' | latents rel L2 against one device {rel:.3e} (bound '
+        f'{TP_QUANT_IMAGE_REL_L2}) | warm per image {t_e2e:.4f} s (one device '
+        f'{t_one:.4f} s, latents only) | peak memory {peak_gib:.2f} GiB')
+    return dict(launches=launches, image_s=t_e2e, rel_l2=rel,
+                w4a8_by_shape={'x'.join(map(str, s)): c
+                               for s, c in by_shape.items()},
+                image_stream_shard_shapes=len(shard_shapes),
+                peak_gib=peak_gib, n_int4=n_int4)
+
+
+TP_RANK_ITERS = 2
+# --tensor-only serving: (name, family, mesh, sp_mode)
+TP_SERVING = (('flux_tensor4', 'flux', {'tensor': 4}, 'ulysses'),
+              ('flux_sp2_tensor2_ulysses', 'flux', {'sp': 2, 'tensor': 2},
+               'ulysses'),
+              ('flux_sp2_tensor2_ring', 'flux', {'sp': 2, 'tensor': 2},
+               'ring'),
+              ('qwen_tensor4', 'qwen', {'tensor': 4}, 'ulysses'))
+# --tensor-only training: (name, parallel.mesh)
+TP_TRAINING = (('fsdp2_tensor2', dict(data=1, fsdp=2, tensor=2)),
+               ('data2_tensor2', dict(data=2, fsdp=1, tensor=2)))
+
+
+def tp_serving_launches(family, axes, mode):
+    """K1 / K2, K4 and K5 launches per rank and image: every rank runs one
+    shard of each split layer, its sequence shard under sp."""
+    if family == 'qwen':
+        n = QWEN_20B['num_layers']
+        return dict(attention=2 * n, ring_hop=0,
+                    w4a8=2 * (INT4_OUTSIDE_BLOCKS + INT4_PER_BLOCK * n))
+    n = FLUX_12B['num_layers'] + FLUX_12B['num_single_layers']
+    sp = axes.get('sp', 1)
+    ring = mode == 'ring' and sp > 1
+    return dict(attention=0 if ring else 2 * n,
+                ring_hop=2 * n * sp if ring else 0, w4a8=0)
+
+
+def tp_build(family):
+    """FLUX-12B (phase 6's weights) or Qwen-Image 20B w4a8 (phase 8's
+    build) with its inputs: (pipe, embeds, latents). The global generators
+    are seeded first: ``randomize_`` redraws the weight matrices only, and
+    the means head's bias comes from them, so every rank builds the same
+    model."""
+    torch.manual_seed(SEED)
+    if family == 'flux':
+        g = torch.Generator(device='cuda').manual_seed(SEED + 2)
+        with torch.device('cuda'):
+            model = ArcFluxTransformer2DModel(dtype=torch.bfloat16,
+                                              **FLUX_12B)
+            vae = PretrainedVAE(dtype=torch.bfloat16)
+        randomize_(model, g)
+        pipe = ArcFluxPipeline(model, vae=vae)
+        embeds = flux_inputs(g)
+    else:
+        g = torch.Generator(device='cuda').manual_seed(SEED + 5)
+        pipe, _, _ = qwen_w4a8(g, vae=True)
+        embeds = qwen_inputs(g)
+    latents = pipe.prepare_latents(1, 1024, 1024, generator=g, device='cuda')
+    return pipe, embeds, latents
+
+
+def weight_gib(module):
+    """GiB of the storage of ``module``'s parameters and buffers (a part
+    that shared its whole tensor's storage would count the whole)."""
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in module.state_dict().values()}.values()) / 2 ** 30
+
+
+def tp_serve(name, family, axes, mode, pipe, embeds, latents, one):
+    """One serving case on this rank: shard ``pipe`` over ``axes``, a cold
+    then a counted image, the latents against one card's ``one``, the
+    weights and memory a rank holds, and one profiled image's NCCL
+    share."""
+    def nbytes():
+        return {n: t.numel() * t.element_size()
+                for n, t in pipe.transformer.state_dict().items()}
+    whole = nbytes()
+    whole_gib = weight_gib(pipe.transformer)
+    pipe.shard(dict(axes), sp_mode=mode)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = nbytes()
+    held_gib = weight_gib(pipe.transformer)
+    # the tensors the split cut, each to 1 / t of its bytes; the rest (the
+    # embedders and heads, the blocks' norms, row biases, LoRA A of a
+    # column and B of a row layer) stays whole
+    split = [n for n in whole if held[n] != whole[n]]
+    resident_gib = torch.cuda.memory_allocated() / 2 ** 30
+    _, t_cold = timed_call(pipe, embeds, latents, output_type='pt')
+    torch.cuda.reset_peak_memory_stats()
+    attn.LAUNCHES = hop.LAUNCHES = qmm.LAUNCHES = 0  # the counted run
+    out, t_e2e = timed_call(pipe, embeds, latents, output_type='pt')
+    launches = dict(attention=attn.LAUNCHES, ring_hop=hop.LAUNCHES,
+                    w4a8=qmm.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_image(out['images'])
+    lat = timed_call(pipe, embeds, latents, output_type='latent')[0][
+        'latents']
+    times = [timed_call(pipe, embeds, latents, output_type='pt')[1]
+             for _ in range(2)]
+    wall, busy, by_name = profile_split(
+        lambda: pipe(prompt_embeds=embeds, latents=latents, output_type='pt'))
+    return dict(
+        mesh=axes, sp_mode=mode, launches=launches,
+        want_launches=tp_serving_launches(family, axes, mode),
+        rel_l2=rel_l2(lat, one), latents=lat.float().cpu(),
+        s_per_image=[t_e2e] + times, cold_s=t_cold, whole_gib=whole_gib,
+        held_gib=held_gib, split_tensors=len(split),
+        split_whole_gib=sum(whole[n] for n in split) / 2 ** 30,
+        split_held_gib=sum(held[n] for n in split) / 2 ** 30,
+        split_exact=all(held[n] * axes['tensor'] == whole[n]
+                        for n in split),
+        resident_gib=resident_gib, peak_gib=peak_gib,
+        profiled_wall_s=wall, device_busy_s=busy,
+        nccl=nccl_split(by_name, wall, busy, ('AllReduce', 'AllGather',
+                                              'SendRecv')))
+
+
+def tp_rank_main(out_dir):
+    """One rank of ``--ranks N --tensor-only``: serving FLUX-12B at
+    ``tensor=N`` and ``sp=2 x tensor=N/2`` (both modes) and Qwen-Image 20B
+    w4a8 at ``tensor=N``, each against the one-card image this rank makes
+    of the same weights first; then FLUX-12B training through
+    ``train_model`` at each of ``TP_TRAINING`` against the parent's
+    one-card references. Writes ``tp{r}.json`` and ``tp{r}.pt`` (the
+    latents)."""
+    setup_distributed(timeout=600.0)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res, lats = dict(rank=rank), {}
+    one = {}
+    for name, family, axes, mode in TP_SERVING:
+        pipe, embeds, latents = tp_build(family)
+        if family not in one:
+            timed_call(pipe, embeds, latents, output_type='latent')
+            out, t_one = timed_call(pipe, embeds, latents,
+                                    output_type='latent')
+            one[family] = out['latents']
+            res[f'{family}_one_card'] = dict(
+                s_latents=t_one, whole_gib=weight_gib(pipe.transformer))
+        res[name] = tp_serve(name, family, axes, mode, pipe, embeds, latents,
+                             one[family])
+        lats[name] = res[name].pop('latents')
+        del pipe, embeds, latents
+        gc.collect()
+        torch.cuda.empty_cache()
+    one.clear()
+    for name, axes in TP_TRAINING:
+        cfg = mesh_train_config(FLUX_TRAIN_CONFIG, TP_RANK_ITERS, 0,
+                                mesh=axes)
+        cfg.merge_from_dict({'parallel.tensor_axis': 'tensor'})
+        with no_final_checkpoint():
+            run = mesh_train_run(cfg, os.path.join(out_dir, 'tp', name),
+                                 SEED + 40, keep_first=True)
+        state, model = run['state'], run['model']
+        mp = state.model_parallel
+        ref = torch.load(os.path.join(out_dir, 'tp_ref.pt'))
+        before, after = run['adapters']
+        n_blocks = FLUX_12B['num_layers'] + FLUX_12B['num_single_layers']
+        got = dict(
+            mesh=dict(zip(mp.mesh.mesh_dim_names, mp.mesh.shape)),
+            iters=TP_RANK_ITERS, launches=run['launches'],
+            want_launches=[TRAIN_FORWARDS * n_blocks,
+                           TRAIN_BACKWARDS * n_blocks, 0],
+            rows=run['rows'], s_per_iter=run['s_per_iter'],
+            s_per_step=run['s_per_step'], peak_gib=run['peak_gib'],
+            build_peak_gib=run['build_peak_gib'], ref_loss=ref['loss'],
+            loss_rel=abs(run['rows'][0]['loss'] - ref['loss'])
+            / abs(ref['loss']),
+            grad_rel={k: rel_l2(g, ref['grads'][k])
+                      for k, g in run['grads'].items()},
+            split_tensors=len(mp.splits),
+            resident_gib=torch.cuda.memory_allocated() / 2 ** 30)
+        if rank == 0:
+            names = list(ref['before'])
+            upd = torch.cat([(after[k] - before[k]).flatten()
+                             for k in names])
+            ref_upd = torch.cat([(ref['after'][k] - ref['before'][k])
+                                 .flatten() for k in names])
+            got.update(before_equal=all(torch.equal(before[k],
+                                                    ref['before'][k])
+                                        for k in names),
+                       update_norm=upd.norm().item(),
+                       update_rel=rel_l2(upd, ref_upd),
+                       adapter_tensors=len(names))
+            del upd, ref_upd
+        del ref, before, after
+        step = build_train_step(model, state.optimizers, model.train_cfg,
+                                ema_config_from_cfg(cfg), mesh=mp.mesh)
+        index, _ = batch_ranks(mp.mesh)
+        batch = to_device(t_train.build_dataset(cfg.data.train).batch(
+            np.random.default_rng([SEED, index]), 1),
+            torch.device('cuda', torch.cuda.current_device()))
+        wall, busy, by_name = profile_split(lambda: step(state, batch))
+        got.update(profiled_wall_s=wall, device_busy_s=busy,
+                   nccl=nccl_split(by_name, wall, busy))
+        res[name] = got
+        del run, model, state, step, batch, mp
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f'tp{rank}.json'), 'w') as f:
+        json.dump(res, f)
+    torch.save(lats, os.path.join(out_dir, f'tp{rank}.pt'))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_train_references(out_dir):
+    """--tensor-only's one-card reference: the FLUX-12B config's first
+    iteration on one card on the global batch of the two batch ranks of
+    both layouts (2 rows), its loss, the timestep embedder's gradients and
+    the adapter before and after, saved for the ranks."""
+    cfg = mesh_train_config(FLUX_TRAIN_CONFIG, 1, 0, unsharded=True,
+                            samples=2)
+    with joined_rows(2), no_final_checkpoint():
+        run = mesh_train_run(cfg, os.path.join(out_dir, 'tp_ref'),
+                             SEED + 40, keep_first=True)
+    before, after = run['adapters']
+    torch.save(dict(loss=run['rows'][0]['loss'], grads=run['grads'],
+                    before=before, after=after),
+               os.path.join(out_dir, 'tp_ref.pt'))
+    out = dict(loss=run['rows'][0]['loss'], s=run['s_per_step'][0],
+               peak_gib=run['peak_gib'])
+    del run, before, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_tp_ranks(ranks, lats, n, ref):
+    """--tensor-only read across the ranks: the launches, every rank's
+    latents bitwise rank 0's and within the one-card bound, each rank
+    holding about 1/t of the split weights; training's launches per
+    iteration, every rank's losses equal to rank 0's and the first
+    iteration against one card's (check_pe_ranks' bounds)."""
+    bad = []
+    for name, family, axes, _ in TP_SERVING:
+        bound = TP_IMAGE_REL_L2 if family == 'flux' else \
+            TP_QUANT_IMAGE_REL_L2
+        for r, lat in zip(ranks, lats):
+            got = r[name]
+            if got['launches'] != got['want_launches']:
+                bad.append((r['rank'], name, 'launches', got['launches']))
+            if not got['rel_l2'] <= bound:
+                bad.append((r['rank'], name, 'one card', got['rel_l2']))
+            if not torch.equal(lat[name], lats[0][name]):
+                bad.append((r['rank'], name, 'rank 0 latents'))
+            whole_held = got['whole_gib'] - got['split_whole_gib'] \
+                + got['split_held_gib']
+            if not got['split_tensors'] or not got['split_exact'] or \
+                    got['held_gib'] > 1.01 * whole_held:
+                bad.append((r['rank'], name, 'held', got['split_tensors'],
+                            got['held_gib'], whole_held))
+    for name, _ in TP_TRAINING:
+        for r in ranks:
+            got = r[name]
+            if got['launches'] != [got['want_launches']] * got['iters']:
+                bad.append((r['rank'], name, 'launches', got['launches']))
+            if [x['loss'] for x in got['rows']] != [
+                    x['loss'] for x in ranks[0][name]['rows']]:
+                bad.append((r['rank'], name, 'loss', got['rows']))
+            if not all(math.isfinite(x['loss']) for x in got['rows']):
+                bad.append((r['rank'], name, 'finite', got['rows']))
+            if got['loss_rel'] > TRAIN_SLICE_REL_L2 or not got['grad_rel'] \
+                    or max(got['grad_rel'].values()) > TRAIN_SLICE_REL_L2:
+                bad.append((r['rank'], name, 'one card', got['loss_rel'],
+                            got['grad_rel']))
+        got = ranks[0][name]
+        if not got['before_equal'] or not got['update_norm'] > 0 \
+                or got['update_rel'] > SP_UPDATE_REL_L2:
+            bad.append((0, name, 'update', got['before_equal'],
+                        got['update_norm'], got['update_rel']))
+    for name, family, axes, mode in TP_SERVING:
+        x = ranks[0][name]
+        log(f'phase RTP serving {name} on {n} NCCL ranks (mesh {axes}, '
+            f'{mode}): {"FAIL" if bad else "ok"} | launches per rank and image {x["launches"]} | '
+            f'latents rel L2 against one card {x["rel_l2"]:.3e} on rank 0, '
+            f'every rank bitwise rank 0 | s per image (counted, then 2 '
+            f'warm) ' + ', '.join(f'{s:.4f}' for s in x['s_per_image'])
+            + f' against one card '
+            f'{ranks[0][f"{family}_one_card"]["s_latents"]:.4f} s (latents '
+            f'only) | weights held {x["held_gib"]:.2f} of '
+            f'{x["whole_gib"]:.2f} GiB ({x["split_tensors"]} tensors split, '
+            f'{x["split_held_gib"]:.2f} of their {x["split_whole_gib"]:.2f} '
+            f'GiB) | resident {x["resident_gib"]:.2f} '
+            f'GiB, peak {x["peak_gib"]:.2f} GiB | profiled image: wall '
+            f'{x["profiled_wall_s"]:.4f} s, device busy '
+            f'{x["device_busy_s"]:.4f} s; NCCL ' + ', '.join(
+                f'{k} {v["ms"]:.1f} ms ({100 * v["share_of_wall"]:.1f}% of '
+                f'wall)' for k, v in x['nccl'].items()))
+    for name, axes in TP_TRAINING:
+        x = ranks[0][name]
+        log(f'phase RTP FLUX-12B training through train_model on {n} NCCL '
+            f'ranks ({name}: mesh {x["mesh"]}, tensor_axis tensor, '
+            f'{x["split_tensors"]} adapter and trunk tensors split; phase '
+            f'31\'s cuts, 1 row a batch rank, {x["iters"]} iterations): '
+            f'{"FAIL" if bad else "ok"} | '
+            f'launches per rank and iteration (K1, K3, K4) '
+            f'{x["launches"][0]} | losses ' + ', '.join(
+                f'{row["loss"]:.5e}' for row in x['rows'])
+            + f' on every rank | first iteration against one card (2 rows, '
+            f'loss {ref["loss"]:.5e}, s per step {ref["s"]:.4f}, peak '
+            f'{ref["peak_gib"]:.2f} GiB): loss rel {x["loss_rel"]:.3e}, '
+            f'timestep embedder gradients rel L2 ' + ', '.join(
+                f'{v:.3e}' for v in x['grad_rel'].values())
+            + f' (bound {TRAIN_SLICE_REL_L2}), the update of the '
+            f'{x["adapter_tensors"]} adapter tensors (norm '
+            f'{x["update_norm"]:.4e}) rel L2 {x["update_rel"]:.3e} (bound '
+            f'{SP_UPDATE_REL_L2}) | rank 0 profiled step: wall '
+            f'{x["profiled_wall_s"]:.4f} s, device busy '
+            f'{x["device_busy_s"]:.4f} s; NCCL ' + ', '.join(
+                f'{k} {v["ms"]:.1f} ms ({100 * v["share_of_wall"]:.1f}% of '
+                f'wall)' for k, v in x['nccl'].items()) + ' | ' + ' ; '.join(
+                f'rank {r["rank"]}: s per iteration ' + ', '.join(
+                    f'{v:.4f}' for v in r[name]['s_per_iter'])
+                + f', peak {r[name]["peak_gib"]:.2f} GiB training '
+                f'({r[name]["build_peak_gib"]:.2f} building), resident '
+                f'{r[name]["resident_gib"]:.2f} GiB' for r in ranks))
+    if bad:
+        raise AssertionError(f'--ranks {n} --tensor-only failed: {bad}')
+
+
+def main_tensor(n, smi, out_dir):
+    """``--ranks n --tensor-only``: the one-card training reference, then
+    the n ranks."""
+    t = time.perf_counter()
+    ref = tp_train_references(out_dir)
+    spawn(tp_rank_main, n, (out_dir,), timeout=1500.0)
+    wall = time.perf_counter() - t
+    ranks = [json.load(open(os.path.join(out_dir, f'tp{r}.json')))
+             for r in range(n)]
+    lats = [torch.load(os.path.join(out_dir, f'tp{r}.pt'))
+            for r in range(n)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(json.dumps({'tensor': ranks, 'reference': ref}))
+    check_tp_ranks(ranks, lats, n, ref)
+    log(f'phase RTP the tensor axis on {n} NCCL ranks: ok in {wall:.1f} s '
+        f'(the one-card references, builds, images and iterations '
+        f'included)')
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -5318,13 +6024,15 @@ def serve_ranks(n, out_dir):
     return ranks
 
 
-def main_ranks(n, serve=True, mesh_train=True, pipe_expert=False):
+def main_ranks(n, serve=True, mesh_train=True, pipe_expert=False,
+               tensor=False):
     """``--ranks n``: serving over sp = n (unless ``serve`` is off:
     ``--train-only``), mesh training over data=2, fsdp=n/2 (unless
     ``mesh_train`` is off: ``--sp-train-only``, which serves nothing
     either), then FLUX-12B training under sp (``sp_rank_cases``);
     ``--pipe-expert-only`` trains on the pipe and expert axes alone
-    (``pe_rank_cases``)."""
+    (``pe_rank_cases``), ``--tensor-only`` serves and trains on the
+    tensor axis alone (``TP_SERVING``, ``TP_TRAINING``; 4 ranks)."""
     smi = phase_facts()
     if torch.cuda.device_count() < n:
         raise SystemExit(f'FAIL ranks: --ranks {n} needs {n} cards, '
@@ -5333,6 +6041,11 @@ def main_ranks(n, serve=True, mesh_train=True, pipe_expert=False):
     out_dir = tempfile.mkdtemp(prefix='ranks-', dir=_build.BUILD_DIR)
     if pipe_expert:
         return main_pipe_expert(n, smi, out_dir)
+    if tensor:
+        if n != 4:
+            raise SystemExit(f'FAIL ranks: --tensor-only runs on 4 ranks '
+                             f'(tensor=4 and sp=2 x tensor=2), got {n}')
+        return main_tensor(n, smi, out_dir)
     ranks = serve_ranks(n, out_dir) if serve else None
     train = None
     if mesh_train:
@@ -6688,9 +7401,10 @@ def ui_callback(pipe, n_blocks, size=1024):
 def start_toy_validation():
     """Phase 37's ``python -m arcflow_tpu_torch.tools.validate_toy_e2e``
     with TOY_VALIDATE_FLAGS on the card, in a process of its own, started
-    before phase 23 and run alongside it: both toys are launch-bound and
-    hold the card a small share of the time, and in turn they took about
-    150 s of the smoke's 1200. ``finish_toy_validation`` collects it."""
+    with phases 32-33's child and run alongside phases 28r-30, 26 and 23:
+    both toys are launch-bound and hold the card a small share of the
+    time, and in turn they took about 150 s of the smoke's 1200.
+    ``finish_toy_validation`` collects it."""
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix='toy-validate-', dir=_build.BUILD_DIR)
     out = open(os.path.join(work, 'out.log'), 'w')
@@ -6805,7 +7519,8 @@ def main():
                           serve=not sp_only
                           and '--train-only' not in sys.argv[3:],
                           mesh_train=not sp_only,
-                          pipe_expert='--pipe-expert-only' in sys.argv[3:])
+                          pipe_expert='--pipe-expert-only' in sys.argv[3:],
+                          tensor='--tensor-only' in sys.argv[3:])
     smi = phase_facts()
     torch.manual_seed(SEED)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6814,6 +7529,7 @@ def main():
     attn_err, attn_timed = phase_kernel_vs_plain()
     w4a8_err, w4a8_timed, w4a8_classes = phase_w4a8_vs_plain()
     phase_int8_vs_plain()
+    tp_kernels = phase_tensor_kernels()
     # the ring phases early: phase 15's flash-SDPA yardstick reads kernel
     # records, which torch.profiler drops in a process after large traces
     # (it kept 23 of 50 a window after the FLUX phases in PR 12, 7 of 50
@@ -6832,8 +7548,10 @@ def main():
     flux_launches, flux_run = phase_full_slice()
     flux_prompt = phase_prompt_flux_full(flux_run)
     ring_launches, ring_host = phase_full_local_ring(*flux_run)
+    flux_tp = phase_flux_local_tensor(*flux_run)
     cn_fill = phase_controlnet_fill(flux_run)
     captured = phase_w8a8_full(*flux_run)
+    flux_tp_w8a8 = phase_w8a8_local_tensor(*flux_run[:3])
     vae, embeds, latents = flux_run[0].vae, flux_run[1], flux_run[2]
     del flux_run
     gc.collect()                            # the FLUX model goes first
@@ -6850,6 +7568,7 @@ def main():
     torch.cuda.empty_cache()
     qwen_launches, qwen_run = phase_qwen_full(w4a8_classes)
     qwen_prompt = phase_prompt_qwen_full(qwen_run)
+    qwen_tp = phase_qwen_local_tensor(qwen_run)
     del qwen_run
     gc.collect()
     torch.cuda.empty_cache()
@@ -6875,15 +7594,6 @@ def main():
     k6_err, k6_timed = phase_k6_vs_plain()
     kr = phase_kr()
     phase_gmflow()
-    toy = start_toy_validation()
-    try:
-        phase_toy_cli()
-        phase_tools(toy)
-    finally:
-        stop_toy_validation(toy)
-    gc.collect()
-    torch.cuda.empty_cache()
-    pretrained = phase_from_pretrained()
     # the Qwen training phases last. Phase 28's profile of one 20B step
     # (about 168k kernel records) leaves every later torch.profiler window
     # of this process dropping kernel records (profiler_drop_probe.py: a
@@ -6897,10 +7607,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     qwen_train, qwen_run = phase_qwen_train_full()
-    # phases 32-33 in a child beside the last phases (28r, 29, 30): after
-    # them this process's profiler windows kept no kernel records (phase
-    # 15, 0 of 50 in six windows), and phase 28 reads the last of them
+    # phases 32-33 in a child beside the last phases (28r, 29, 30, 26, 23,
+    # 37): after them this process's profiler windows kept no kernel
+    # records (phase 15, 0 of 50 in six windows), and phase 28 reads the
+    # last of them. The child sets the end of the run (254-375 s against
+    # 28r-30's 70-90 s on the H100 machine), so the phases that read no
+    # profiler (26, and 23 and 37 with the toy validation's process) run
+    # beside it, and it starts that much earlier
     imagenet = start_imagenet()
+    toy = start_toy_validation()
     try:
         qwen_runner = phase_qwen_train_runner(qwen_run)
         del qwen_run
@@ -6910,8 +7625,16 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         phase_qwen_train_cli()
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_from_pretrained()
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_toy_cli()
+        phase_tools(toy)
         finish_imagenet(imagenet)
     finally:
+        stop_toy_validation(toy)
         stop_imagenet(imagenet)
     fwd = attn_timed['unmasked']
     ff_in = w4a8_timed[0]
@@ -6930,7 +7653,11 @@ def main():
                    'flux_fill': cn_fill['fill'],
                    'flux_ui_callback': flux_prompt['ui']['launches'],
                    'flux_train_local_pipe': flux_pipe_train['k1'],
-                   'flux_moe': flux_moe['launches']}
+                   'flux_moe': flux_moe['launches'],
+                   'flux_local_tensor': flux_tp['launches'],
+                   'flux_w8a8_local_tensor':
+                   flux_tp_w8a8['launches']['attention'],
+                   'qwen_local_tensor': qwen_tp['launches']['attention']}
     bwd_by_path = {'flux_train': train_launches['backward'],
                    'flux_train_runner': runner_launches['backward'],
                    'flux_mesh_train': mesh_launches['backward'],
@@ -6952,19 +7679,25 @@ def main():
          'plain_ms': fwd['plain_ms'], 'bound_ms': fwd['bound_ms'],
          'bound_by': fwd['bound_by'], 'library_ms': fwd['library_ms'],
          'shape': list(FLUX_SHAPE),
-         'masked': dict(attn_timed['masked'], valid_keys=QWEN_VALID_KEYS)},
+         'masked': dict(attn_timed['masked'], valid_keys=QWEN_VALID_KEYS),
+         'tensor_shards': tp_kernels['attention_fwd'],
+         'tensor_shards_masked': tp_kernels['attention_masked']},
         {'name': 'w4a8_matmul', 'route': 'cuda',
          'source': 'arcflow_tpu_torch/csrc/w4a8_matmul.cu',
          'replaces': 'arcflow_tpu/ops/quant_matmul.py:88',
-         'launches': qwen_launches['w4a8'] + qwen_prompt['launches']['w4a8'],
+         'launches': qwen_launches['w4a8'] + qwen_prompt['launches']['w4a8']
+         + qwen_tp['launches']['w4a8'],
          'launches_by_path': {'qwen': qwen_launches['w4a8'],
-                              'qwen_prompt': qwen_prompt['launches']['w4a8']},
+                              'qwen_prompt': qwen_prompt['launches']['w4a8'],
+                              'qwen_local_tensor':
+                              qwen_tp['launches']['w4a8']},
          'max_abs_err': w4a8_err, 'ms': ff_in['ms'],
          'plain_ms': ff_in['plain_ms'], 'bound_ms': ff_in['bound_ms'],
          'bound_by': ff_in['bound_by'], 'library_ms': None,
          'reference_ms': ff_in['reference_ms'],
          'shape': ff_in['shape'], 'timed': w4a8_timed,
-         'by_class': w4a8_classes},
+         'by_class': w4a8_classes,
+         'tensor_shards': tp_kernels['w4a8_matmul']},
         {'name': 'attention_bwd', 'route': 'cuda',
          'source': 'arcflow_tpu_torch/csrc/attention_bwd.cu',
          'replaces': 'arcflow_tpu/models/layers.py:542',
@@ -6974,7 +7707,8 @@ def main():
          'ms': bwd['ms'], 'plain_ms': bwd['plain_ms'],
          'bound_ms': bwd['bound_ms'], 'bound_by': bwd['bound_by'],
          'library_ms': bwd['library_ms'], 'shape': list(FLUX_SHAPE),
-         'masked': masked_bwd},
+         'masked': masked_bwd,
+         'tensor_shards': tp_kernels['attention_bwd']},
         {'name': 'gm_inverse_cdf', 'route': 'cuda',
          'source': 'arcflow_tpu_torch/csrc/gm_inverse_cdf.cu',
          'replaces': 'arcflow_tpu/ops/gm/inverse_cdf.py:70',

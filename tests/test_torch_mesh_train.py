@@ -548,15 +548,17 @@ def test_one_process_refuses_the_shipped_mesh():
 
 @pytest.mark.parametrize('axis', ['tensor', 'pipe', 'expert'])
 def test_waiting_axes_are_refused_by_name(axis):
-    """``tensor`` still waits for its slice and is refused by name;
-    ``pipe`` and ``expert`` are axes of the mesh now (``tests/test_torch_
-    pipeline_parallel.py``): in one process they meet JAX's device count
-    (fsdp = 1 // 2 = 0), as a ``data`` / ``fsdp`` mesh does."""
+    """No axis waits now: ``tensor`` (``tests/test_torch_tensor_parallel.
+    py``), ``pipe`` and ``expert`` (``tests/test_torch_pipeline_parallel.
+    py``) are axes of the mesh; in one process each meets JAX's device
+    count (fsdp = 1 // 2 = 0), as a ``data`` / ``fsdp`` mesh does. What
+    still waits is a composition: ``tensor`` beside ``pipe`` (item 5.12)
+    is refused by name."""
     if axis == 'tensor':
         with pytest.raises(NotImplementedError,
-                           match=f"'{axis}'.*queue A item"):
-            make_mesh({'data': 1, 'fsdp': -1, axis: 2})
-        return
+                           match=r"\['pipe'\] beside 'tensor'.*queue A "
+                                 r"item 5\.12"):
+            make_mesh({'data': 1, 'fsdp': -1, 'pipe': 2, axis: 2})
     with pytest.raises(ValueError, match=rf"mesh \{{'data': 1, 'fsdp': 0, "
                        rf"'{axis}': 2\}} != 1 devices"):
         make_mesh({'data': 1, 'fsdp': -1, axis: 2})
@@ -564,10 +566,18 @@ def test_waiting_axes_are_refused_by_name(axis):
 
 
 def test_train_model_refuses_a_tensor_axis():
+    """``parallel.tensor_axis`` is 'tensor' or None, as in JAX's configs;
+    another name is refused. 'tensor' with a mesh whose tensor axis is 1
+    trains as the ``data`` / ``fsdp`` mesh does (the tensor split itself:
+    ``tests/test_torch_tensor_parallel.py``)."""
     cfg = checkerboard_cfg()
-    cfg.merge_from_dict({'parallel.tensor_axis': 'tensor'})
-    with pytest.raises(NotImplementedError, match='tensor axis'):
+    cfg.merge_from_dict({'parallel.tensor_axis': 'model'})
+    with pytest.raises(ValueError, match='tensor_axis must be "tensor"'):
         t_train.train_model(cfg, device='cpu', max_iters=1)
+    cfg.merge_from_dict({'parallel.tensor_axis': 'tensor',
+                         'parallel.mesh': dict(data=1, fsdp=1, tensor=1)})
+    assert t_train.parallel_from_cfg(cfg)['axes'] == dict(data=1, fsdp=1,
+                                                          tensor=1)
 
 
 def test_one_device_mesh_trains_as_no_mesh(tmp_path):

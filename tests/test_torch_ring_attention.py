@@ -215,16 +215,21 @@ def test_ring_partition_guards():
 
 @pytest.mark.parametrize('axis', ['tensor', 'pipe', 'expert'])
 def test_waiting_axes_beside_sp_are_refused_by_name(axis):
-    """The ring trains now (``tests/test_torch_sp_train.py``); the mesh
-    axes that wait for their slices are still refused by name, beside
-    ``sp`` as beside ``data`` / ``fsdp``: ``tensor`` (item 5.2), and
-    ``pipe`` and ``expert``, which train beside ``data`` now, in their
-    composition with ``sp`` (item 5.8)."""
+    """The ring trains now (``tests/test_torch_sp_train.py``); the
+    compositions with ``sp`` that wait for their slices are refused by
+    name: ``pipe`` and ``expert``, which train beside ``data``, beside
+    ``sp`` (item 5.8), and ``tensor`` beside ``sp`` in a training mesh
+    (item 5.11). ``sp x tensor`` serves (``tests/test_torch_tensor_
+    parallel.py``): in one process it meets JAX's device count."""
     from arcflow_tpu_torch.parallel import make_mesh
-    item = '5.2' if axis == 'tensor' else '5.8'
-    with pytest.raises(NotImplementedError,
-                       match=f"'{axis}'.*queue A item {item}"):
-        make_mesh({'sp': 1, axis: 2})
+    item = '5.11' if axis == 'tensor' else '5.8'
+    if axis == 'tensor':
+        with pytest.raises(ValueError, match='!= 1 devices'):
+            make_mesh({'sp': 1, axis: 2})
+    else:
+        with pytest.raises(NotImplementedError,
+                           match=f"'{axis}'.*queue A item {item}"):
+            make_mesh({'sp': 1, axis: 2})
     with pytest.raises(NotImplementedError,
                        match=f"'{axis}'.*queue A item {item}"):
         make_mesh({'data': 1, 'fsdp': 1, 'sp': 2, axis: 2})

@@ -233,8 +233,12 @@ def test_ulysses_needs_heads_divisible_by_sp(sp_run):
 
 
 def test_mesh_takes_only_the_sp_axis():
-    with pytest.raises(NotImplementedError, match='ROADMAP A12'):
+    """A serving mesh takes ``sp`` alone or beside ``tensor``
+    (``tests/test_torch_tensor_parallel.py``), JAX's device count
+    holding: one process refuses ``tensor=2``."""
+    with pytest.raises(ValueError, match='!= 1 devices'):
         make_mesh({'sp': 1, 'tensor': 2})
+    assert make_mesh({'sp': 1, 'tensor': 1}) == {'sp': None, 'tensor': None}
     with pytest.raises(ValueError, match='every process'):
         make_mesh({'sp': 4})                 # one process here
     assert make_mesh({'sp': -1}) == {'sp': None}
@@ -243,13 +247,14 @@ def test_mesh_takes_only_the_sp_axis():
 @pytest.mark.parametrize('axis', ['tensor', 'pipe', 'expert'])
 def test_training_mesh_with_sp_refuses_waiting_axes(axis):
     """``sp`` beside ``data`` / ``fsdp`` trains (a 3-D mesh,
-    ``tests/test_torch_sp_train.py``); ``tensor`` beside them is refused
-    by name with the queue item that ports it, and ``pipe`` and
-    ``expert`` (which train beside ``data`` / ``fsdp``) with the item of
-    their composition with ``sp``."""
+    ``tests/test_torch_sp_train.py``); ``tensor``, which trains beside
+    ``data`` / ``fsdp``, is refused beside ``sp`` in training with the
+    item of that composition, and ``pipe`` and ``expert`` (which train
+    beside ``data`` / ``fsdp``) with the item of theirs."""
     from arcflow_tpu_torch.parallel.mesh import (SP_WITH_MODEL_AXES,
-                                                 WAITING_AXES)
-    item = WAITING_AXES.get(axis, SP_WITH_MODEL_AXES)
+                                                 TENSOR_WITH_SP_TRAINING)
+    item = TENSOR_WITH_SP_TRAINING if axis == 'tensor' \
+        else SP_WITH_MODEL_AXES
     with pytest.raises(NotImplementedError, match=rf"'{axis}'.*item {item}"):
         make_mesh({'data': 1, 'fsdp': -1, 'sp': 1, axis: 2})
 
@@ -262,11 +267,16 @@ def test_sharding_one_process_keeps_one_device():
 
 
 def test_shard_refuses_weight_sharding_size():
-    """``min_size`` sizes the weight-sharding axes, which are not ported:
-    ``shard`` raises rather than keep the weights replicated silently."""
+    """``min_size`` sizes the ``tensor`` split (JAX's rule), so ``shard``
+    takes it; with ``sp`` alone nothing is split. The axes that would
+    shard weights by another rule (``fsdp``) are refused by name, with
+    the item that ports them in serving."""
     pipe = ArcFluxPipeline(TArcFlux(dtype=torch.float32, **FLUX_CFG))
-    with pytest.raises(NotImplementedError, match='ROADMAP A12'):
-        pipe.shard({'sp': 1}, min_size=2 ** 16)
+    assert pipe.shard({'sp': 1}, min_size=2 ** 16) == {'sp': None}
+    assert all(getattr(m, 'tensor_split', None) is None
+               for m in pipe.transformer.modules())
+    with pytest.raises(NotImplementedError, match='queue A item 5.6'):
+        pipe.shard({'sp': 1, 'fsdp': 2}, min_size=2 ** 16)
 
 
 def test_setup_distributed_wants_a_card_or_the_cpu(monkeypatch):
