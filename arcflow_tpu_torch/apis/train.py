@@ -118,8 +118,9 @@ def _test_set_cfg(test_cfg: dict, can_encode: bool = True) -> dict:
     keys: ``cache_dir`` under ``data_root``, the datalist at
     ``cache_datalist_path``, and ``prompt_dataset_kwargs`` naming a hub
     dataset the reference downloads (the port reads local files only). A
-    cache whose records cannot be read here (no ``zstandard``, or the
-    first record's file missing) leaves the datalist's prompts alone,
+    cache whose records cannot be read here (neither ``zstandard`` nor the
+    native loader, ``data/_fastloader``, or the first record's file
+    missing) leaves the datalist's prompts alone,
     which the model's text encoder embeds; without one
     (``can_encode=False``) that raises, naming what is missing."""
     cfg = dict(test_cfg)
@@ -136,10 +137,15 @@ def _test_set_cfg(test_cfg: dict, can_encode: bool = True) -> dict:
     first = os.path.join(cache, f'{datalist[0]["name"]}.zst') \
         if datalist else None
     zstd = importlib.util.find_spec('zstandard') is not None
+    if not zstd:
+        from ..data import _fastloader
+        zstd = _fastloader.get_fastloader() is not None
     if zstd and first and os.path.exists(first):
         return cfg
     if not can_encode:
-        why = f'{first} is missing' if zstd else 'zstandard is not installed'
+        why = f'{first} is missing' if zstd else (
+            f'zstandard is not installed and the native loader is not '
+            f'there: {_fastloader.unavailable_reason()}')
         raise ValueError(f'the evaluation needs the cached embeds of '
                          f'data.test under {cache} ({why}) or a text_encoder '
                          f'in the model to embed its prompts')
@@ -160,7 +166,9 @@ def eval_batch_from_test(test_cfg: dict, num_samples: int, device,
     ``device``. The JAX package passes ``dict(num_samples=n)`` there,
     which its ``val_step`` cannot embed (ROADMAP.md queue C)."""
     dataset = build_dataset(_test_set_cfg(test_cfg, can_encode))
-    items = [dataset[i] for i in range(min(num_samples, len(dataset)))]
+    rows = range(min(num_samples, len(dataset)))
+    items = dataset.getitems(rows) if hasattr(dataset, 'getitems') \
+        else [dataset[i] for i in rows]
     batch = collate(items)
     prompts = [str(p) for p in batch['name']]
     out = dict(prompt=prompts, noise=batch['noise'])

@@ -49,7 +49,8 @@ def build_dataloader(dataset, samples_per_gpu: int, seed: int = 0,
     by index, at random or, without ``shuffle``, in order across the
     ``num_replicas`` ranks, each taking its rows of the global batch
     (``samplers.rank_rows``; ``chunk`` is the micro-batch of gradient
-    accumulation)."""
+    accumulation), its items fetched together through its ``getitems``
+    where it has one (``ImagePrompt``'s native batched decode)."""
     rows = rank_rows(rank, num_replicas, samples_per_gpu, chunk)
     if isinstance(dataset, dict):
         dataset = build_dataset(dataset)
@@ -66,7 +67,10 @@ def build_dataloader(dataset, samples_per_gpu: int, seed: int = 0,
                     idx = rng.integers(0, n, size=samples_per_gpu)
                 else:
                     idx = (it * num_replicas * samples_per_gpu + rows) % n
-                yield collate([dataset[int(i)] for i in idx])
+                idx = [int(i) for i in idx]
+                yield collate(dataset.getitems(idx)
+                              if hasattr(dataset, 'getitems')
+                              else [dataset[i] for i in idx])
             it += 1
 
     return gen()

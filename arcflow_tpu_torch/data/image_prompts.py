@@ -16,8 +16,12 @@ remap, negative prompt embeds from one ``.npz`` or ``.pth`` file, per-index
 test noise (``np.random.default_rng(idx)``), ``start_ind`` / ``end_ind``
 slicing (negative from the end), ``repeat`` and resolution bucket ids from
 ``size_idx``. Items are channel-last numpy, as in JAX; the runner moves
-them to the device. The native batched decoder of the JAX package
-(``_fastloader``) is not ported: ``getitems`` reads item by item.
+them to the device. ``getitems`` reads a batch of cache records through
+the native loader (``_fastloader``: a thread pool that reads and
+zstd-decompresses them with libzstd's C library, so the cache reads where
+the ``zstandard`` package is absent) and unpickles them here, as JAX's
+does; where the loader cannot be built it reads item by item, which needs
+``zstandard``.
 """
 
 from __future__ import annotations
@@ -164,7 +168,24 @@ class ImagePrompt:
         return pek
 
     def getitems(self, indices) -> list:
-        return [self[int(i)] for i in indices]
+        """The items of ``indices``: in cache mode their records read and
+        zstd-decompressed together by the native loader, on its threads
+        with the GIL released, then unpickled here (JAX ``getitems``); item
+        by item where there is no cache or no loader."""
+        if self.cache_dir is None:
+            return [self[int(i)] for i in indices]
+        from ._fastloader import get_fastloader
+        fast = get_fastloader()
+        if fast is None:
+            return [self[int(i)] for i in indices]
+        blobs = fast.load_batch([self._record_path(int(i)) for i in indices],
+                                num_threads=0, decompress=True)
+        return [self._build_item(int(i), pickle.loads(blob))
+                for i, blob in zip(indices, blobs)]
+
+    def _record_path(self, idx: int) -> str:
+        rec = self.datalist[self._map_idx(idx)]
+        return os.path.join(self.cache_dir, f'{rec["name"]}.zst')
 
     def _noise(self, idx: int, shape) -> np.ndarray:
         return np.random.default_rng(idx).standard_normal(shape).astype(
@@ -205,8 +226,7 @@ class ImagePrompt:
         rec = self.datalist[self._map_idx(idx)]
         if self.cache_dir is not None:
             import zstandard as zstd
-            path = os.path.join(self.cache_dir, f'{rec["name"]}.zst')
-            with open(path, 'rb') as fh:
+            with open(self._record_path(idx), 'rb') as fh:
                 with zstd.ZstdDecompressor().stream_reader(fh) as f:
                     raw = pickle.load(f)
             return self._build_item(idx, raw)

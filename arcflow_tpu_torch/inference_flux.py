@@ -4,7 +4,7 @@
         [--adapter FILE] [--vae-dir DIR] [--prompt TEXT | --prompt-embeds NPZ]
         [--height H --width W --nfe N --temperature T --guidance G --seed S]
         [--int8 | --w8a8 | --int4 | --w4a8]
-        [--mesh sp=S,tensor=T --sp-mode MODE]
+        [--mesh AXIS=N,... --sp-mode MODE]
         [--out FILE] [--device cuda|cpu]
 
 The root ``inference_flux.py`` with ``--device``. ``--model-dir`` is a
@@ -17,6 +17,13 @@ conditioning) skips the text towers. The adapter is merged before any
 quantization. With a VAE the image is written as PNG, else the latents as
 ``.npy``. It runs on the card and exits 2 without one, unless ``--device
 cpu`` is given.
+
+``--mesh`` serves over the processes of ``torch.distributed.run`` (one
+card each), which the CLI joins into a process group and leaves at the
+end: ``python -m torch.distributed.run --nproc-per-node 4 -m
+arcflow_tpu_torch.inference_flux --mesh fsdp=4 ...`` (axes data, fsdp,
+tensor, sp, pipe, expert, as ``ArcFluxPipeline.shard`` takes them). Every
+rank makes the same image; rank 0 writes it.
 """
 
 import argparse
@@ -26,6 +33,9 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from arcflow_tpu_torch.parallel import setup_distributed
 
 FAMILIES = {
     'flux': dict(pipeline='ArcFluxPipeline',
@@ -64,10 +74,11 @@ def parse_args(argv=None, family: str = 'flux'):
     p.add_argument('--w4a8', action='store_true',
                    help='int4 weights and per-token int8 activations')
     p.add_argument('--mesh', default=None,
-                   help="serving mesh over the processes of a "
-                        "torch.distributed group, e.g. 'sp=4', 'tensor=2' or "
-                        "'sp=2,tensor=2'; serving takes the sp and tensor "
-                        "axes")
+                   help="multi-card serving mesh over the processes of "
+                        "torch.distributed.run, e.g. 'sp=4,tensor=2' "
+                        "(single-image latency) or 'fsdp=4,tensor=2' "
+                        "(weight sharding); axes: data/fsdp/tensor/sp/pipe/"
+                        "expert")
     p.add_argument('--sp-mode', choices=('ulysses', 'ring'),
                    default='ulysses')
     p.add_argument('--out', default='output.png')
@@ -92,13 +103,14 @@ def write_png(path: str, image: np.ndarray) -> None:
                 + chunk(b'IDAT', zlib.compress(raw, 6)) + chunk(b'IEND', b''))
 
 
-def build_pipeline(args, family: str):
-    """The pipeline of ``--model-dir``, with the adapter merged, then
-    quantized and sharded as the flags ask."""
+def build_pipeline(args, family: str, device=None):
+    """The pipeline of ``--model-dir`` on ``device`` (``--device`` by
+    default), with the adapter merged, then quantized and sharded as the
+    flags ask."""
     import os
     from arcflow_tpu_torch import models, pipelines
     cls = getattr(pipelines, FAMILIES[family]['pipeline'])
-    device = torch.device(args.device)
+    device = torch.device(args.device) if device is None else device
     dtype = torch.bfloat16 if device.type == 'cuda' else torch.float32
     kw = dict(nfe=args.nfe, temperature=args.temperature, device=device,
               dtype=dtype)
@@ -138,7 +150,17 @@ def main(argv=None, family: str = 'flux'):
         print(f'{module}: no CUDA device is available; pass --device cpu to '
               f'serve on the CPU', file=sys.stderr)
         return 2
-    pipe, device = build_pipeline(args, family)
+    started = args.mesh is not None and not dist.is_initialized()
+    device = setup_distributed(args.device) if started else None
+    try:
+        return _serve(args, family, device)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _serve(args, family: str, device) -> int:
+    pipe, device = build_pipeline(args, family, device)
     print(f'device: {device}' + (f' ({torch.cuda.get_device_name(device)})'
                                  if device.type == 'cuda' else ''))
     embeds = None
@@ -152,6 +174,8 @@ def main(argv=None, family: str = 'flux'):
                generator=generator,
                output_type='np' if has_vae else 'latent')
     path = args.out
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return 0
     if has_vae:
         write_png(path, out['images'][0])
     else:

@@ -153,7 +153,8 @@ class LoRADense(nn.Linear):
     zero. After ``quantize_weights_int8`` or ``quantize_weights_int4`` the
     layer has no ``weight``; its kernel lives in the ``kernel`` /
     ``kernel_scale`` or the ``kernel_packed4`` / ``kernel_scale4`` buffers
-    (JAX names and shapes), and ``act_quant`` selects w8a8 or w4a8 over the
+    (JAX names and shapes; ``parallel/fsdp.py`` shards them over
+    ``fsdp``), and ``act_quant`` selects w8a8 or w4a8 over the
     weight-only mode. The bias and the LoRA branch are added after the
     quantized product. Under ``lora_disabled`` the layer is its base alone
     (the tied teacher runs the student's sharded modules so).

@@ -49,10 +49,11 @@ MODEL_AXES = ('pipe', 'expert')
 # a training mesh's dimensions, in this order; pipe, expert, sp and tensor
 # are dimensions of it only where their size is above 1
 MESH_AXES = TRAIN_AXES + MODEL_AXES + ('sp', 'tensor')
-# the axes a serving mesh takes
+# the axes whose serving mesh is {axis: process group}, alone or together
 SERVING_AXES = ('sp', 'tensor')
 # compositions of axes that wait, with their ROADMAP.md queue A item
 SP_WITH_MODEL_AXES = '5.8'
+FSDP_WITH_MODEL_AXES = '5.10'
 TENSOR_WITH_SP_TRAINING = '5.11'
 TENSOR_WITH_MODEL_AXES = '5.12'
 
@@ -120,7 +121,8 @@ def mesh_shape(axes: Dict[str, int], n_devices: int,
 
 
 def make_mesh(axes: Dict[str, int],
-              dcn_axes: Optional[Dict[str, int]] = None):
+              dcn_axes: Optional[Dict[str, int]] = None,
+              serving: bool = False):
     """The ranks laid out on ``axes``.
 
     * ``{'data': d, 'fsdp': f}`` (either may be left out, one may be -1,
@@ -151,22 +153,34 @@ def make_mesh(axes: Dict[str, int],
     * ``{'tensor': t}`` or ``{'sp': s, 'tensor': t}`` (serving) -> {axis:
       this rank's process group along it (None for size 1)}, the ranks in
       JAX's device order over the sizes in the order given.
+    * ``serving=True`` (``ArcFluxPipeline.shard``): the same, and a mesh
+      with ``data``, ``fsdp``, ``pipe`` or ``expert`` is the
+      ``DeviceMesh`` of the training grid ('data', 'fsdp', then those of
+      'pipe', 'expert', 'sp', 'tensor' above size 1), in JAX's device
+      order, ``sp`` and ``tensor`` beside ``data`` / ``fsdp`` included.
 
     ``sp`` beside ``pipe`` or ``expert`` raises ``NotImplementedError``
     naming its ROADMAP.md item (5.8), as do ``tensor`` beside ``sp`` in a
-    training mesh (5.11) and ``tensor`` beside ``pipe`` or ``expert``
-    (5.12)."""
+    training mesh (5.11), ``tensor`` beside ``pipe`` or ``expert`` (5.12)
+    and, in serving, ``fsdp`` above 1 beside ``pipe`` or ``expert`` (5.10,
+    which ``parallel/model_parallel.py`` refuses in training)."""
     model_axes = sorted(set(axes) & set(MODEL_AXES))
     if 'sp' in axes and model_axes:
         raise NotImplementedError(
             f'mesh axes {model_axes} beside \'sp\' are not ported yet '
             f'(ROADMAP.md queue A item {SP_WITH_MODEL_AXES}): the port '
-            f'trains sp beside data and fsdp only')
+            f'trains and serves sp beside data and fsdp only')
     if 'tensor' in axes and model_axes:
         raise NotImplementedError(
             f'mesh axes {model_axes} beside \'tensor\' are not ported yet '
             f'(ROADMAP.md queue A item {TENSOR_WITH_MODEL_AXES})')
-    if {'sp', 'tensor'} <= set(axes) and set(axes) - set(SERVING_AXES):
+    if serving and model_axes and int(axes.get('fsdp', 1)) > 1:
+        raise NotImplementedError(
+            f'fsdp > 1 beside {model_axes} is not ported yet (ROADMAP.md '
+            f'queue A item {FSDP_WITH_MODEL_AXES}): set fsdp to 1, or leave '
+            f'pipe and expert out')
+    if {'sp', 'tensor'} <= set(axes) and set(axes) - set(SERVING_AXES) \
+            and not serving:
         raise NotImplementedError(
             f'mesh axes [\'sp\', \'tensor\'] together in a training mesh '
             f'are not ported yet (ROADMAP.md queue A item '
@@ -195,6 +209,45 @@ def make_mesh(axes: Dict[str, int],
     device_type = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
     return DeviceMesh(device_type, mesh_ranks(sizes),
                       mesh_dim_names=mesh_axes(sizes))
+
+
+class ServingRows:
+    """The rows of a served batch that this rank runs, over the (data,
+    fsdp) grid of a serving ``DeviceMesh`` (JAX ``batch_axes``: the ranks
+    along ``sp``, ``tensor``, ``pipe`` and ``expert`` hold the same rows),
+    and their gather back. A batch of B rows that the grid's n ranks
+    divide is cut into n blocks of B / n, block i on batch rank i
+    (``batch_ranks``); a batch they do not divide (batch 1 on ``fsdp=4``)
+    runs whole on every rank, whose gathered weights (FSDP2) and inputs
+    are the same, so every rank computes the same rows. Either way every
+    rank returns the whole batch."""
+
+    def __init__(self, mesh):
+        from .model_parallel import _new_groups
+        grid = mesh.mesh
+        rows = grid.reshape(grid.shape[0] * grid.shape[1], -1).t()
+        self.index, self.count = batch_ranks(mesh)
+        self.group = _new_groups(rows) if self.count > 1 else None
+        me = dist.get_rank()
+        mine = next(r for r in rows.tolist() if me in r)
+        # the group rank (its ranks in ascending order) of each row block
+        self.order = [sorted(mine).index(r) for r in mine]
+
+    def splits(self, batch: int) -> bool:
+        """Whether a batch of ``batch`` rows is cut over the ranks."""
+        return self.count > 1 and batch % self.count == 0
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``x``'s rows."""
+        b = x.shape[0] // self.count
+        return x.narrow(0, self.index * b, b)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole batch from every rank's block ``x``, in row order."""
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.count)]
+        dist.all_gather(parts, x, group=self.group)
+        return torch.cat([parts[i] for i in self.order])
 
 
 def serving_mesh(axes: Dict[str, int], world: int) -> Dict[str, object]:

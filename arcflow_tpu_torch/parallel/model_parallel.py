@@ -47,14 +47,13 @@ import torch.distributed as dist
 from torch import nn
 
 from .expert import ExpertParallel
-from .mesh import MODEL_AXES
+from .mesh import FSDP_WITH_MODEL_AXES, MODEL_AXES
 from .pipeline import PipeGroup, layer_stage, set_pipe
 
 # the stacks a pipe stage splits, as ``pipelines/convert.py:STACKED``
 STACKS = ('joint_blocks', 'single_blocks', 'transformer_blocks')
 EXPERT_LEAVES = ('w_in', 'b_in', 'w_out', 'b_out')
 _STACKED = re.compile(r'^(%s)\.(\d+)\.' % '|'.join(STACKS))
-FSDP_WITH_MODEL_AXES = '5.10'
 
 
 @dataclasses.dataclass(frozen=True)

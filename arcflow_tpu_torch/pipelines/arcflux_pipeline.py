@@ -12,8 +12,8 @@ layout (``shard``) state of its trunk and attention modules; there is no
 process-wide serving, quantization or mesh flag. ``from_pretrained`` reads
 diffusers folders (a transformer folder, local or behind a remote URI of
 ``utils/io_utils``, or a whole local pipeline folder with
-``model_index.json``); ``shard`` serves over ``sp`` and ``tensor``, the
-other mesh axes wait for their slice.
+``model_index.json``); ``shard`` serves over ``data``, ``fsdp``, ``sp``,
+``tensor``, ``pipe`` and ``expert``.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from ..diffusion import ArcFlowImitationDataFree, ContinuousTimeStepSampler
-from ..parallel.mesh import (SequenceParallel, make_mesh,
+from ..parallel.mesh import (SequenceParallel, ServingRows, make_mesh,
                              set_sequence_parallel)
 
 
@@ -69,6 +69,7 @@ class ArcFluxPipeline:
         self.transformer = transformer
         self.vae = vae
         self.text_encoder = text_encoder
+        self.rows = None            # the batch ranks' rows (``shard``)
         self.guidance_scale = guidance_scale
         self.diffusion = ArcFlowImitationDataFree(
             denoising=transformer, num_timesteps=1,
@@ -314,12 +315,21 @@ class ArcFluxPipeline:
 
     def shard(self, mesh_axes: Dict[str, int], sp_mode: str = 'ulysses',
               min_size: Optional[int] = None):
-        """Serve one image across the ranks of a mesh of ``sp`` and / or
-        ``tensor`` (JAX ``shard``, lines 349-391: ``pipe.shard({'sp': 4,
-        'tensor': 2})``), over the processes started with
+        """Serve across the ranks of a mesh (JAX ``shard``, lines 349-391:
+        ``pipe.shard({'sp': 4, 'tensor': 2})``, ``{'fsdp': 4, 'tensor':
+        2}``), over the processes started with
         ``parallel.setup_distributed``, the ranks in JAX's device order
-        (``parallel.mesh.make_mesh``).
+        (``parallel.mesh.make_mesh(..., serving=True)``).
 
+        * ``data`` and ``fsdp``: the batch is cut over the data x fsdp
+          ranks (JAX ``batch_axes``; ``parallel.mesh.ServingRows``: a
+          batch they do not divide, as batch 1, runs whole on every rank)
+          and every rank returns the whole batch. With ``fsdp`` above 1
+          the transformer's blocks, its other children and itself are
+          FSDP2 units sharded over ``fsdp`` (``parallel/fsdp.py:
+          shard_units``): a rank holds 1 / fsdp of the weights, quantized
+          kernels included, and gathers a unit's before its forward and
+          frees them after it;
         * ``sp``: each rank keeps its shard of the image and text tokens;
           attention runs in ``sp_mode`` 'ulysses' (all-to-all to head
           shards; the heads a rank holds must divide by sp) or 'ring' (K/V
@@ -330,29 +340,45 @@ class ArcFluxPipeline:
           weights. A unit whose layers hold fewer than ``min_size`` weight
           elements (JAX's default 2^16) stays whole, as JAX's rule keeps
           such a leaf replicated. The embedders, heads and VAE stay whole.
+          Beside ``fsdp`` an fsdp shard is a shard of this rank's part;
+        * ``pipe``: a rank holds its stage's blocks and frees the others
+          (``parallel/model_parallel.py:partition_model``), and each NFE
+          runs the stacks the pipe degree divides as a forward-only
+          pipeline (``parallel/pipeline.py:pipeline_run``);
+        * ``expert``: a rank holds E / n experts of every MoE layer and the
+          combine is all-reduced over the group (``parallel/expert.py``).
 
-        Call it after quantizing (a quantized layer is split, never
-        re-quantized), once. Then every rank calls ``__call__`` with the
-        same ``latents`` or generator seed and gets the same images. The
-        axes that shard weights over ranks by another rule (``fsdp``,
-        ``pipe``, ``expert``, ``data``) wait for ROADMAP.md queue A item
-        5.6. Returns the mesh ({axis: process group}).
+        ``sp`` and ``tensor`` serve beside ``data`` / ``fsdp``, ``pipe``
+        and ``expert`` beside ``data`` and each other. Refused by name,
+        with their ROADMAP.md queue A items: ``sp`` beside ``pipe`` /
+        ``expert`` (5.8), ``fsdp`` above 1 beside them (5.10), ``tensor``
+        beside them (5.12), MoE blocks under ``tensor`` (5.13).
+
+        Call it after quantizing (a quantized layer is split or sharded,
+        never re-quantized), once (only an ``sp`` layout may be set
+        again). Then every rank calls ``__call__`` with
+        the same ``latents`` or generator seed and gets the same images.
+        Returns the mesh: {axis: process group} for ``sp`` / ``tensor``
+        alone, else the ``DeviceMesh``.
         """
         from ..models.layers import JointAttention
+        from ..parallel.fsdp import shard_units
+        from ..parallel.model_parallel import model_axes, partition_model
         from ..parallel.tensor import (TensorGroup, check_ulysses_heads,
                                        set_tensor_parallel)
-        other = sorted(set(mesh_axes) - {'sp', 'tensor'})
-        if other:
-            raise NotImplementedError(
-                f'mesh axes {other}: serving takes only sp and tensor; '
-                f'weight sharding over fsdp, pipe or expert in serving '
-                f'waits for ROADMAP.md queue A item 5.6 (training takes '
-                f'them)')
         if any(getattr(m, 'tensor_split', None) is not None
                for m in self.transformer.modules()):
             raise ValueError('the transformer is split over tensor already')
-        mesh = make_mesh(dict(mesh_axes))
-        group, tgroup = mesh.get('sp'), mesh.get('tensor')
+        if self.rows is not None:
+            raise ValueError('the transformer is placed on a mesh already')
+        mesh = make_mesh(dict(mesh_axes), serving=True)
+        device_mesh = None if isinstance(mesh, dict) else mesh
+        if device_mesh is None:
+            group, tgroup = mesh.get('sp'), mesh.get('tensor')
+        else:
+            names = device_mesh.mesh_dim_names
+            group, tgroup = [device_mesh.get_group(a) if a in names else None
+                             for a in ('sp', 'tensor')]
         sp = SequenceParallel(group, sp_mode) \
             if group is not None and group.size() > 1 else None
         tp = TensorGroup(tgroup) if tgroup is not None else None
@@ -364,6 +390,17 @@ class ArcFluxPipeline:
             set_tensor_parallel(self.transformer, tp,
                                 2 ** 16 if min_size is None else min_size)
         set_sequence_parallel(self.transformer, sp)
+        if device_mesh is not None:
+            if model_axes(device_mesh):
+                partition_model(self.transformer, device_mesh)
+            elif device_mesh.size(names.index('fsdp')) > 1:
+                # serving takes no gradient, and FSDP2 wants one dtype
+                # among a unit's trainable parameters (a bf16 trunk keeps
+                # fp32 heads and LoRA): every parameter is frozen first
+                self.transformer.requires_grad_(False)
+                shard_units(self.transformer, device_mesh['data', 'fsdp']
+                            if device_mesh.ndim > 2 else device_mesh)
+            self.rows = ServingRows(device_mesh)
         return mesh
 
     def encode_prompt(self, prompt: Union[str, Sequence[str]]
@@ -420,11 +457,18 @@ class ArcFluxPipeline:
             override['timestep_ratio'] = timestep_ratio
         if temperature is not None:
             override['temperature'] = temperature
+        split = self.rows is not None and self.rows.splits(bs)
+        if split:
+            latents = self.rows.take(latents)
+            embeds = {k: self.rows.take(v) for k, v in embeds.items()}
         latents = self.diffusion.forward_test(
             latents, test_cfg_override=override, **embeds)
         if self.vae is None or output_type == 'latent':
-            return dict(latents=latents)
+            return dict(latents=self.rows.gather(latents) if split
+                        else latents)
         images = (self.vae.decode(latents) / 2 + 0.5).clamp(0.0, 1.0)
+        if split:
+            images = self.rows.gather(images)
         if output_type == 'pt':
             return dict(images=images)
         return dict(images=images.cpu().numpy())

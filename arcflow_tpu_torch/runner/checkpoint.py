@@ -36,8 +36,9 @@ from the remote. The mirror carries the port's format (``state.pt``).
 Over several ranks (``torch.distributed``) the format stays the same, so
 a checkpoint does not depend on the layout it was written from: every rank
 joins the gather of each sharded tensor (a ``DTensor``, ``parallel/
-fsdp.py``) to one full tensor, one tensor at a time, which rank 0 copies
-to the host and writes; ``restore`` loads the full tensors on every rank
+fsdp.py``; the frozen trunk's too, its int8 / int4 kernels included) to
+one full tensor, one tensor at a time, which rank 0 copies to the host,
+row-major, and writes; ``restore`` loads the full tensors on every rank
 and copies each rank's shard into its live tensor. On a model placed on
 ``pipe`` / ``expert`` axes (``parallel/model_parallel.py``) the holders of
 each stage's blocks and each rank's experts send them to rank 0, and a
@@ -166,7 +167,10 @@ def _host(dtype: Optional[torch.dtype] = None):
             return None
         if dtype is not None and x.is_floating_point():
             x = x.to(dtype)
-        return x.to('cpu', copy=True)
+        # row-major whatever the live layout (a gathered ``DTensor`` is
+        # row-major), so a checkpoint's bytes do not depend on the layout
+        # it was written from
+        return x.to('cpu', copy=True, memory_format=torch.contiguous_format)
     return leaf
 
 

@@ -14,6 +14,10 @@ JAX names and shapes:
   ``kernel_scale4`` (in/g, 1, out) fp32, one scale per (input group x
   output channel), both row-major as in JAX.
 
+Both are buffers (frozen, never in an optimizer); ``parallel/fsdp.py``
+shards them over ``fsdp`` with the rest of a frozen trunk, as JAX shards
+``TrainState.frozen``.
+
 The JAX package's process-wide ``set_act_quant``/``set_serving`` flags are
 not ported: whether a layer quantizes its activations (w8a8, w4a8) is its
 own ``act_quant`` attribute, set here.
@@ -31,6 +35,8 @@ from torch import nn
 _SKIP_SUBSTRINGS = ('proj_out_means', 'proj_out_logweights',
                     'proj_out_loggamma', 'lora_a', 'lora_b')
 _SKIP_PREFIXES = ('norm_out.',)
+# the buffers a quantized LoRADense holds in place of its weight
+QUANT_NAMES = ('kernel', 'kernel_scale', 'kernel_packed4', 'kernel_scale4')
 
 
 def pack_int4(q: torch.Tensor, group_size: int = 128) -> torch.Tensor:

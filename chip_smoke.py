@@ -208,7 +208,8 @@ line each, and any failure exits non-zero:
     ``_multihost_train.py``) on one card, so the 12B trunk and the adapter
     go through FSDP2, the sharded AdamW, EMA and checkpoint; cuts: frozen
     trunk bf16, batch 1, 1 iteration, a checkpoint at it,
-    the data ``SmokePromptEmbeds`` (the ImagePrompt cache needs zstandard),
+    the data ``SmokePromptEmbeds`` (no cache of real prompts is in the
+    repo; phase 43 reads a written one through the native loader),
     random weights from a seed. The shipped data=2, fsdp=-1 must be
     refused with JAX's one-device message; against the same config
     through ``train_model`` without a mesh (the runner's unsharded path),
@@ -282,8 +283,10 @@ Around a training run (PR 15):
     process of its own alongside phases 28r-30, 26 and 23; (after phase 23)
     ``tools.cache_imagenet_data_sdvae`` on seeded 256^2 images, its
     records read back by ``ImageNet`` as the encoder's latents.
-    ``tools.cache_image_prompt_data`` writes zstd records, and the card's
-    machine has no ``zstandard``: the phase says it did not run it.
+    ``tools.cache_image_prompt_data`` writes its records with the
+    ``zstandard`` package, which the card's machine lacks (it reads such
+    records through the native loader, phase 43): the phase says it did
+    not run it.
 38. (right after phase 11r, on phase 11's model, state and batch) FLUX-12B
     training with every attention on ``LocalRing(4)``: from one state
     snapshot, the one-device step, the one-device step with every
@@ -339,6 +342,46 @@ Around a training run (PR 15):
     Qwen-Image 20B w4a8 (300 units): 2 x 60 x 2 K2 and 2 x (3 + 2 x 840)
     K5 launches, counted by shape, the image against one device's on the
     same embeds.
+
+The frozen weights' placement and the native loader (phases 43-45, in a
+child process started with phases 32-33's, beside phases 28r-30, 26, 23
+and 37; ``python3 chip_smoke.py --placement FILE`` runs them alone):
+
+43. the native loader (``data/_fastloader``): whether g++ finds
+    ``zstd.h`` and where libzstd is; where both are, the loader must build
+    into ``build/arcflow_tpu_torch/`` and ``ImagePrompt.getitems`` must
+    decode, in one batch through it, a cache of 8 records written with
+    libzstd (FLUX embeds 512 x 4096 + 768 bf16 and 16 x 128 x 128 latents,
+    half the frames without their content size), every array bitwise its
+    record, with the decode's MB/s; elsewhere the phase says it did not
+    run and why;
+44. each shipped quantized-trunk config (``arcflux_2nfe_k16_int8trunk``,
+    ``_int4trunk``, ``arcqwen_2nfe_k16_int8trunk``) at full width and
+    reduced depth (1 + 2 FLUX blocks, 2 Qwen blocks) through
+    ``train_model`` over data=1, fsdp=-1 (FSDP2 at world size 1) against
+    the same config without a mesh: the int8 / int4 kernels and their
+    scales sharded beside FSDP2's units (``parallel/fsdp.py:_QuantShards``)
+    with the one-device values, unchanged by the step; 12 / 2 K1 (K2 for Qwen) / K3 launches per block and
+    iteration; the loss and the timestep embedder's gradients within
+    TRAIN_SLICE_REL_L2;
+45. FLUX at full width and 2 + 4 blocks served 2-NFE at 1024^2 with both
+    stacks on ``LocalPipe(2)`` against the plain loop: 12 K1 launches, the
+    latents within SP_IMAGE_REL_L2.
+
+``python3 chip_smoke.py --ranks 4 --placement-only`` (four cards) serves
+FLUX-12B at ``fsdp=4``, ``fsdp=2 x tensor=2`` and ``data=2 x pipe=2``,
+Qwen-Image 20B w4a8 at ``fsdp=4`` and FLUX-12B with ``moe_experts=2`` at
+``pipe=2 x expert=2`` through ``pipe.shard`` (batch 1, whole on every
+rank), each rank first making the one-card image of the same weights: the
+launches per rank, every rank's latents bitwise rank 0's and within
+TP_IMAGE_REL_L2 / TP_QUANT_IMAGE_REL_L2 of one card's, the weights a rank
+holds (at most 1.02 / fsdp of them under fsdp), s per image, resident
+and peak memory and one profiled image's NCCL share; then trains the
+Qwen-Image 20B int8-trunk config over its shipped mesh (data=2, fsdp=-1)
+at 1 row a rank, 2 iterations, its trunk sharded: the launches, the
+losses on every rank, the trunk's bytes a rank holds, every rank's shards
+against the trunk gathered whole and the checkpoint gathered from data
+replica 0, s per iteration, peaks and the NCCL share of one profiled step.
 
 ``python3 chip_smoke.py --ranks 4 --tensor-only`` (four cards) serves
 FLUX-12B at ``tensor=4`` and at ``sp=2 x tensor=2`` (Ulysses and ring)
@@ -2612,8 +2655,9 @@ TEMB_GRAD_REL_L2 = 3e-2
 @DATASETS.register_module()
 class SmokePromptEmbeds:
     """Prompt-embed batches from the loader's seeded generator, in place of
-    the configs' ImagePrompt cache (its records are zstandard files, and
-    the H100 machine has no zstandard): per sample zero latents of the
+    the configs' ImagePrompt cache (no cache of real prompts is in the
+    repo; phase 43 reads a written one through the native loader): per
+    sample zero latents of the
     config's latent size (the data-free loss reads only their shape) and
     normal prompt embeds of the family's width; with ``valid`` a text mask
     of that many valid tokens, with ``negative_valid`` the negative
@@ -3115,7 +3159,8 @@ def mesh_rank_main(out_dir):
             round_trip=round_trip, profiled_wall_s=wall,
             device_busy_s=busy, nccl=nccl_split(by_name, wall, busy),
             dropout=dropout,
-            int8_trunk_bytes_per_rank=sum(b.numel() * b.element_size()
+            int8_trunk_bytes_per_rank=sum(local(b).numel()
+                                          * local(b).element_size()
                                           for b in quant),
             int8_trunk_sharded=any(is_sharded(b) for b in quant))
         del state, model, step, run
@@ -3175,7 +3220,7 @@ def check_mesh_ranks(ranks, n):
                      f's, restored into the shards in {restore_s:.3f} s on '
                      f'every rank, bitwise')
         if name == 'qwen':
-            extra += (f' | int8 trunk buffers {x["int8_trunk_bytes_per_rank"]}'
+            extra += (f' | int8 trunk kernels {x["int8_trunk_bytes_per_rank"]}'
                       f' bytes per rank, sharded: {x["int8_trunk_sharded"]}')
         if x['dropout'] is not None:
             extra += ' | ' + ' ; '.join(
@@ -4979,46 +5024,14 @@ def start_imagenet():
     process or in a child, they left
     phase 15's profiler windows with no kernel record of flash SDPA (0 of
     50 in each of six), as large traces thin them
-    (``profiler_drop_probe.py``). Their output goes to files, which a pipe
-    left unread would block on. ``finish_imagenet`` collects them."""
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    work = tempfile.mkdtemp(prefix='imagenet-', dir=_build.BUILD_DIR)
-    out = open(os.path.join(work, 'out.log'), 'w')
-    err = open(os.path.join(work, 'err.log'), 'w')
-    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                             '--imagenet'], stdout=out, stderr=err, text=True)
-    return dict(proc=proc, work=work, files=(out, err))
-
-
-def stop_imagenet(child):
-    """End the child if it still runs; remove its files."""
-    if child['proc'].poll() is None:
-        child['proc'].kill()
-        child['proc'].wait()
-    for f in child['files']:
-        f.close()
-    shutil.rmtree(child['work'], ignore_errors=True)
+    (``profiler_drop_probe.py``). ``finish_imagenet`` collects them."""
+    return start_child('--imagenet', 'imagenet-')
 
 
 def finish_imagenet(child):
     """Wait for phases 32-33 and print their lines; fails unless the child
     exits 0."""
-    try:
-        rc = child['proc'].wait(timeout=IMAGENET_TIMEOUT)
-        for f in child['files']:
-            f.flush()
-        with open(os.path.join(child['work'], 'out.log')) as f:
-            stdout = f.read()
-        with open(os.path.join(child['work'], 'err.log')) as f:
-            stderr = f.read()
-    finally:
-        stop_imagenet(child)
-    for line in stdout.splitlines():
-        if line.startswith('phase 3'):
-            print(line, flush=True)
-    if rc != 0:
-        raise AssertionError(f'phases 32-33 exited {rc}:\n'
-                             f'{stdout[-3000:]}\n{stderr[-3000:]}')
+    finish_child(child, 'phases 32-33', ('phase 3',), IMAGENET_TIMEOUT)
 
 
 def rounded(values, digits=4):
@@ -6025,14 +6038,17 @@ def serve_ranks(n, out_dir):
 
 
 def main_ranks(n, serve=True, mesh_train=True, pipe_expert=False,
-               tensor=False):
+               tensor=False, placement=False, quantized_only=False):
     """``--ranks n``: serving over sp = n (unless ``serve`` is off:
     ``--train-only``), mesh training over data=2, fsdp=n/2 (unless
     ``mesh_train`` is off: ``--sp-train-only``, which serves nothing
     either), then FLUX-12B training under sp (``sp_rank_cases``);
     ``--pipe-expert-only`` trains on the pipe and expert axes alone
     (``pe_rank_cases``), ``--tensor-only`` serves and trains on the
-    tensor axis alone (``TP_SERVING``, ``TP_TRAINING``; 4 ranks)."""
+    tensor axis alone (``TP_SERVING``, ``TP_TRAINING``; 4 ranks),
+    ``--placement-only`` serves over fsdp, pipe and expert and trains the
+    quantized trunk sharded (``PL_SERVING``, ``pl_train``; 4 ranks;
+    ``--quantized-only`` serves ``PL_QUANTIZED`` alone)."""
     smi = phase_facts()
     if torch.cuda.device_count() < n:
         raise SystemExit(f'FAIL ranks: --ranks {n} needs {n} cards, '
@@ -6046,6 +6062,12 @@ def main_ranks(n, serve=True, mesh_train=True, pipe_expert=False,
             raise SystemExit(f'FAIL ranks: --tensor-only runs on 4 ranks '
                              f'(tensor=4 and sp=2 x tensor=2), got {n}')
         return main_tensor(n, smi, out_dir)
+    if placement:
+        if n != 4:
+            raise SystemExit(f'FAIL ranks: --placement-only runs on 4 ranks '
+                             f'(fsdp=4, fsdp=2 x tensor=2, pipe=2 x '
+                             f'expert=2), got {n}')
+        return main_placement_ranks(n, smi, out_dir, quantized_only)
     ranks = serve_ranks(n, out_dir) if serve else None
     train = None
     if mesh_train:
@@ -7510,9 +7532,801 @@ def phase_tools(toy):
     return dict(cache_s=cache_s, toy_s=toy_s, toy_share=share)
 
 
+# ---------------------------------------------------------------------------
+# the frozen weights' placement and the native loader (phases 43-45 in a
+# child process; --ranks 4 --placement-only)
+# ---------------------------------------------------------------------------
+
+FASTLOADER_RECORDS = 8
+# what ``zstd.h`` defines for ZSTD_CCtx_setParameter
+ZSTD_C_COMPRESSION_LEVEL, ZSTD_C_CONTENT_SIZE_FLAG = 100, 200
+# phase 44: each shipped quantized-trunk config at reduced depth through
+# train_model over data=1, fsdp=-1 (FSDP2 at world size 1) against the same
+# config without a mesh: (name, config, depth of the student and teacher)
+TRUNK_FSDP = (('flux_int8', 'configs/flux/arcflux_2nfe_k16_int8trunk.py',
+               dict(num_layers=1, num_single_layers=2)),
+              ('flux_int4', 'configs/flux/arcflux_2nfe_k16_int4trunk.py',
+               dict(num_layers=1, num_single_layers=2)),
+              ('qwen_int8', QWEN_TRAIN_CONFIG, dict(num_layers=2)))
+# phase 44b: FLUX w8a8 at full width and this depth, its units and int8
+# kernels sharded by shard_units at world size 1
+W8A8_FSDP_DEPTH = dict(num_layers=1, num_single_layers=2)
+# phase 45: FLUX at full width and this depth on LocalPipe(2); 2 divides
+# both stacks, so both are pipelined
+PIPE_SERVE_DEPTH = dict(num_layers=2, num_single_layers=4)
+PLACEMENT_TIMEOUT = 600
+
+
+def zstd_available():
+    """(zstd.h found by g++, libzstd's path or None)."""
+    import ctypes.util
+    gxx = shutil.which('g++')
+    header = gxx is not None and subprocess.run(
+        [gxx, '-E', '-x', 'c++', '-'], input='#include <zstd.h>\n',
+        capture_output=True, text=True).returncode == 0
+    return header, ctypes.util.find_library('zstd')
+
+
+def zstd_frame(lib, payload, content_size):
+    """``payload`` in one zstd frame made by libzstd (``lib``, ctypes): with
+    its content size in the header (the loader's bounded path) or without
+    (as a streaming compressor writes it: the loader's streaming path)."""
+    import ctypes
+    size_t, vp = ctypes.c_size_t, ctypes.c_void_p
+    lib.ZSTD_compressBound.restype = size_t
+    lib.ZSTD_compressBound.argtypes = [size_t]
+    lib.ZSTD_createCCtx.restype = vp
+    lib.ZSTD_freeCCtx.argtypes = [vp]
+    lib.ZSTD_CCtx_setParameter.restype = size_t
+    lib.ZSTD_CCtx_setParameter.argtypes = [vp, ctypes.c_int, ctypes.c_int]
+    lib.ZSTD_compress2.restype = size_t
+    lib.ZSTD_compress2.argtypes = [vp, vp, size_t, vp, size_t]
+    lib.ZSTD_isError.restype = ctypes.c_uint
+    lib.ZSTD_isError.argtypes = [size_t]
+    cap = lib.ZSTD_compressBound(len(payload))
+    dst = ctypes.create_string_buffer(cap)
+    cctx = lib.ZSTD_createCCtx()
+    try:
+        for param, value in ((ZSTD_C_COMPRESSION_LEVEL, 3),
+                             (ZSTD_C_CONTENT_SIZE_FLAG, int(content_size))):
+            if lib.ZSTD_isError(lib.ZSTD_CCtx_setParameter(cctx, param,
+                                                           value)):
+                raise AssertionError(f'ZSTD_CCtx_setParameter({param})')
+        n = lib.ZSTD_compress2(cctx, dst, cap, payload, len(payload))
+        if lib.ZSTD_isError(n):
+            raise AssertionError('ZSTD_compress2 failed')
+    finally:
+        lib.ZSTD_freeCCtx(cctx)
+    return dst.raw[:n]
+
+
+def write_prompt_cache(root, n, lib, generator):
+    """An ``ImagePrompt`` cache of ``n`` records as
+    ``tools/cache_image_prompt_data.py`` writes them (a pickled dict of CPU
+    tensors per prompt: T5 embeds (512, 4096) and pooled CLIP 768 in bf16,
+    the VAE latents (16, 128, 128) fp32), compressed by libzstd, every
+    other frame without its content size; returns the records."""
+    import pickle
+    os.makedirs(os.path.join(root, 'cache'), exist_ok=True)
+    records = []
+    with open(os.path.join(root, 'datalist.jsonl'), 'w') as f:
+        for i in range(n):
+            emb = flux_inputs(generator)
+            rec = dict(prompt=f'{PROMPT} {i}', prompt_embed_kwargs={
+                k: v[0].cpu() for k, v in emb.items()},
+                latents=torch.randn(16, 128, 128, generator=generator,
+                                    device='cuda').cpu())
+            name = f'rec{i:04d}'
+            with open(os.path.join(root, 'cache', f'{name}.zst'),
+                      'wb') as z:
+                z.write(zstd_frame(lib, pickle.dumps(rec), i % 2 == 0))
+            f.write(json.dumps({'name': name}) + '\n')
+            records.append(rec)
+    return records
+
+
+def phase_fastloader():
+    """Phase 43: the native loader on the card's machine: where g++ finds
+    zstd.h it must build (a failure fails the smoke) and
+    ``ImagePrompt.getitems`` must decode a written cache through it, every
+    array bitwise the record's; where zstd.h or libzstd is missing the
+    phase says it did not run, and why."""
+    import ctypes
+    from arcflow_tpu_torch.data import ImagePrompt
+    from arcflow_tpu_torch.data import _fastloader as fastloader
+    header, libpath = zstd_available()
+    zstandard = importlib.util.find_spec('zstandard') is not None
+    if not header or libpath is None:
+        fast = fastloader.get_fastloader()
+        if fast is not None:
+            raise AssertionError('the loader built without zstd.h')
+        log(f'phase 43 the native loader: did not run | zstd.h found by '
+            f'g++: {header}, libzstd: {libpath}, zstandard: {zstandard} | '
+            f'get_fastloader() is None: {fastloader.unavailable_reason()}')
+        return dict(ran=False, header=header, lib=libpath)
+    t = time.perf_counter()
+    fast = fastloader.get_fastloader()
+    build_s = time.perf_counter() - t
+    if fast is None:
+        raise AssertionError(f'zstd.h and libzstd are here but the loader '
+                             f'did not build: '
+                             f'{fastloader.unavailable_reason()}')
+    work = tempfile.mkdtemp(prefix='fastloader-', dir=_build.BUILD_DIR)
+    try:
+        g = torch.Generator(device='cuda').manual_seed(SEED + 43)
+        records = write_prompt_cache(work, FASTLOADER_RECORDS,
+                                     ctypes.CDLL(libpath), g)
+        ds = ImagePrompt(cache_dir=os.path.join(work, 'cache'),
+                         datalist_path=os.path.join(work, 'datalist.jsonl'),
+                         latent_size=(128, 128, 16))
+        batches = []
+        real = fast.load_batch
+
+        class Counted:
+            def load_batch(self, paths, **kw):
+                batches.append(len(paths))
+                return real(paths, **kw)
+        with mock.patch.object(fastloader, 'get_fastloader',
+                               lambda: Counted()):
+            items = ds.getitems(range(FASTLOADER_RECORDS))
+        if batches != [FASTLOADER_RECORDS]:
+            raise AssertionError(f'getitems read batches {batches}')
+        for item, rec in zip(items, records):
+            pek = item['prompt_embed_kwargs']
+            want = {k: v.float().numpy()
+                    for k, v in rec['prompt_embed_kwargs'].items()}
+            if item['name'] != rec['prompt'] or any(
+                    not np.array_equal(pek[k], w) for k, w in want.items()) \
+                    or not np.array_equal(item['latents'], np.moveaxis(
+                        rec['latents'].numpy(), 0, -1)):
+                raise AssertionError(f'item {item["ids"]} differs from its '
+                                     f'record')
+        paths = [ds._record_path(i) for i in range(FASTLOADER_RECORDS)]
+        raw_mb = sum(os.path.getsize(p) for p in paths) / 1e6
+        out_mb = sum(len(b) for b in fast.load_batch(paths)) / 1e6
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            fast.load_batch(paths)
+            times.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        ds.getitems(range(FASTLOADER_RECORDS))
+        items_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f'phase 43 the native loader: ok | zstd.h found by g++, libzstd '
+        f'{libpath}, zstandard installed: {zstandard} | built in '
+        f'{build_s:.2f} s into {fastloader.library_path().name} | '
+        f'ImagePrompt.getitems decoded {FASTLOADER_RECORDS} records (FLUX '
+        f'embeds 512 x 4096 + 768 bf16, latents 16 x 128 x 128 fp32; half '
+        f'the frames without their content size) in one batch, every array '
+        f'bitwise its record | load_batch of {raw_mb:.1f} MB of frames to '
+        f'{out_mb:.1f} MB, warm file cache: '
+        + ', '.join(f'{x * 1e3:.1f}' for x in times)
+        + f' ms ({out_mb / min(times):.0f} MB/s); getitems with unpickling '
+        f'{items_s * 1e3:.1f} ms')
+    return dict(ran=True, build_s=build_s, load_ms=[x * 1e3 for x in times],
+                mb=out_mb, getitems_ms=items_s * 1e3)
+
+
+def cut_depth(cfg, depth):
+    """``cfg``'s student and teacher at ``depth`` (block counts)."""
+    cfg.merge_from_dict({f'model.{k}.denoising.{f}': v
+                         for k in ('diffusion', 'teacher')
+                         for f, v in depth.items()})
+    return cfg
+
+
+def quant_params(model):
+    """{name: tensor} of the student trunk's frozen int8 / int4 kernels and
+    scales (``utils/quantize.py:QUANT_NAMES``)."""
+    from arcflow_tpu_torch.utils.quantize import QUANT_NAMES
+    return {n: b for n, b in model.diffusion.denoising.named_buffers()
+            if n.rsplit('.', 1)[-1] in QUANT_NAMES}
+
+
+def local_bytes(tensors):
+    """Bytes of the storage the local parts of ``tensors`` hold (unique
+    storages, so a part that kept its whole tensor alive counts whole)."""
+    return sum({local(t).untyped_storage().data_ptr():
+                local(t).untyped_storage().nbytes()
+                for t in tensors}.values())
+
+
+def phase_trunk_fsdp():
+    """Phase 44: each of ``TRUNK_FSDP`` at reduced depth and full width
+    through ``train_model`` over data=1, fsdp=-1 (FSDP2 at world size 1,
+    in a process group of one) against the same config without a mesh:
+    the int8 / int4 kernels and their scales sharded beside FSDP2's units
+    (``parallel/fsdp.py:_QuantShards``: DTensor buffers, each unit's
+    gathered in one all-gather of bytes), sharded again after the step
+    (its checkpointed blocks' recompute put them back), the launches per
+    iteration, the loss and
+    (FLUX: ``IterLogs`` reads ``TEMB_UPSTREAM``) the timestep embedder's
+    gradients within TRAIN_SLICE_REL_L2 of the run without a mesh, the
+    quantized trunk unchanged by the step."""
+    work = tempfile.mkdtemp(prefix='trunk-fsdp-', dir=_build.BUILD_DIR)
+    setup_distributed()
+    res = {}
+    try:
+        for name, path, depth in TRUNK_FSDP:
+            ref = mesh_train_run(cut_depth(mesh_train_config(
+                path, 1, 0, unsharded=True), depth),
+                os.path.join(work, f'{name}-ref'), SEED + 44,
+                keep_first=True)
+            ref_loss, ref_grads = ref['rows'][0]['loss'], ref['grads']
+            ref_quant = {n: p.detach().clone()
+                         for n, p in quant_params(ref['model']).items()}
+            del ref
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg = cut_depth(mesh_train_config(path, 1, 0,
+                                              mesh=dict(data=1, fsdp=-1)),
+                            depth)
+            run = mesh_train_run(cfg, os.path.join(work, name), SEED + 44,
+                                 keep_first=True)
+            quant = quant_params(run['model'])
+            n_blocks = sum(depth.values())
+            want = (TRAIN_FORWARDS * n_blocks, TRAIN_BACKWARDS * n_blocks, 0)
+            loss = run['rows'][0]['loss']
+            grads = {n: rel_l2(g, ref_grads[n])
+                     for n, g in run['grads'].items()}
+            x = dict(
+                launches=run['launches'][0], want=want, loss=loss,
+                ref_loss=ref_loss, loss_rel=abs(loss - ref_loss)
+                / abs(ref_loss), grad_rel=grads, n_quant=len(quant),
+                dtypes=sorted({str(p.dtype) for p in quant.values()}),
+                # read after the iteration: the checkpointed blocks'
+                # recompute put their gathered kernels back
+                sharded=all(is_sharded(p) for p in quant.values()),
+                same_values=all(torch.equal(p.full_tensor(), ref_quant[n])
+                                for n, p in quant.items()),
+                quant_gib=local_bytes(quant.values()) / 2 ** 30,
+                s_per_iter=run['s_per_iter'][0], peak_gib=run['peak_gib'])
+            if x['launches'] != want or not x['n_quant'] \
+                    or not x['sharded'] or not x['same_values'] \
+                    or not math.isfinite(loss) \
+                    or x['loss_rel'] > TRAIN_SLICE_REL_L2 or grads \
+                    and max(grads.values()) > TRAIN_SLICE_REL_L2:
+                raise AssertionError(f'phase 44 {name}: {x}')
+            res[name] = x
+            del run, quant, ref_quant
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        dist.destroy_process_group()
+    for name, path, depth in TRUNK_FSDP:
+        x = res[name]
+        log(f'phase 44 {name} trunk under FSDP2 ({path} through train_model, '
+            f'parallel.mesh data=1, fsdp=-1 on one card; cuts: depth '
+            f'{depth}, phase 31\'s others): ok | {x["n_quant"]} quantized '
+            f'kernels and scales ({", ".join(x["dtypes"])}) sharded beside '
+            f'FSDP2\'s units (DTensor buffers), {x["quant_gib"]:.3f} GiB, '
+            f'unchanged by the step | launches per iteration (K1/K2, K3, K4) {x["launches"]} '
+            f'| first loss {x["loss"]:.6e} against {x["ref_loss"]:.6e} '
+            f'without a mesh (rel {x["loss_rel"]:.3e}), timestep embedder '
+            f'gradients rel L2 ' + (', '.join(
+                f'{v:.3e}' for v in x['grad_rel'].values()) or 'not read')
+            + f' (bound {TRAIN_SLICE_REL_L2}) | s per iteration '
+            f'{x["s_per_iter"]:.4f}, peak {x["peak_gib"]:.2f} GiB')
+    return res
+
+
+def phase_w8a8_fsdp():
+    """Phase 44b: FLUX w8a8 (phase 21's mode) at full width and
+    ``W8A8_FSDP_DEPTH`` (bf16, random weights) served 2-NFE at 1024^2
+    with its units sharded by ``parallel/fsdp.py:shard_units`` over a
+    (data 1, fsdp 1) mesh in a process group of one, against the same
+    pipeline unsharded: each unit's int8 kernels come back from the
+    gather column-major, as the int8 product reads them, so the latents
+    are those of the live kernels. The K1 launches of the counted run,
+    the kernels sharded before and after it. Both calls run under
+    ``no_grad`` in place of the pipeline's ``inference_mode``: FSDP2 at
+    world size 1 reads its gathered parameters' version counters, which
+    inference tensors lack (torch 2.13 on the CPU); over more ranks
+    ``shard`` serves under ``inference_mode``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from arcflow_tpu_torch.parallel.fsdp import shard_units
+    g = torch.Generator(device='cuda').manual_seed(SEED + 46)
+    with torch.device('cuda'):
+        model = ArcFluxTransformer2DModel(
+            dtype=torch.bfloat16, **dict(FLUX_12B, **W8A8_FSDP_DEPTH))
+    randomize_(model, g)
+    pipe = ArcFluxPipeline(model)
+    n_quant = pipe.quantize_int8(act_quant=True)
+    embeds = flux_inputs(g)
+    latents = pipe.prepare_latents(1, 1024, 1024, generator=g, device='cuda')
+
+    def call():
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = ArcFluxPipeline.__call__.__wrapped__(
+                pipe, prompt_embeds=embeds, latents=latents,
+                output_type='latent')
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+    call()
+    plain, t_plain = call()
+
+    def kernels():
+        return [m._buffers['kernel'] for m in model.modules()
+                if isinstance(m._buffers.get('kernel'), torch.Tensor)]
+    setup_distributed()                 # a process group of one
+    try:
+        model.requires_grad_(False)
+        shard_units(model, init_device_mesh('cuda', (1, 1),
+                                            mesh_dim_names=('data', 'fsdp')))
+        before = all(is_sharded(k) for k in kernels())
+        call()
+        attn.LAUNCHES = 0                   # the main path's counted run
+        out, t_sharded = call()
+        launches = attn.LAUNCHES
+        after = all(is_sharded(k) for k in kernels())
+    finally:
+        dist.destroy_process_group()
+    want = 2 * sum(W8A8_FSDP_DEPTH.values())
+    got, ref = out['latents'], plain['latents']
+    rel = rel_l2(got, ref)
+    if launches != want or not (before and after) or not n_quant \
+            or not torch.isfinite(got).all() or rel > SP_IMAGE_REL_L2:
+        raise AssertionError(f'phase 44b: {launches} K1 (want {want}), '
+                             f'sharded {before} / {after}, latents rel L2 '
+                             f'{rel:.3e}')
+    log(f'phase 44b FLUX w8a8 served with its units and int8 kernels '
+        f'sharded by shard_units (full width, depth {W8A8_FSDP_DEPTH}, '
+        f'2-NFE 1024^2 latents, data=1 x fsdp=1 in a process group of '
+        f'one): ok | {n_quant} layers quantized | K1 launches {launches} | '
+        f'latents rel L2 {rel:.3e} against the unsharded pipeline '
+        f'(bitwise: {torch.equal(got, ref)}) | s per call {t_sharded:.4f} '
+        f'against {t_plain:.4f} unsharded')
+    del pipe, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, rel=rel, s=t_sharded, plain_s=t_plain)
+
+
+def phase_local_pipe_serving():
+    """Phase 45: FLUX at full width and ``PIPE_SERVE_DEPTH`` (bf16, random
+    weights) served 2-NFE at 1024^2 with both block stacks on
+    ``LocalPipe(2)`` (one microbatch at batch 1: the bubble, no overlap)
+    against the same pipeline without a pipe: the K1 launches of the
+    counted run, the latents against the plain ones."""
+    g = torch.Generator(device='cuda').manual_seed(SEED + 45)
+    with torch.device('cuda'):
+        model = ArcFluxTransformer2DModel(
+            dtype=torch.bfloat16, **dict(FLUX_12B, **PIPE_SERVE_DEPTH))
+    randomize_(model, g)
+    pipe = ArcFluxPipeline(model)
+    embeds = flux_inputs(g)
+    latents = pipe.prepare_latents(1, 1024, 1024, generator=g, device='cuda')
+    timed_call(pipe, embeds, latents, output_type='latent')
+    plain, t_plain = timed_call(pipe, embeds, latents, output_type='latent')
+    set_pipe(model, LocalPipe(2))
+    timed_call(pipe, embeds, latents, output_type='latent')
+    attn.LAUNCHES = 0                       # the main path's counted run
+    out, t_pipe = timed_call(pipe, embeds, latents, output_type='latent')
+    launches = attn.LAUNCHES
+    want = 2 * sum(PIPE_SERVE_DEPTH.values())
+    got, ref = out['latents'], plain['latents']
+    rel = rel_l2(got, ref)
+    if launches != want or not torch.isfinite(got).all() \
+            or rel > SP_IMAGE_REL_L2:
+        raise AssertionError(f'phase 45: {launches} K1 (want {want}), '
+                             f'latents rel L2 {rel:.3e}')
+    log(f'phase 45 FLUX serving on LocalPipe(2) (full width, depth '
+        f'{PIPE_SERVE_DEPTH}, bf16, 2-NFE 1024^2 latents, both stacks '
+        f'pipelined, 1 microbatch): ok | K1 launches {launches} | latents '
+        f'rel L2 {rel:.3e} against the plain loop (bitwise: '
+        f'{torch.equal(got, ref)}) | s per call {t_pipe:.4f} against '
+        f'{t_plain:.4f} plain')
+    del pipe, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, rel=rel, s=t_pipe, plain_s=t_plain)
+
+
+def main_placement():
+    """Phases 43-45 alone (``chip_smoke.py --placement``, the child process
+    that ``start_placement`` starts beside phases 28r-30); writes what the
+    parent reads to the file named after the flag."""
+    if not torch.cuda.is_available():
+        raise SystemExit('FAIL placement: torch.cuda.is_available() is false')
+    torch.manual_seed(SEED)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    res = dict(fastloader=phase_fastloader())
+    res['trunk_fsdp'] = phase_trunk_fsdp()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res['w8a8_fsdp'] = phase_w8a8_fsdp()
+    res['local_pipe'] = phase_local_pipe_serving()
+    with open(sys.argv[2], 'w') as f:
+        json.dump(res, f)
+    return 0
+
+
+def start_child(flag, prefix, *args):
+    """``chip_smoke.py flag *args`` in a process of its own, its output to
+    files (a pipe left unread would block it)."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix=prefix, dir=_build.BUILD_DIR)
+    out = open(os.path.join(work, 'out.log'), 'w')
+    err = open(os.path.join(work, 'err.log'), 'w')
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag,
+         *[a.format(work=work) for a in args]],
+        stdout=out, stderr=err, text=True)
+    return dict(proc=proc, work=work, files=(out, err))
+
+
+def stop_child(child):
+    """End the child if it still runs; remove its files."""
+    if child['proc'].poll() is None:
+        child['proc'].kill()
+        child['proc'].wait()
+    for f in child['files']:
+        f.close()
+    shutil.rmtree(child['work'], ignore_errors=True)
+
+
+def finish_child(child, what, prefixes, timeout, result=None):
+    """Wait for the child and print its lines that start with one of
+    ``prefixes``; fails unless it exits 0. Returns the JSON it wrote to
+    ``result`` in its directory, if any."""
+    try:
+        rc = child['proc'].wait(timeout=timeout)
+        for f in child['files']:
+            f.flush()
+        with open(os.path.join(child['work'], 'out.log')) as f:
+            stdout = f.read()
+        with open(os.path.join(child['work'], 'err.log')) as f:
+            stderr = f.read()
+        out = None
+        if rc == 0 and result is not None:
+            with open(os.path.join(child['work'], result)) as f:
+                out = json.load(f)
+    finally:
+        stop_child(child)
+    for line in stdout.splitlines():
+        if line.startswith(prefixes):
+            print(line, flush=True)
+    if rc != 0:
+        raise AssertionError(f'{what} exited {rc}:\n'
+                             f'{stdout[-3000:]}\n{stderr[-3000:]}')
+    return out
+
+
+def start_placement():
+    """Phases 43-45 in a child started with phases 32-33's, beside phases
+    28r-30, 26, 23 and 37 (no profiler there): the smoke's time limit
+    leaves no room for them in this process."""
+    return start_child('--placement', 'placement-',
+                       '{work}/placement.json')
+
+
+def finish_placement(child):
+    return finish_child(child, 'phases 43-45', ('phase 4',),
+                        PLACEMENT_TIMEOUT, 'placement.json')
+
+
+# --ranks 4 --placement-only serving: (name, model, mesh); batch 1 on
+# every rank (an indivisible batch runs whole on each)
+PL_SERVING = (('flux_fsdp4', 'flux', {'fsdp': 4}),
+              ('flux_fsdp2_tensor2', 'flux', {'fsdp': 2, 'tensor': 2}),
+              ('qwen_w4a8_fsdp4', 'qwen', {'fsdp': 4}),
+              ('flux_data2_pipe2', 'flux', {'data': 2, 'pipe': 2}),
+              ('flux_moe_pipe2_expert2', 'flux_moe',
+               {'pipe': 2, 'expert': 2}))
+PL_TRAIN_ITERS = 2
+# --placement-only --quantized-only: the layouts that shard a quantized
+# trunk (the serving case here, then pl_train)
+PL_QUANTIZED = ('qwen_w4a8_fsdp4',)
+# at most this share of the one-card weights a rank may hold under fsdp
+# (FSDP2 pads each tensor's dim 0 to a multiple of fsdp)
+PL_FSDP_HELD = 1.02
+
+
+def pl_serving_launches(family, axes):
+    """K1 / K2 and K5 launches per rank and image: every rank runs the
+    whole image (batch 1), a pipe stage its own blocks and those of the
+    stacks the pipe degree does not divide."""
+    if family == 'qwen':
+        n = QWEN_20B['num_layers']
+        return dict(attention=2 * n, ring_hop=0,
+                    w4a8=2 * (INT4_OUTSIDE_BLOCKS + INT4_PER_BLOCK * n))
+    s = axes.get('pipe', 1)
+    n = sum(k if k % s else k // s for k in (FLUX_12B['num_layers'],
+                                             FLUX_12B['num_single_layers']))
+    return dict(attention=2 * n, ring_hop=0, w4a8=0)
+
+
+def pl_serve(family, axes, pipe, embeds, latents, one):
+    """One placement case on this rank: shard ``pipe`` over ``axes``, a
+    cold then a counted image, the latents against one card's ``one``,
+    the weights and memory a rank holds, one profiled image's NCCL
+    share."""
+    whole_gib = local_bytes(pipe.transformer.state_dict().values()) / 2 ** 30
+    pipe.shard(dict(axes))
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gib = local_bytes(pipe.transformer.state_dict().values()) / 2 ** 30
+    resident_gib = torch.cuda.memory_allocated() / 2 ** 30
+    _, t_cold = timed_call(pipe, embeds, latents, output_type='pt')
+    torch.cuda.reset_peak_memory_stats()
+    attn.LAUNCHES = hop.LAUNCHES = qmm.LAUNCHES = 0  # the counted run
+    out, t_e2e = timed_call(pipe, embeds, latents, output_type='pt')
+    launches = dict(attention=attn.LAUNCHES, ring_hop=hop.LAUNCHES,
+                    w4a8=qmm.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_image(out['images'])
+    lat = timed_call(pipe, embeds, latents, output_type='latent')[0][
+        'latents']
+    times = [timed_call(pipe, embeds, latents, output_type='pt')[1]
+             for _ in range(2)]
+    wall, busy, by_name = profile_split(
+        lambda: pipe(prompt_embeds=embeds, latents=latents, output_type='pt'))
+    return dict(
+        mesh=axes, launches=launches,
+        want_launches=pl_serving_launches(family, axes),
+        rel_l2=rel_l2(lat, one), bitwise=torch.equal(lat, one),
+        latents=lat.float().cpu(), s_per_image=[t_e2e] + times,
+        cold_s=t_cold, whole_gib=whole_gib, held_gib=held_gib,
+        resident_gib=resident_gib, peak_gib=peak_gib,
+        profiled_wall_s=wall, device_busy_s=busy,
+        nccl=nccl_split(by_name, wall, busy, ('AllGather', 'AllReduce',
+                                              'SendRecv', 'Broadcast')))
+
+
+def pl_build(family):
+    """``tp_build``'s FLUX-12B or Qwen-Image 20B w4a8, or FLUX-12B with
+    ``moe_experts=2`` at capacity 1 (phase 41's model) with phase 6's
+    VAE and inputs."""
+    if family != 'flux_moe':
+        return tp_build(family)
+    torch.manual_seed(SEED)
+    g = torch.Generator(device='cuda').manual_seed(SEED + 2)
+    with torch.device('cuda'):
+        model = ArcFluxTransformer2DModel(dtype=torch.bfloat16, moe_experts=2,
+                                          moe_capacity_factor=1.0,
+                                          **FLUX_12B)
+        vae = PretrainedVAE(dtype=torch.bfloat16)
+    randomize_(model, g)
+    pipe = ArcFluxPipeline(model, vae=vae)
+    embeds = flux_inputs(g)
+    latents = pipe.prepare_latents(1, 1024, 1024, generator=g, device='cuda')
+    return pipe, embeds, latents
+
+
+def pl_train(out_dir):
+    """The Qwen-Image 20B int8-trunk config over its shipped mesh (data=2,
+    fsdp=-1) at phase 31's cuts and 1 row a rank (as ``--ranks 4`` reads
+    it with the trunk whole), its trunk sharded: s per iteration, peaks, the trunk's bytes on this rank,
+    every rank's shards against the checkpoint gathered from data replica
+    0 and its int8 shards against their parts of the trunk gathered
+    whole. Every rank works in ``out_dir`` (one checkpoint directory for
+    all, as rank 0 writes it and the others look for its steps)."""
+    cfg = mesh_train_config(QWEN_TRAIN_CONFIG, PL_TRAIN_ITERS,
+                            PL_TRAIN_ITERS, samples=1)
+    run = mesh_train_run(cfg, os.path.join(out_dir, 'work', 'qwen'),
+                         SEED + 32)
+    state, model = run['state'], run['model']
+    mesh = next(iter(state.trainable['diffusion'].values())).device_mesh
+    raw = load_raw_checkpoint(run['manager'].directory)
+    shards_bad = state_mismatches(state, raw)
+    del raw
+    quant = quant_params(model)
+    quant_bad = [n for n, p in quant.items()
+                 if not torch.equal(local(p), shard_of(p.full_tensor(),
+                                                       p))]
+    teacher = model.teacher.denoising.transformer_blocks
+    x = dict(
+        mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+        iters=PL_TRAIN_ITERS, launches=run['launches'],
+        rows=run['rows'], s_per_iter=run['s_per_iter'],
+        s_per_step=run['s_per_step'], peak_gib=run['peak_gib'],
+        build_peak_gib=run['build_peak_gib'],
+        n_shards_bad=len(shards_bad), shards_bad=shards_bad[:5],
+        quant_bad=quant_bad[:5], n_quant=len(quant),
+        quant_sharded=all(is_sharded(p) for p in quant.values()),
+        quant_gib=local_bytes(quant.values()) / 2 ** 30,
+        quant_whole_gib=sum(p.numel() * p.element_size()
+                            for p in quant.values()) / 2 ** 30,
+        tied=teacher is model.diffusion.denoising.transformer_blocks,
+        resident_gib=torch.cuda.memory_allocated() / 2 ** 30)
+    step = build_train_step(model, state.optimizers, model.train_cfg,
+                            ema_config_from_cfg(cfg), mesh=mesh)
+    index, _ = batch_ranks(mesh)
+    batch = to_device(t_train.build_dataset(cfg.data.train).batch(
+        np.random.default_rng([SEED, index]), 1),
+        torch.device('cuda', torch.cuda.current_device()))
+    wall, busy, by_name = profile_split(lambda: step(state, batch))
+    x.update(profiled_wall_s=wall, device_busy_s=busy,
+             nccl=nccl_split(by_name, wall, busy),
+             prefetch_ab=pl_prefetch_ab(step, state, batch))
+    del run, state, model, step, batch, quant
+    gc.collect()
+    torch.cuda.empty_cache()
+    return x
+
+
+def pl_prefetch_ab(step, state, batch):
+    """s per step of ``step`` with the quantized trunk's gathers started a
+    unit ahead (``parallel/fsdp.py:_Prefetch``, 'ahead') and with each
+    started where it is waited on ('waited', the gather before the
+    prefetch), on one state, in the order ahead, waited, waited, ahead."""
+    from arcflow_tpu_torch.parallel import fsdp as pfsdp
+    ahead = pfsdp._Prefetch.gather
+
+    def waited(self, unit):
+        work, out = unit.start()
+        work.wait()
+        return out
+    times = dict(ahead=[], waited=[])
+    try:
+        for mode in ('ahead', 'waited', 'waited', 'ahead'):
+            pfsdp._Prefetch.gather = ahead if mode == 'ahead' else waited
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            times[mode].append(time.perf_counter() - t)
+    finally:
+        pfsdp._Prefetch.gather = ahead
+    return times
+
+
+def pl_cases(names):
+    """The entries of ``PL_SERVING`` named in ``names``."""
+    return [c for c in PL_SERVING if c[0] in names]
+
+
+def pl_rank_main(out_dir, names):
+    """One rank of ``--ranks N --placement-only``: each of ``PL_SERVING``
+    named in ``names`` against the one-card image this rank makes of the
+    same weights first, then ``pl_train``. Writes ``pl{r}.json`` and ``pl{r}.pt`` (the
+    latents)."""
+    setup_distributed(timeout=600.0)
+    rank = dist.get_rank()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res, lats = dict(rank=rank, cases=list(names)), {}
+    for name, family, axes in pl_cases(names):
+        pipe, embeds, latents = pl_build(family)
+        timed_call(pipe, embeds, latents, output_type='latent')
+        out, t_one = timed_call(pipe, embeds, latents, output_type='latent')
+        res[f'{name}_one_card'] = dict(s_latents=t_one)
+        res[name] = pl_serve(family, axes, pipe, embeds, latents,
+                             out['latents'])
+        lats[name] = res[name].pop('latents')
+        del pipe, embeds, latents, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    res['train'] = pl_train(out_dir)
+    with open(os.path.join(out_dir, f'pl{rank}.json'), 'w') as f:
+        json.dump(res, f)
+    torch.save(lats, os.path.join(out_dir, f'pl{rank}.pt'))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def check_pl_ranks(ranks, lats, n):
+    """--placement-only read across the ranks: the launches, every rank's
+    latents bitwise rank 0's and within the one-card bound, the weights a
+    rank holds; training's launches, shards and losses."""
+    bad = []
+    cases = pl_cases(ranks[0]['cases'])
+    for name, family, axes in cases:
+        bound = TP_QUANT_IMAGE_REL_L2 if family == 'qwen' else TP_IMAGE_REL_L2
+        # under fsdp x tensor the tensors the split keeps whole (embedders,
+        # heads, units under min_size) are cut by fsdp alone
+        share = PL_FSDP_HELD / axes.get('fsdp', 1)
+        for r, lat in zip(ranks, lats):
+            got = r[name]
+            if got['launches'] != got['want_launches']:
+                bad.append((r['rank'], name, 'launches', got['launches']))
+            if not got['rel_l2'] <= bound:
+                bad.append((r['rank'], name, 'one card', got['rel_l2']))
+            if not torch.equal(lat[name], lats[0][name]):
+                bad.append((r['rank'], name, 'rank 0 latents'))
+            if not got['held_gib'] < got['whole_gib'] or 'fsdp' in axes \
+                    and got['held_gib'] > share * got['whole_gib']:
+                bad.append((r['rank'], name, 'held', got['held_gib'],
+                            got['whole_gib']))
+    n_blocks = QWEN_20B['num_layers']
+    want = [TRAIN_FORWARDS * n_blocks, TRAIN_BACKWARDS * n_blocks, 0]
+    for r in ranks:   # read back from JSON: lists
+        x = r['train']
+        if x['launches'] != [want] * x['iters'] or x['n_shards_bad'] \
+                or x['quant_bad'] or not x['quant_sharded'] \
+                or not x['tied'] \
+                or x['quant_gib'] > PL_FSDP_HELD / 2 * x['quant_whole_gib'] \
+                or [row['loss'] for row in x['rows']] != [
+                    row['loss'] for row in ranks[0]['train']['rows']] \
+                or not all(math.isfinite(row['loss']) for row in x['rows']):
+            bad.append((r['rank'], 'train', {k: x[k] for k in (
+                'launches', 'shards_bad', 'quant_bad', 'quant_sharded',
+                'tied', 'quant_gib', 'quant_whole_gib', 'rows')}))
+    for name, family, axes in cases:
+        x = ranks[0][name]
+        log(f'phase RPL serving {name} on {n} NCCL ranks (mesh {axes}, batch '
+            f'1 whole on every rank): {"FAIL" if bad else "ok"} | launches '
+            f'per rank and image {x["launches"]} | latents rel L2 against '
+            f'one card {x["rel_l2"]:.3e} (bitwise: {x["bitwise"]}) on rank '
+            f'0, every rank bitwise rank 0 | s per image (counted, then 2 '
+            f'warm) ' + ', '.join(f'{s:.4f}' for s in x['s_per_image'])
+            + f' against one card '
+            f'{ranks[0][f"{name}_one_card"]["s_latents"]:.4f} s (latents '
+            f'only) | weights held ' + ', '.join(
+                f'{r[name]["held_gib"]:.2f}' for r in ranks)
+            + f' of {x["whole_gib"]:.2f} GiB (ranks 0-{n - 1}) | resident '
+            f'{x["resident_gib"]:.2f} GiB, peak {x["peak_gib"]:.2f} GiB | '
+            f'profiled image: wall {x["profiled_wall_s"]:.4f} s, device '
+            f'busy {x["device_busy_s"]:.4f} s; NCCL ' + ', '.join(
+                f'{k} {v["ms"]:.1f} ms ({100 * v["share_of_wall"]:.1f}% of '
+                f'wall)' for k, v in x['nccl'].items()))
+    x = ranks[0]['train']
+    log(f'phase RPL Qwen-Image 20B int8-trunk training through train_model '
+        f'on {n} NCCL ranks (mesh {x["mesh"]}, as shipped; phase 31\'s cuts, '
+        f'1 row a rank, {x["iters"]} iterations): {"FAIL" if bad else "ok"} '
+        f'| launches per iteration {x["launches"][0]} | losses '
+        + ', '.join(f'{row["loss"]:.5e}' for row in x['rows'])
+        + f' on every rank | {x["n_quant"]} int8 kernels and scales sharded '
+        f'(the teacher on the student\'s trunk): {x["quant_gib"]:.2f} of '
+        f'{x["quant_whole_gib"]:.2f} GiB on each rank, every rank\'s shards '
+        f'equal to their parts of the trunk gathered whole and of the '
+        f'checkpoint gathered from data replica 0 | rank 0 profiled step: '
+        f'wall {x["profiled_wall_s"]:.4f} s, device busy '
+        f'{x["device_busy_s"]:.4f} s; NCCL ' + ', '.join(
+            f'{k} {v["ms"]:.1f} ms ({100 * v["share_of_wall"]:.1f}% of wall)'
+            for k, v in x['nccl'].items()) + ' | s per step, the quantized '
+        f'gathers started a unit ahead / each where it is waited on (order '
+        f'ahead, waited, waited, ahead): ' + ' ; '.join(
+            f'rank {r["rank"]}: ' + ', '.join(
+                f'{v:.4f}' for v in r['train']['prefetch_ab']['ahead'])
+            + ' / ' + ', '.join(
+                f'{v:.4f}' for v in r['train']['prefetch_ab']['waited'])
+            for r in ranks) + ' | ' + ' ; '.join(
+            f'rank {r["rank"]}: s per iteration ' + ', '.join(
+                f'{v:.4f}' for v in r['train']['s_per_iter'])
+            + f', peak {r["train"]["peak_gib"]:.2f} GiB training '
+            f'({r["train"]["build_peak_gib"]:.2f} building), resident '
+            f'{r["train"]["resident_gib"]:.2f} GiB' for r in ranks))
+    if bad:
+        raise AssertionError(f'--ranks {n} --placement-only failed: {bad}')
+
+
+def main_placement_ranks(n, smi, out_dir, quantized_only=False):
+    """``--ranks n --placement-only`` (4 ranks): ``pl_rank_main`` on each,
+    over every serving case or (``--quantized-only``) ``PL_QUANTIZED``."""
+    names = PL_QUANTIZED if quantized_only else [c[0] for c in PL_SERVING]
+    t = time.perf_counter()
+    spawn(pl_rank_main, n, (out_dir, tuple(names)), timeout=1500.0)
+    wall = time.perf_counter() - t
+    ranks = [json.load(open(os.path.join(out_dir, f'pl{r}.json')))
+             for r in range(n)]
+    lats = [torch.load(os.path.join(out_dir, f'pl{r}.pt'))
+            for r in range(n)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(json.dumps({'placement': ranks}))
+    check_pl_ranks(ranks, lats, n)
+    log(f'phase RPL the weights\' placement on {n} NCCL ranks: ok in '
+        f'{wall:.1f} s (builds, one-card images, images and iterations '
+        f'included)')
+    print(smi)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
     if sys.argv[1:2] == ['--imagenet']:
         return main_imagenet()
+    if sys.argv[1:2] == ['--placement']:
+        return main_placement()
     if sys.argv[1:2] == ['--ranks']:
         sp_only = '--sp-train-only' in sys.argv[3:]
         return main_ranks(int(sys.argv[2]),
@@ -7520,7 +8334,9 @@ def main():
                           and '--train-only' not in sys.argv[3:],
                           mesh_train=not sp_only,
                           pipe_expert='--pipe-expert-only' in sys.argv[3:],
-                          tensor='--tensor-only' in sys.argv[3:])
+                          tensor='--tensor-only' in sys.argv[3:],
+                          placement='--placement-only' in sys.argv[3:],
+                          quantized_only='--quantized-only' in sys.argv[3:])
     smi = phase_facts()
     torch.manual_seed(SEED)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7616,6 +8432,7 @@ def main():
     # beside it, and it starts that much earlier
     imagenet = start_imagenet()
     toy = start_toy_validation()
+    placement = start_placement()
     try:
         qwen_runner = phase_qwen_train_runner(qwen_run)
         del qwen_run
@@ -7632,10 +8449,12 @@ def main():
         torch.cuda.empty_cache()
         phase_toy_cli()
         phase_tools(toy)
+        placed = finish_placement(placement)
         finish_imagenet(imagenet)
     finally:
         stop_toy_validation(toy)
-        stop_imagenet(imagenet)
+        stop_child(placement)
+        stop_child(imagenet)
     fwd = attn_timed['unmasked']
     ff_in = w4a8_timed[0]
     fwd_by_path = {'flux': flux_launches, 'qwen': qwen_launches['attention'],
@@ -7657,7 +8476,11 @@ def main():
                    'flux_local_tensor': flux_tp['launches'],
                    'flux_w8a8_local_tensor':
                    flux_tp_w8a8['launches']['attention'],
-                   'qwen_local_tensor': qwen_tp['launches']['attention']}
+                   'qwen_local_tensor': qwen_tp['launches']['attention'],
+                   'flux_local_pipe_serving':
+                   placed['local_pipe']['launches'],
+                   **{f'{name}_trunk_fsdp': x['launches'][0]
+                      for name, x in placed['trunk_fsdp'].items()}}
     bwd_by_path = {'flux_train': train_launches['backward'],
                    'flux_train_runner': runner_launches['backward'],
                    'flux_mesh_train': mesh_launches['backward'],
@@ -7665,7 +8488,9 @@ def main():
                    'qwen_train_runner': qwen_runner['backward'],
                    'flux_train_local_ring': flux_ring_train['k3'],
                    'qwen_train_local_ring': qwen_ring['k3'],
-                   'flux_train_local_pipe': flux_pipe_train['k3']}
+                   'flux_train_local_pipe': flux_pipe_train['k3'],
+                   **{f'{name}_trunk_fsdp': x['launches'][1]
+                      for name, x in placed['trunk_fsdp'].items()}}
     hop_by_path = {'flux_local_ring': ring_launches,
                    'flux_train_local_ring': flux_ring_train['k4'],
                    'qwen_train_local_ring': qwen_ring['k4']}

@@ -29,6 +29,7 @@ import torch
 
 from arcflow_tpu_torch import Config
 from arcflow_tpu_torch.apis import train as t_train
+from arcflow_tpu_torch.data import _fastloader as fastloader
 from arcflow_tpu_torch.runner import EvalHook, GradClipConfig
 
 torch.set_num_threads(2)
@@ -167,9 +168,14 @@ def test_unreadable_cache_without_a_text_encoder_raises_before_training(
     no_zstd = mock.patch.object(
         t_train.importlib.util, 'find_spec',
         lambda name, *a: None if name == 'zstandard' else real(name, *a))
+    # nor the native loader, which reads the records without zstandard
+    no_native = mock.patch.object(fastloader, 'get_fastloader',
+                                  lambda: None)
     why = 'r0.zst is missing' if missing == 'records' \
-        else 'zstandard is not installed'
+        else 'zstandard is not installed and the native loader'
     with (no_zstd if missing == 'zstandard' else contextlib.nullcontext()), \
+            (no_native if missing == 'zstandard'
+             else contextlib.nullcontext()), \
             mock.patch.object(t_train, 'IterBasedRunner',
                               side_effect=AssertionError('runner built')), \
             pytest.raises(ValueError, match=f'preproc_flux .*{why}.* '

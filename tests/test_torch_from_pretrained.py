@@ -404,6 +404,9 @@ def test_cli_from_a_prompt_and_from_embeds(folders, params, family,
                     ) == 0
     lat = np.load(out)
     assert lat.shape == (1, 8, 8, 4) and np.isfinite(lat).all()
-    with pytest.raises(NotImplementedError, match='only sp'):
+    # --mesh joins a process group (one process here, where fsdp=2 does
+    # not meet the device count, as in JAX) and leaves it on the way out
+    with pytest.raises(ValueError, match='!= 1 devices'):
         cli.main(['--model-dir', folders[family], '--prompt-embeds', epath,
                   '--out', out, '--mesh', 'fsdp=2'] + te)
+    assert not torch.distributed.is_initialized()

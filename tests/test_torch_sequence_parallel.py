@@ -268,14 +268,15 @@ def test_sharding_one_process_keeps_one_device():
 
 def test_shard_refuses_weight_sharding_size():
     """``min_size`` sizes the ``tensor`` split (JAX's rule), so ``shard``
-    takes it; with ``sp`` alone nothing is split. The axes that would
-    shard weights by another rule (``fsdp``) are refused by name, with
-    the item that ports them in serving."""
+    takes it; with ``sp`` alone nothing is split. ``fsdp`` shards weights
+    beside ``sp`` by FSDP2's rule (``tests/test_torch_serving_mesh.py``),
+    where ``min_size`` does not apply; in one process ``fsdp=2`` does not
+    meet the device count and is refused as JAX refuses it."""
     pipe = ArcFluxPipeline(TArcFlux(dtype=torch.float32, **FLUX_CFG))
     assert pipe.shard({'sp': 1}, min_size=2 ** 16) == {'sp': None}
     assert all(getattr(m, 'tensor_split', None) is None
                for m in pipe.transformer.modules())
-    with pytest.raises(NotImplementedError, match='queue A item 5.6'):
+    with pytest.raises(ValueError, match='!= 1 devices'):
         pipe.shard({'sp': 1, 'fsdp': 2}, min_size=2 ** 16)
 
 

@@ -308,12 +308,18 @@ def test_moe_blocks_under_tensor_are_refused_by_name():
         set_tensor_parallel(model, LocalTensor(2), min_size=1)
 
 
-@pytest.mark.parametrize('axes', [{'fsdp': 2}, {'pipe': 2}, {'expert': 2},
-                                  {'data': 2, 'tensor': 2}])
+# serving takes fsdp, pipe, expert and data beside tensor now
+# (tests/test_torch_serving_mesh.py); each case is a composition of those
+# axes that still waits, with its item, refused before any mesh is made
+@pytest.mark.parametrize('axes', [(dict(fsdp=2, pipe=2), '5.10'),
+                                  (dict(pipe=2, tensor=2), '5.12'),
+                                  (dict(expert=2, sp=2), '5.8'),
+                                  (dict(expert=2, tensor=2), '5.12')])
 def test_serving_refuses_the_other_weight_axes(axes):
+    refused, item = axes
     pipe = ArcFluxPipeline(TArcFlux(dtype=torch.float32, **_seq().FLUX_CFG))
-    with pytest.raises(NotImplementedError, match='queue A item 5.6'):
-        pipe.shard(axes)
+    with pytest.raises(NotImplementedError, match=rf'queue A item {item}'):
+        pipe.shard(refused)
 
 
 def test_ulysses_under_tensor_needs_the_local_heads_to_divide():
